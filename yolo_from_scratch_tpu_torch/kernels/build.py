@@ -1,0 +1,104 @@
+"""Build the CUDA kernels with nvcc at first use and load them with ctypes.
+
+Every `csrc/*.cu` source compiles into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds). The library
+lands in `build/torch_kernels/` at the repository root, under a file name
+that carries a hash of the sources and flags, so a stale build is never
+loaded. A file lock serialises concurrent builds. If nvcc is missing or
+fails, the error carries nvcc's stderr; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    # no FMA contraction: the NMS IoU must round like unfused torch ops
+    "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (not on PATH, CUDA_HOME or /usr/local/cuda): the "
+        "port's CUDA kernels are built from csrc/ at first use"
+    )
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libyolo_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the sources if the hashed library is absent. Returns (path,
+    seconds spent compiling, 0.0 when the library was already built)."""
+    target = library_path()
+    if target.exists():
+        return target, 0.0
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if target.exists():  # another process built it while we waited
+            return target, 0.0
+        tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr}"
+            )
+        os.replace(tmp, target)
+    return target, seconds
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every exported
+    function's argtypes and restype declared."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.nms_keep_mask_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                      ctypes.c_float, ptr]
+    lib.nms_keep_mask_f32.restype = i32
+    lib.nms_max_boxes.argtypes = []
+    lib.nms_max_boxes.restype = i32
+    lib.nms_error_string.argtypes = [i32]
+    lib.nms_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,106 @@
+"""Building blocks: Conv+BN+SiLU, Bottleneck, C3 (CSP), SPPF (counterpart
+of `yolo_from_scratch_tpu/models/blocks.py`).
+
+Modules take NCHW tensors. Submodule names are the JAX package's, so its
+parameter path `a/b/conv/kernel` is the state-dict key `a.b.conv.weight`.
+Conv weights are held in the compute dtype (float32 or bfloat16, as the
+JAX package casts its float32 params at use); BatchNorm parameters stay
+float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from yolo_from_scratch_tpu_torch.models.fused_bn import BNSiLU
+
+
+class ConvBNSiLU(nn.Module):
+    """Conv2d + BatchNorm + SiLU.
+
+    `use_bias=False` matches the reference's ConvBlock; `use_bias=True`
+    its raw `nn.Conv2d + BN + SiLU` stem/downsample and SPPF convs, which
+    keep the (redundant) conv bias before BN.
+    """
+
+    def __init__(self, cin, features, kernel=1, stride=1, use_bias=False,
+                 dtype=None, device=None):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, features, kernel, stride,
+                              padding=kernel // 2, bias=use_bias,
+                              dtype=dtype, device=device)
+        self.bn = BNSiLU(features, device=device)
+
+    def forward(self, x, train: bool = False):
+        return self.bn(self.conv(x), train)
+
+
+class Bottleneck(nn.Module):
+    """Two 3x3 ConvBNSiLU with a residual add. The model builds only the
+    JAX package's shortcut=True, cin == cout case, which always adds."""
+
+    def __init__(self, features, dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.conv1 = ConvBNSiLU(features, features, 3, **kw)
+        self.conv2 = ConvBNSiLU(features, features, 3, **kw)
+
+    def forward(self, x, train: bool = False):
+        return x + self.conv2(self.conv1(x, train), train)
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convolutions: hidden = features // 2; path 1
+    runs `n` Bottlenecks, path 2 is a 1x1; concat then 1x1 project."""
+
+    def __init__(self, cin, features, n=1, dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        hidden = features // 2
+        self.conv1 = ConvBNSiLU(cin, hidden, 1, **kw)
+        self.n = n
+        for i in range(n):
+            self.add_module(f"bottleneck{i}",
+                            Bottleneck(hidden, **kw))
+        self.conv2 = ConvBNSiLU(cin, hidden, 1, **kw)
+        self.conv3 = ConvBNSiLU(2 * hidden, features, 1, **kw)
+
+    def forward(self, x, train: bool = False):
+        x1 = self.conv1(x, train)
+        for i in range(self.n):
+            x1 = getattr(self, f"bottleneck{i}")(x1, train)
+        x2 = self.conv2(x, train)
+        return self.conv3(torch.cat([x1, x2], dim=1), train)
+
+
+def maxpool_same(x, k: int):
+    """k x k stride-1 SAME max pool with -inf padding; `F.max_pool2d`
+    pads with -inf, so this is the forward of the JAX `_maxpool_same`."""
+    return F.max_pool2d(x, k, 1, k // 2)
+
+
+class SPPF(nn.Module):
+    """Spatial Pyramid Pooling - Fast: 1x1 reduce to cin//2, three
+    sequential 5x5 stride-1 max pools, concat [x, y1, y2, y3], 1x1 out.
+    Both convs carry a bias, as the reference's raw nn.Conv2d do."""
+
+    def __init__(self, cin, features, dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        hidden = cin // 2
+        self.conv1 = ConvBNSiLU(cin, hidden, 1, use_bias=True, **kw)
+        self.conv2 = ConvBNSiLU(4 * hidden, features, 1, use_bias=True, **kw)
+
+    def forward(self, x, train: bool = False):
+        x = self.conv1(x, train)
+        y1 = maxpool_same(x, 5)
+        y2 = maxpool_same(y1, 5)
+        y3 = maxpool_same(y2, 5)
+        return self.conv2(torch.cat([x, y1, y2, y3], dim=1), train)
+
+
+def upsample_nearest_2x(x):
+    """Nearest-neighbor 2x upsample of an NCHW tensor."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")

@@ -1,0 +1,150 @@
+"""YOLOv5-style FPN detector (counterpart of
+`yolo_from_scratch_tpu/models/yolo.py`, its unpacked branches).
+
+stem (2 stride-2 convs) -> backbone P3/P4/P5 -> SPPF -> FPN top-down with
+laterals -> PANet bottom-up -> three heads (2 ConvBNSiLU + 1x1 conv with
+bias). The public layouts are the JAX package's: images in NHWC
+(B, S, S, 3), head outputs (B, H, W, A, 5+nc) in float32. Inside, tensors
+are NCHW (the NHWC input permuted, which is channels-last in memory).
+
+Not ported: the anchor-free head (a later PR) and the space-to-depth
+packed layouts (`packed_*`), which exist for TPU lane fill; both raise.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from yolo_from_scratch_tpu.config import YoloConfig
+from yolo_from_scratch_tpu_torch.models.blocks import (
+    C3,
+    SPPF,
+    ConvBNSiLU,
+    upsample_nearest_2x,
+)
+
+
+def compute_dtype(cfg: YoloConfig) -> torch.dtype:
+    """The torch dtype of `cfg.compute_dtype` ('float32' or 'bfloat16')."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if cfg.compute_dtype not in dtypes:
+        raise ValueError(f"unsupported compute_dtype {cfg.compute_dtype!r}")
+    return dtypes[cfg.compute_dtype]
+
+
+class DetectHead(nn.Module):
+    """2x ConvBNSiLU(3x3) + 1x1 conv(bias) -> (B, H, W, A, 5+nc)."""
+
+    def __init__(self, channels, num_anchors, num_classes, dtype=None,
+                 device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.num_anchors = num_anchors
+        self.num_classes = num_classes
+        self.conv1 = ConvBNSiLU(channels, channels, 3, **kw)
+        self.conv2 = ConvBNSiLU(channels, channels, 3, **kw)
+        self.pred = nn.Conv2d(channels, num_anchors * (5 + num_classes), 1,
+                              bias=True, **kw)
+
+    def forward(self, x, train: bool = False):
+        x = self.pred(self.conv2(self.conv1(x, train), train))
+        b, _, h, w = x.shape
+        # channel c = a * (5+nc) + k, as the JAX head's NHWC reshape
+        return x.permute(0, 2, 3, 1).reshape(b, h, w, self.num_anchors,
+                                             5 + self.num_classes)
+
+
+class YOLO(nn.Module):
+    """Full detector. `forward(images NHWC in [0,1]) -> [p3, p4, p5]`."""
+
+    def __init__(self, cfg: YoloConfig, device=None):
+        super().__init__()
+        if cfg.head_type != "anchor":
+            raise NotImplementedError(
+                f"head_type={cfg.head_type!r} is not ported yet")
+        if cfg.packed_stem or cfg.packed_interior or cfg.packed_p3:
+            raise NotImplementedError(
+                "packed_* layouts are TPU lane-fill layouts and are not "
+                "ported; checkpoints are interchangeable with the unpacked "
+                "layout")
+        self.cfg = cfg
+        dt = compute_dtype(cfg)
+        kw = dict(dtype=dt, device=device)
+        cs, c3, c4, c5 = cfg.c_stem, cfg.c_p3, cfg.c_p4, cfg.c_p5
+        r1, r2 = cfg.repeats(1), cfg.repeats(2)
+
+        # backbone
+        self.stem0 = ConvBNSiLU(3, cs // 2, 3, 2, use_bias=True, **kw)
+        self.stem1 = ConvBNSiLU(cs // 2, cs, 3, 2, use_bias=True, **kw)
+        self.bb_p3_c3a = C3(cs, cs, r1, **kw)
+        self.bb_p3_down = ConvBNSiLU(cs, c3, 3, 2, use_bias=True, **kw)
+        self.bb_p3_c3b = C3(c3, c3, r2, **kw)
+        self.bb_p4_down = ConvBNSiLU(c3, c4, 3, 2, use_bias=True, **kw)
+        self.bb_p4_c3 = C3(c4, c4, r2, **kw)
+        self.bb_p5_down = ConvBNSiLU(c4, c5, 3, 2, use_bias=True, **kw)
+        self.bb_p5_c3 = C3(c5, c5, r1, **kw)
+        self.sppf = SPPF(c5, c5, **kw)
+        # FPN top-down
+        self.lateral_p4 = ConvBNSiLU(c4, c4, 1, **kw)
+        self.lateral_p3 = ConvBNSiLU(c3, c3, 1, **kw)
+        self.reduce_p5_for_p4 = ConvBNSiLU(c5, c4, 1, **kw)
+        self.merge_p4 = C3(2 * c4, c4, r1, **kw)
+        self.reduce_p4_for_p3 = ConvBNSiLU(c4, c3, 1, **kw)
+        self.merge_p3 = C3(2 * c3, c3, r1, **kw)
+        # PANet bottom-up
+        self.downsample_p3_to_p4 = ConvBNSiLU(c3, c3, 3, 2, **kw)
+        self.panet_merge_p4 = C3(c3 + c4, c4, r1, **kw)
+        self.downsample_p4_to_p5 = ConvBNSiLU(c4, c4, 3, 2, **kw)
+        self.panet_merge_p5 = C3(c4 + c5, c5, r1, **kw)
+        # heads
+        na, nc = cfg.num_anchors, cfg.num_classes
+        self.head_p3 = DetectHead(c3, na, nc, **kw)
+        self.head_p4 = DetectHead(c4, na, nc, **kw)
+        self.head_p5 = DetectHead(c5, na, nc, **kw)
+
+    def forward(self, x, train: bool = False):
+        x = x.to(compute_dtype(self.cfg)).permute(0, 3, 1, 2)  # NHWC -> NCHW
+
+        x = self.stem1(self.stem0(x, train), train)
+        x = self.bb_p3_down(self.bb_p3_c3a(x, train), train)
+        p3_backbone = self.bb_p3_c3b(x, train)
+        x = self.bb_p4_down(p3_backbone, train)
+        p4_backbone = self.bb_p4_c3(x, train)
+        x = self.bb_p5_down(p4_backbone, train)
+        p5_backbone = self.sppf(self.bb_p5_c3(x, train), train)
+
+        p4_lateral = self.lateral_p4(p4_backbone, train)
+        p3_lateral = self.lateral_p3(p3_backbone, train)
+        p5_red = self.reduce_p5_for_p4(p5_backbone, train)
+        p4_fpn = self.merge_p4(
+            torch.cat([upsample_nearest_2x(p5_red), p4_lateral], dim=1), train)
+        p4_red = self.reduce_p4_for_p3(p4_fpn, train)
+        p3_fpn = self.merge_p3(
+            torch.cat([upsample_nearest_2x(p4_red), p3_lateral], dim=1), train)
+
+        p3_down = self.downsample_p3_to_p4(p3_fpn, train)
+        p4_panet = self.panet_merge_p4(torch.cat([p3_down, p4_fpn], dim=1),
+                                       train)
+        p4_down = self.downsample_p4_to_p5(p4_panet, train)
+        # the P5 PANet merge concatenates with the post-SPPF backbone P5,
+        # not an FPN P5 (as the reference does)
+        p5_panet = self.panet_merge_p5(
+            torch.cat([p4_down, p5_backbone], dim=1), train)
+
+        outs = [self.head_p3(p3_fpn, train), self.head_p4(p4_panet, train),
+                self.head_p5(p5_panet, train)]
+        for out, gs in zip(outs, self.cfg.grid_sizes):
+            if out.shape[1:3] != (gs, gs):
+                raise ValueError(f"head grid {tuple(out.shape[1:3])} != "
+                                 f"({gs}, {gs}) for img_size "
+                                 f"{self.cfg.img_size}")
+        # heads return float32 so decode runs in full precision even when
+        # the convs compute in bfloat16
+        return [out.float() for out in outs]
+
+
+def count_params(model: nn.Module) -> int:
+    """Trainable parameters (the JAX package's 'params' collection; BN
+    statistics are buffers, as they are 'batch_stats' there)."""
+    return sum(p.numel() for p in model.parameters())

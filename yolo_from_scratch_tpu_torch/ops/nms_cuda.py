@@ -1,0 +1,115 @@
+"""Greedy NMS through the hand-written CUDA kernel (counterpart of
+`yolo_from_scratch_tpu/ops/nms_pallas.py`).
+
+The kernel (`csrc/nms.cu`) computes the keep mask over score-sorted,
+class-offset boxes, one thread block per image. Around it, in plain
+torch on the same stream and exactly as `nms_pallas.py` does outside its
+Pallas kernel: the sort and the scatter back (skipped when `presorted`),
+the class offsets and the top-k compaction.
+
+Dispatch is by the tensors' device: CPU tensors go to the plain version
+(`ops/nms.py`), CUDA tensors launch the kernel or raise, anything else
+raises. There is no fallback from the kernel to the plain version.
+`launches` counts kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from yolo_from_scratch_tpu_torch.ops import nms as nms_plain
+from yolo_from_scratch_tpu_torch.ops.nms import (
+    _class_offset_boxes,
+    select_top,
+    sort_desc,
+)
+
+launches = 0
+
+
+def _launch_keep_mask(boxes_s, scores_s, iou_threshold, cap):
+    """Run the kernel on sorted (B, N, 4) / (B, N) float32 CUDA tensors."""
+    global launches
+    from yolo_from_scratch_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    b, n = scores_s.shape
+    if n > lib.nms_max_boxes():
+        raise ValueError(f"NMS kernel takes at most {lib.nms_max_boxes()} "
+                         f"boxes per image, got {n}")
+    boxes_s = boxes_s.contiguous()
+    scores_s = scores_s.contiguous()
+    keep = torch.empty((b, n), dtype=torch.bool, device=boxes_s.device)
+    if b == 0 or n == 0:
+        return keep
+    with torch.cuda.device(boxes_s.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.nms_keep_mask_f32(
+            boxes_s.data_ptr(), scores_s.data_ptr(), keep.data_ptr(),
+            b, n, cap, float(iou_threshold), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"NMS kernel launch failed: "
+                           f"{lib.nms_error_string(rc).decode()} ({rc})")
+    launches += 1
+    return keep
+
+
+def nms_keep_mask_batched(boxes, scores, iou_threshold, max_keep=None,
+                          presorted=False):
+    """Batched greedy NMS. boxes (B, N, 4), scores (B, N); entries <=
+    NEG_INF/2 are padding. `presorted`: scores already descend per image
+    (e.g. straight out of the top-k), so the sort and the scatter back are
+    skipped. Returns a (B, N) bool keep mask in the original order."""
+    if boxes.device.type == "cpu":
+        return nms_plain.nms_keep_mask(boxes, scores, iou_threshold,
+                                       max_keep=max_keep, presorted=presorted)
+    if boxes.device.type != "cuda" or scores.device != boxes.device:
+        raise ValueError(f"NMS takes CPU or CUDA tensors on one device, got "
+                         f"boxes on {boxes.device}, scores on {scores.device}")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(f"NMS kernel takes float32, got {boxes.dtype}, "
+                        f"{scores.dtype}")
+    if (boxes.dim() != 3 or boxes.shape[2] != 4
+            or scores.shape != boxes.shape[:2]):
+        raise ValueError(f"expected boxes (B, N, 4) and scores (B, N), got "
+                         f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
+    b, n = scores.shape
+    if presorted:
+        boxes_s, scores_s = boxes, scores
+    else:
+        scores_s, order = sort_desc(scores, dim=1)
+        boxes_s = torch.gather(boxes, 1, order[..., None].expand(b, n, 4))
+    cap = n if max_keep is None else min(max_keep, n)
+    keep = _launch_keep_mask(boxes_s, scores_s, iou_threshold, cap)
+    if presorted:
+        return keep
+    return torch.zeros_like(keep).scatter_(1, order, keep)
+
+
+def nms_keep_mask(boxes, scores, iou_threshold, max_keep=None,
+                  presorted=False):
+    """Single image: (N, 4), (N,) -> (N,) bool keep mask."""
+    return nms_keep_mask_batched(boxes[None], scores[None], iou_threshold,
+                                 max_keep=max_keep, presorted=presorted)[0]
+
+
+def batched_nms_fixed_cuda(boxes, scores, classes, iou_threshold,
+                           max_outputs, presorted=False):
+    """Class-aware global NMS with fixed-size output, one image. Same
+    contract as `ops.nms.batched_nms_fixed`."""
+    keep = nms_keep_mask(_class_offset_boxes(boxes, classes), scores,
+                         iou_threshold, max_keep=max_outputs,
+                         presorted=presorted)
+    return select_top(keep, boxes, scores, classes, max_outputs)
+
+
+def batched_nms_fixed_cuda_images(boxes, scores, classes, iou_threshold,
+                                  max_outputs, presorted=False):
+    """Class-aware global NMS over a batch of images, one kernel launch.
+    (B, N, 4)/(B, N)/(B, N) -> (B, K, 4)/(B, K)/(B, K)/(B, K), per image the
+    contract of `ops.nms.batched_nms_fixed`."""
+    keep = nms_keep_mask_batched(_class_offset_boxes(boxes, classes), scores,
+                                 iou_threshold, max_keep=max_outputs,
+                                 presorted=presorted)
+    return select_top(keep, boxes, scores, classes, max_outputs)
