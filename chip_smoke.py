@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-Drives the port's single-image serving path, the 's' model (width 0.50,
-depth 0.33) at 640x640, nc=1, anchor head, random weights from a seed,
-through `Predictor` on the card, and checks the hand-written CUDA NMS
-kernel against its plain PyTorch version. Phases, each of which raises on
-failure (the script then exits non-zero and prints no result):
+Drives the port's two paths on the card with the 's' model (width 0.50,
+depth 0.33) at 640x640, nc=1, anchor head, random weights from a seed:
+single-image serving through `Predictor`, and training through the CLI,
+and checks each hand-written CUDA kernel (NMS; the fused 3x3 conv
+backward) against its plain PyTorch version. Phases, each of which raises
+on failure (the script then exits non-zero and prints no result):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the kernels from `csrc/` into `build/torch_kernels/`;
@@ -17,7 +18,18 @@ failure (the script then exits non-zero and prints no result):
 4. the slice: serves requests, counts the kernel's launches, checks the
    detections, the TF32-off parity of the pre-NMS candidates with the CPU,
    and equality with the plain NMS on the card; prints the p50 latency;
-5. one bfloat16 request, which must be finite.
+5. one bfloat16 request, which must be finite;
+6. the conv backward kernel against its plain version (TF32 off) at the
+   training path's shapes and two small ones, bit-equal across two runs;
+   kernel, plain and cuDNN backward times;
+7. the training slice: the CLI trains one epoch of 2 steps at batch 8 in
+   bfloat16 with YOLO_FUSED_CONV_BWD=1 on a synthetic dataset, counts the
+   kernel's launches, and serves one request from the checkpoint it wrote;
+8. one float32 train step (TF32 off) on the card against the port on the
+   CPU: loss and gradients;
+9. train img/s at batch 8, bfloat16, with the kernel on and off, the
+   device time per step, and 30 steps on one batch that must lower the
+   loss.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -25,25 +37,42 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import io
 import json
+import os
+import re
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from yolo_from_scratch_tpu_torch import INV255, YoloConfig
+from yolo_from_scratch_tpu_torch import INV255, YoloConfig, cli
+from yolo_from_scratch_tpu_torch.data import DataLoader, YoloDataset
 from yolo_from_scratch_tpu_torch.device import cuda_device, tf32_disabled
 from yolo_from_scratch_tpu_torch.infer.predict import Predictor
 from yolo_from_scratch_tpu_torch.kernels.build import build, load_library
 from yolo_from_scratch_tpu_torch.models.yolo import YOLO
+from yolo_from_scratch_tpu_torch.ops import conv_bwd
 from yolo_from_scratch_tpu_torch.ops import nms as nms_plain
 from yolo_from_scratch_tpu_torch.ops import nms_cuda
+from yolo_from_scratch_tpu_torch.train.steps import (
+    create_train_state,
+    make_loss_fn,
+    make_train_step,
+)
+from yolo_from_scratch_tpu_torch.utils.checkpoint import load_checkpoint
 from yolo_from_scratch_tpu_torch.utils.convert import (
     from_flax_variables,
     random_variables,
 )
+from yolo_from_scratch_tpu_torch.utils.synth import make_dataset
 
 SEED = 0
 CONF = 0.005  # random weights give obj ~ sigmoid(-4.6) ~ 0.01
@@ -55,6 +84,32 @@ TIMING_RUNS = 20
 # up to the largest anchor (373 px), a probability by at most 1/4.
 CORNER_TOL_PX = 1e-2
 PROB_TOL = 1e-5
+# conv backward kernel vs its plain version, relative to the largest
+# reference magnitude: float32 sums in another order; bf16 dx is rounded to
+# bf16 once from float32 sums taken in another order (one bf16 ulp is 2^-8
+# of a value), dW stays float32
+K2_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-3)}
+# (B, H, W, dtype): the training path's three shapes, then two small ones
+K2_CASES = ((8, 40, 40, torch.bfloat16), (8, 80, 80, torch.bfloat16),
+            (8, 40, 40, torch.float32), (2, 16, 16, torch.float32),
+            (1, 7, 5, torch.float32))
+GATED_CONVS_BF16 = 8  # 6 bottleneck convs at 40x40 + head_p3's two at 80x80
+TRAIN_STEPS = 2       # 16 synthetic images at batch 8
+# float32 step on the card (TF32 off) vs the CPU: loss relative, gradients
+# against each tensor's largest magnitude
+PARITY_LOSS_TOL = 1e-4
+PARITY_GRAD_TOL = 1e-3
+# conv biases in front of a train-mode BatchNorm: zero gradient in theory,
+# rounding noise in practice, so not compared
+PRE_BN_BIASES = ("stem0.conv.bias", "stem1.conv.bias", "bb_p3_down.conv.bias",
+                 "bb_p4_down.conv.bias", "bb_p5_down.conv.bias",
+                 "sppf.conv1.conv.bias", "sppf.conv2.conv.bias")
+TIMED_STEPS = 20
+# steps before each timed run: with 3, the first timed run was still the
+# slowest of the four in every call
+WARMUP_STEPS = 10
+IMG_SIZE = 640  # phases 7-9
+EPOCH_LINE = re.compile(r"Epoch 1: Loss: .* \| LR: .* \| (\S+) img/s")
 
 
 def log(msg):
@@ -75,6 +130,30 @@ def median_ms(fn, runs=TIMING_RUNS, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, runs):
+    """{CUDA kernel name: device ms} over `runs` calls of fn, from the
+    profiler's self times. Host launch overhead is not in it, unlike
+    `median_ms`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def device_ms(fn, runs=TIMING_RUNS, warmup=2):
+    """Device time of one call (profiler), after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    return sum(kernel_ms(fn, runs).values()) / runs
 
 
 def nms_case(rng, b, n, ncls, tied):
@@ -280,6 +359,250 @@ def phase_bf16(state, cfg, requests, dev):
     log(f"bfloat16 request: {len(dets)} detections, all finite")
 
 
+def _conv_case(b, h, w, dtype, dev, seed):
+    """x, dy (B, 64, H, W) channels-last and w (64, 64, 3, 3) on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cl = torch.channels_last
+    x = torch.randn((b, 64, h, w), generator=g, device=dev).to(
+        dtype, memory_format=cl)
+    dy = torch.randn((b, 64, h, w), generator=g, device=dev).to(
+        dtype, memory_format=cl)
+    wt = (torch.randn((64, 64, 3, 3), generator=g, device=dev) * 0.05).to(
+        dtype)
+    return x, dy, wt
+
+
+def phase_conv_bwd(dev):
+    """The conv backward kernel against its plain version (TF32 off), two
+    runs bit-equal; kernel, plain and cuDNN backward times."""
+    max_abs_err = 0.0
+    times = {}
+    for i, (b, h, w, dtype) in enumerate(K2_CASES):
+        x, dy, wt = _conv_case(b, h, w, dtype, dev, SEED + i)
+        dx, dw = conv_bwd._launch(x, dy, wt)
+        dx2, dw2 = conv_bwd._launch(x, dy, wt)
+        with tf32_disabled():
+            dx_p, dw_p = conv_bwd.fused_bwd_plain(x, dy, wt)
+        torch.cuda.synchronize()
+        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            raise AssertionError(f"conv backward kernel not deterministic at "
+                                 f"B={b} {h}x{w} {dtype}")
+        tol_dx, tol_dw = K2_TOL[dtype]
+        err_dx = (dx.float() - dx_p.float()).abs().max().item()
+        err_dw = (dw - dw_p).abs().max().item()
+        rel_dx = err_dx / dx_p.float().abs().max().item()
+        rel_dw = err_dw / dw_p.abs().max().item()
+        max_abs_err = max(max_abs_err, err_dx, err_dw)
+        name = f"B={b} {h}x{w} {str(dtype).split('.')[1]}"
+        if (dx.dtype != dtype or not dx.is_contiguous(
+                memory_format=torch.channels_last)
+                or rel_dx > tol_dx or rel_dw > tol_dw):
+            raise AssertionError(f"conv backward kernel vs plain at {name}: "
+                                 f"dx {rel_dx:.3e} (tol {tol_dx:.3e}), dW "
+                                 f"{rel_dw:.3e} (tol {tol_dw:.3e})")
+
+        def kernel():
+            conv_bwd._launch(x, dy, wt)
+
+        def plain():
+            with tf32_disabled():
+                conv_bwd.fused_bwd_plain(x, dy, wt)
+
+        def cudnn():
+            torch.nn.grad.conv2d_input(x.shape, wt, dy, padding=1)
+            torch.nn.grad.conv2d_weight(x, wt.shape, dy, padding=1)
+
+        ev = [median_ms(f) for f in (kernel, plain, cudnn)]
+        dev_ms = [device_ms(f) for f in (kernel, plain, cudnn)]
+        times[(b, h, w, dtype)] = dev_ms
+        log(f"  conv bwd {name}: dx err {rel_dx:.3e}, dW err {rel_dw:.3e} "
+            f"of max (tol {tol_dx:.1e} / {tol_dw:.1e}), 2 runs bit-equal; "
+            f"device ms (profiler, {TIMING_RUNS} calls): kernel "
+            f"{dev_ms[0]:.4f}, plain {dev_ms[1]:.4f}, cuDNN {dev_ms[2]:.4f}; "
+            f"per call with host launch (CUDA events, median of "
+            f"{TIMING_RUNS}): {ev[0]:.4f} / {ev[1]:.4f} / {ev[2]:.4f}")
+    (k40, p40, c40), (k80, p80, c80) = (times[K2_CASES[0]],
+                                        times[K2_CASES[1]])
+    log(f"conv bwd device time per bf16 train step (6 calls at 40x40 + 2 at "
+        f"80x80, B=8): kernel {6 * k40 + 2 * k80:.4f} ms, plain "
+        f"{6 * p40 + 2 * p80:.4f} ms, cuDNN dgrad+wgrad (TF32 default) "
+        f"{6 * c40 + 2 * c80:.4f} ms")
+    return max_abs_err, k40, p40
+
+
+class _Tee(io.TextIOBase):
+    """Write to stdout and keep a copy."""
+
+    def __init__(self):
+        self.text = io.StringIO()
+        self.out = sys.stdout
+
+    def write(self, s):
+        self.text.write(s)
+        self.out.write(s)
+        self.out.flush()
+        return len(s)
+
+
+def phase_train_slice(dev, workdir):
+    """The CLI trains one epoch (2 steps of 8) in bf16 with the fused
+    backward on; its checkpoint serves one request."""
+    t0 = time.perf_counter()
+    yaml_path = make_dataset(workdir / "data", n_train=8 * TRAIN_STEPS,
+                             n_val=8, img_size=IMG_SIZE, seed=SEED)
+    log(f"synthetic dataset: {8 * TRAIN_STEPS} train + 8 val images at "
+        f"{IMG_SIZE} in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    backend = YoloDataset(str(workdir / "data" / "val" / "images")).backend
+    log(f"dataset backend '{backend}' ({time.perf_counter() - t0:.2f} s to "
+        f"open, including any build of the native JPEG loader)")
+
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    tee = _Tee()
+    try:
+        conv_bwd.launches = 0
+        with contextlib.redirect_stdout(tee):
+            rc = cli.main([str(yaml_path), "--epochs", "1", "--batch-size",
+                           "8", "--size", "s", "--img-size", str(IMG_SIZE)])
+        torch.cuda.synchronize()
+        launches = conv_bwd.launches
+    finally:
+        os.chdir(cwd)
+    out = tee.text.getvalue()
+    epoch = EPOCH_LINE.search(out)
+    saved = re.search(r"Training complete\. Model saved to (\S+)", out)
+    want = GATED_CONVS_BF16 * TRAIN_STEPS * conv_bwd.LAUNCHES_PER_CALL
+    if rc != 0 or not epoch or not saved or f"Device: {dev.type}" not in out:
+        raise AssertionError(f"training CLI: rc {rc}, output:\n{out}")
+    if launches != want:
+        raise AssertionError(f"conv backward kernel launched {launches} "
+                             f"times, want {want} ({GATED_CONVS_BF16} convs "
+                             f"x {TRAIN_STEPS} steps x "
+                             f"{conv_bwd.LAUNCHES_PER_CALL})")
+    log(f"training slice: conv backward kernel launches {launches} "
+        f"(= {GATED_CONVS_BF16} convs x {TRAIN_STEPS} steps x "
+        f"{conv_bwd.LAUNCHES_PER_CALL}), epoch img/s {epoch.group(1)} "
+        f"(first-step warm-up, PIL decode and eval included)")
+
+    state, cfg, meta = load_checkpoint(workdir / saved.group(1))
+    dtype = "bfloat16" if dev.type == "cuda" else "float32"  # --dtype auto
+    if cfg.compute_dtype != dtype or meta["extra"] != {"step": TRAIN_STEPS}:
+        raise AssertionError(f"checkpoint: {cfg}, {meta}")
+    image = sorted((workdir / "data" / "val" / "images").glob("*.jpg"))[0]
+    nms_cuda.launches = 0
+    dets = Predictor(state, cfg, conf_threshold=CONF, iou_threshold=IOU,
+                     device=dev)(str(image))
+    if nms_cuda.launches != 1 or not np.isfinite(
+            np.asarray(dets, np.float64)).all():
+        raise AssertionError(f"checkpoint request: {nms_cuda.launches} NMS "
+                             f"launches, {len(dets)} detections")
+    log(f"checkpoint {saved.group(1)} read back: {dtype}, step "
+        f"{meta['extra']['step']}; one request, 1 NMS launch, {len(dets)} "
+        f"detections, all finite")
+    return launches, yaml_path
+
+
+def _batch(yaml_path, split, batch_size, dev):
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    config = load_dataset_yaml(yaml_path)
+    loader = DataLoader(YoloDataset(config[split], 1, np.asarray(
+        YoloConfig().anchors, np.float32), IMG_SIZE), batch_size=batch_size,
+        prefetch=0)
+    images, targets = next(iter(loader))
+    return (torch.from_numpy(images).to(dev),
+            [torch.from_numpy(t).to(dev) for t in targets])
+
+
+def phase_parity(dev, yaml_path):
+    """One float32 train step's loss and gradients, card (TF32 off) vs
+    CPU, from the same seeded weights and batch."""
+    cfg = YoloConfig.from_size("s", num_classes=1, img_size=IMG_SIZE)
+    cpu = torch.device("cpu")
+    models = {}
+    models[cpu] = YOLO(cfg).reset_parameters(
+        torch.Generator().manual_seed(SEED))
+    models[dev] = copy.deepcopy(models[cpu]).to(dev)
+    totals = {}
+    for device, model in models.items():
+        images, targets = _batch(yaml_path, "train", 2, device)
+        with tf32_disabled():
+            total, _ = make_loss_fn(cfg, device=device)(model, images,
+                                                        targets)
+            total.backward()
+        totals[device] = total.item()
+    rel_loss = abs(totals[dev] - totals[cpu]) / abs(totals[cpu])
+    worst = 0.0, ""
+    cpu_params = dict(models[cpu].named_parameters())
+    for name, p in models[dev].named_parameters():
+        if name in PRE_BN_BIASES:
+            continue
+        want = cpu_params[name].grad
+        err = ((p.grad.cpu() - want).abs().max()
+               / want.abs().max().clamp(min=1e-30)).item()
+        worst = max(worst, (err, name))
+    log(f"float32 step, card (TF32 off, fused conv backward kernel) vs CPU "
+        f"(plain version), 's' @{IMG_SIZE} b2: loss {totals[dev]:.6f} vs "
+        f"{totals[cpu]:.6f} ({rel_loss:.2e} relative, tol "
+        f"{PARITY_LOSS_TOL}); worst gradient {worst[0]:.2e} of its "
+        f"tensor's max ({worst[1]}; tol {PARITY_GRAD_TOL})")
+    if rel_loss > PARITY_LOSS_TOL or worst[0] > PARITY_GRAD_TOL:
+        raise AssertionError("float32 step on the card differs from the CPU")
+    return rel_loss, worst
+
+
+def phase_throughput(dev, yaml_path):
+    """Train img/s at batch 8, bf16, the kernel on and off in turns; the
+    device time per step; 30 steps on one batch lower the loss."""
+    cfg = YoloConfig.from_size("s", num_classes=1, img_size=IMG_SIZE,
+                               compute_dtype="bfloat16")
+    images, targets = _batch(yaml_path, "train", 8, dev)
+    state = create_train_state(cfg, 1e-3, seed=SEED, device=dev)
+    step = make_train_step(cfg, device=dev)
+    rates = {"1": [], "0": []}
+    for flag in ("1", "0", "0", "1"):
+        os.environ["YOLO_FUSED_CONV_BWD"] = flag
+        for _ in range(WARMUP_STEPS):
+            step(state, images, targets)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            step(state, images, targets)
+        torch.cuda.synchronize()
+        rates[flag].append(8 * TIMED_STEPS / (time.perf_counter() - t0))
+    busy_ms = {}
+    for flag in ("1", "0"):
+        os.environ["YOLO_FUSED_CONV_BWD"] = flag
+        per_kernel = kernel_ms(lambda: step(state, images, targets), 3)
+        busy_ms[flag] = (sum(per_kernel.values()) / 3,
+                         sum(v for k, v in per_kernel.items()
+                             if "conv3x3_bwd" in k) / 3)
+    for flag, label in (("1", "on"), ("0", "off")):
+        busy, k2 = busy_ms[flag]
+        wall = 8e3 / statistics.mean(rates[flag])
+        log(f"train 's' @{IMG_SIZE} b8 bf16, fused conv backward {label}: "
+            f"{rates[flag][0]:.1f} / {rates[flag][1]:.1f} img/s (runs in "
+            f"turns, {TIMED_STEPS} steps each after {WARMUP_STEPS} warm-up; "
+            f"host clock, synchronized); {wall:.2f} ms a step; device busy "
+            f"{busy:.2f} ms "
+            f"a step (profiler, 3 steps), of it the kernel {k2:.3f} ms; "
+            f"idle {max(0.0, 1 - busy / wall):.0%}")
+
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    state = create_train_state(cfg, 1e-3, seed=SEED + 1, device=dev)
+    losses = [step(state, images, targets)[1]["loss"] for _ in range(30)]
+    losses = torch.stack(losses).tolist()
+    log(f"30 steps on one batch (lr 1e-3): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall over 30 steps: {losses}")
+    return rates
+
+
+
+
 def main():
     # 1. device
     dev = cuda_device()
@@ -297,13 +620,26 @@ def main():
     load_library()
     log(f"build: {path.name}, nvcc {nvcc_s:.2f} s, build+load "
         f"{time.perf_counter() - t0:.2f} s")
+    ptxas = path.with_suffix(".log")
+    for line in (ptxas.read_text().splitlines() if ptxas.exists() else []):
+        if "conv3x3" in line or "registers" in line or "spill" in line:
+            log(f"  {line.strip()}")
 
     # 3. kernel vs plain version
     max_abs_err = phase_kernel_vs_plain(dev)
 
-    # 4. the slice, 5. bfloat16
+    # 4. the serving slice, 5. bfloat16
     state, cfg, requests, launches, (k_ms, p_ms) = phase_slice(dev)
     phase_bf16(state, cfg, requests, dev)
+
+    # 6. conv backward kernel vs plain version
+    k2_err, k2_ms, k2_plain_ms = phase_conv_bwd(dev)
+
+    # 7. the training slice, 8. parity with the CPU, 9. throughput
+    with tempfile.TemporaryDirectory() as tmp:
+        k2_launches, yaml_path = phase_train_slice(dev, Path(tmp))
+        phase_parity(dev, yaml_path)
+        phase_throughput(dev, yaml_path)
 
     print(json.dumps({"kernels": [{
         "name": "nms_pivot_walk",
@@ -314,6 +650,15 @@ def main():
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "conv_bwd_3x3",
+        "route": "cuda",
+        "source": "yolo_from_scratch_tpu_torch/csrc/conv_bwd.cu",
+        "replaces": "yolo_from_scratch_tpu/ops/conv_bwd.py:89",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

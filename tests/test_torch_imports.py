@@ -1,9 +1,10 @@
-"""The PyTorch port loads and serves without JAX, flax or PIL.
+"""The PyTorch port loads, serves and trains without JAX or flax.
 
-The card's machine has no jax, flax or PIL, so in a fresh interpreter the
-port must import, build a Predictor and serve an S x S uint8 array (whose
-letterbox is the identity and needs no PIL) on the CPU with none of them
-in `sys.modules`.
+The card's machine has no flax, and the port must need none of jax: in a
+fresh interpreter the port must import, build a Predictor and serve an
+S x S uint8 array (whose letterbox is the identity and needs no PIL) on the
+CPU with none of jax, flax or PIL in `sys.modules`; and train one step on
+the CPU from a dataset of JPEGs (PIL decodes them) with no jax or flax.
 """
 
 import subprocess
@@ -47,5 +48,44 @@ def test_port_serves_without_jax_flax_or_pil():
     result = subprocess.run([sys.executable, "-c", SCRIPT],
                             capture_output=True, text=True, timeout=300,
                             cwd=REPO_ROOT)
+    assert result.returncode == 0, result.stderr
+    assert "LOADED []" in result.stdout, result.stdout
+
+
+TRAIN_SCRIPT = """
+import sys
+import torch
+
+from yolo_from_scratch_tpu_torch import YoloConfig
+from yolo_from_scratch_tpu_torch.data import DataLoader, YoloDataset
+from yolo_from_scratch_tpu_torch.data.device_queue import DeviceQueue
+from yolo_from_scratch_tpu_torch.train.steps import (
+    create_train_state, make_train_step)
+from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+import yolo_from_scratch_tpu_torch.cli
+import yolo_from_scratch_tpu_torch.train.loop
+
+config = load_dataset_yaml(sys.argv[1])
+cfg = YoloConfig(num_classes=config["nc"], img_size=128, width_mult=0.25,
+                 depth_mult=0.33)
+cpu = torch.device("cpu")
+loader = DataLoader(YoloDataset(config["train"], cfg.num_classes,
+                                cfg.anchors_array, cfg.img_size,
+                                backend="pil"), batch_size=2)
+state = create_train_state(cfg, 1e-3, seed=0, device=cpu)
+images, targets, _ = next(iter(DeviceQueue(loader, cpu)))
+state, metrics = make_train_step(cfg)(state, images, targets)
+assert state.step == 1 and torch.isfinite(metrics["loss"]), metrics
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+print("LOADED", loaded)
+"""
+
+
+def test_port_trains_without_jax_or_flax(temp_dataset_dir):
+    result = subprocess.run(
+        [sys.executable, "-c", TRAIN_SCRIPT,
+         str(temp_dataset_dir / "dataset.yaml")],
+        capture_output=True, text=True, timeout=300, cwd=REPO_ROOT)
     assert result.returncode == 0, result.stderr
     assert "LOADED []" in result.stdout, result.stdout

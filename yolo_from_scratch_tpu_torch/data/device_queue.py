@@ -1,0 +1,42 @@
+"""Double-buffered host-to-device input queue (counterpart of
+`yolo_from_scratch_tpu/data/device_queue.py`, one device).
+
+Batches come from the JAX package's host loader (`data/loader.py`, shared
+by import: numpy only), are copied into pinned host memory and sent to the
+card with `non_blocking=True` one batch AHEAD of the consumer, so the copy
+of batch N+1 overlaps step N. On the CPU the numpy arrays are wrapped
+without a copy.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class DeviceQueue:
+    """Iterate (images, [t_p3, t_p4, t_p5], valid_count) on `device`, one
+    batch ahead of the consumer."""
+
+    def __init__(self, loader, device):
+        self.loader = loader
+        self.device = torch.device(device)
+
+    def _put(self, array):
+        t = torch.from_numpy(array)
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _place(self, images, targets):
+        return (self._put(images), [self._put(t) for t in targets],
+                images.shape[0])
+
+    def __iter__(self):
+        pending = None
+        for images, targets in self.loader:
+            staged = self._place(images, targets)  # async copy on a card
+            if pending is not None:
+                yield pending
+            pending = staged
+        if pending is not None:
+            yield pending

@@ -17,7 +17,11 @@ import numpy as np
 import torch
 
 from yolo_from_scratch_tpu.config import INV255, YoloConfig
-from yolo_from_scratch_tpu_torch.models.yolo import YOLO
+from yolo_from_scratch_tpu_torch.models.yolo import (
+    YOLO,
+    cast_convs_,
+    compute_dtype,
+)
 from yolo_from_scratch_tpu_torch.ops.decode import decode_predictions
 from yolo_from_scratch_tpu_torch.ops.nms import (
     NEG_INF,
@@ -147,12 +151,12 @@ class Predictor:
         # built on the meta device, so no weight is initialised (nor the
         # global RNG drawn from) only to be overwritten by the load
         self.model = YOLO(cfg, device="meta")
-        dtypes = {k: t.dtype for k, t in self.model.state_dict().items()}
         self.model.load_state_dict(
-            {k: v.to(self.device, dtypes.get(k, v.dtype))
+            {k: v.to(self.device, torch.float32)
              for k, v in state_dict.items()},
             strict=True, assign=True)
-        self.model.eval()
+        # the conv weights once in the compute dtype, so no request casts
+        cast_convs_(self.model, compute_dtype(cfg)).eval()
         self.postprocess = make_postprocess(
             self.model, cfg, conf_threshold, iou_threshold, topk, max_outputs,
             use_cuda_nms=use_cuda_nms,

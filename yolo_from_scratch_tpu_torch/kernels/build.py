@@ -1,11 +1,13 @@
 """Build the CUDA kernels with nvcc at first use and load them with ctypes.
 
 Every `csrc/*.cu` source compiles into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds). The library
-lands in `build/torch_kernels/` at the repository root, under a file name
-that carries a hash of the sources and flags, so a stale build is never
-loaded. A file lock serialises concurrent builds. If nvcc is missing or
-fails, the error carries nvcc's stderr; there is no fallback.
+interface (no PyTorch headers, so the build takes seconds): one nvcc per
+source, all started together, then one link. The library lands in
+`build/torch_kernels/` at the repository root, under a file name that
+carries a hash of the sources and flags, so a stale build is never loaded;
+ptxas's report (registers, shared memory, spills of every kernel) goes to a
+`.log` beside it. A file lock serialises concurrent builds. If nvcc is
+missing or fails, the error carries nvcc's stderr; there is no fallback.
 """
 
 from __future__ import annotations
@@ -27,9 +29,11 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    # no FMA contraction: the NMS IoU must round like unfused torch ops
+    # no FMA contraction: the NMS IoU must round like unfused torch ops;
+    # the conv backward writes its FMAs out with __fmaf_rn
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 
@@ -60,6 +64,23 @@ def library_path() -> Path:
     return BUILD_DIR / f"libyolo_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Start every command at once; raise with the first failure's stderr.
+    Returns the commands' stderr, joined."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        outs.append((cmd, proc.returncode, err))
+    for cmd, rc, err in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n"
+                               f"{err}")
+    return "".join(err for _, _, err in outs)
+
+
 def build() -> tuple[Path, float]:
     """Compile the sources if the hashed library is absent. Returns (path,
     seconds spent compiling, 0.0 when the library was already built)."""
@@ -72,17 +93,19 @@ def build() -> tuple[Path, float]:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if target.exists():  # another process built it while we waited
             return target, 0.0
+        tag = f"{target.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
         tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                            for s, o in zip(_sources(), objs)])
+            _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}"
-            )
+        target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)
     return target, seconds
 
@@ -101,4 +124,11 @@ def load_library() -> ctypes.CDLL:
     lib.nms_max_boxes.restype = i32
     lib.nms_error_string.argtypes = [i32]
     lib.nms_error_string.restype = ctypes.c_char_p
+    lib.conv3x3_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                i32, i32, ptr]
+    lib.conv3x3_bwd.restype = i32
+    lib.conv3x3_bwd_partial_floats.argtypes = []
+    lib.conv3x3_bwd_partial_floats.restype = i32
+    lib.conv3x3_bwd_error_string.argtypes = [i32]
+    lib.conv3x3_bwd_error_string.restype = ctypes.c_char_p
     return lib

@@ -3,18 +3,41 @@ of `yolo_from_scratch_tpu/models/blocks.py`).
 
 Modules take NCHW tensors. Submodule names are the JAX package's, so its
 parameter path `a/b/conv/kernel` is the state-dict key `a.b.conv.weight`.
-Conv weights are held in the compute dtype (float32 or bfloat16, as the
-JAX package casts its float32 params at use); BatchNorm parameters stay
-float32.
+Every parameter is float32 (the master weights an optimizer updates); the
+convolutions cast weight and bias to the compute dtype at use, as flax's
+`promote_dtype` does (a no-op in float32). `Predictor` casts its conv
+weights once at load instead, so serving launches no cast.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from yolo_from_scratch_tpu_torch.models.fused_bn import BNSiLU
+from yolo_from_scratch_tpu_torch.ops.conv_bwd import (
+    conv3x3_same,
+    use_fused_bwd,
+)
+
+
+def cast(t, dtype):
+    """t in `dtype`; t itself, with no op dispatched, when it already is
+    (serving: `Predictor` casts its conv weights once at load)."""
+    return t if t is None or t.dtype == dtype else t.to(dtype)
+
+
+def uniform_fan_in_(t, fan_in, generator):
+    """The PyTorch Conv2d default the JAX package copies
+    (`torch_kernel_init`, `torch_bias_init_for`): U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)), drawn on the CPU from `generator`."""
+    bound = 1.0 / math.sqrt(fan_in)
+    draw = torch.rand(t.shape, generator=generator, dtype=torch.float32)
+    with torch.no_grad():
+        t.copy_(draw * (2 * bound) - bound)
 
 
 class ConvBNSiLU(nn.Module):
@@ -22,19 +45,40 @@ class ConvBNSiLU(nn.Module):
 
     `use_bias=False` matches the reference's ConvBlock; `use_bias=True`
     its raw `nn.Conv2d + BN + SiLU` stem/downsample and SPPF convs, which
-    keep the (redundant) conv bias before BN.
+    keep the (redundant) conv bias before BN. `dtype` is the compute dtype;
+    `self.conv` holds the float32 parameters and their stride and padding.
+    A conv that `use_fused_bwd` selects runs `conv3x3_same`: the same
+    forward, the fused backward.
     """
 
     def __init__(self, cin, features, kernel=1, stride=1, use_bias=False,
                  dtype=None, device=None):
         super().__init__()
+        self.dtype = dtype or torch.float32
         self.conv = nn.Conv2d(cin, features, kernel, stride,
                               padding=kernel // 2, bias=use_bias,
-                              dtype=dtype, device=device)
+                              dtype=torch.float32, device=device)
         self.bn = BNSiLU(features, device=device)
 
+    def reset_parameters(self, generator):
+        k = self.conv.kernel_size[0]
+        fan_in = self.conv.in_channels * k * k
+        uniform_fan_in_(self.conv.weight, fan_in, generator)
+        if self.conv.bias is not None:
+            uniform_fan_in_(self.conv.bias, fan_in, generator)
+        self.bn.reset_parameters()
+
     def forward(self, x, train: bool = False):
-        return self.bn(self.conv(x), train)
+        conv = self.conv
+        w = cast(conv.weight, self.dtype)
+        if conv.bias is None and use_fused_bwd(
+                conv.kernel_size[0], conv.stride[0], x.shape[1],
+                conv.out_channels, x.shape[2], x.shape[3], self.dtype):
+            y = conv3x3_same(x, w)
+        else:
+            y = F.conv2d(x, w, cast(conv.bias, self.dtype), conv.stride,
+                         conv.padding)
+        return self.bn(y, train)
 
 
 class Bottleneck(nn.Module):

@@ -1,12 +1,22 @@
-"""BatchNorm+SiLU tail, eval mode (counterpart of
-`yolo_from_scratch_tpu/models/fused_bn.py`).
+"""BatchNorm+SiLU tail with the JAX package's fused train-mode backward
+(counterpart of `yolo_from_scratch_tpu/models/fused_bn.py`).
 
 Holds the JAX package's parameter and statistic names (`scale`, `bias`
 / `mean`, `var`), so checkpoints convert leaf for leaf, and keeps its op
 order: `mul = rsqrt(var + eps) * scale`, then `z = (x - mean) * mul + bias` in
-float32, cast to the compute dtype, then SiLU in that dtype. Not
-`nn.BatchNorm2d`, whose running variance update differs from the JAX
-package's (unbiased vs biased), which matters once training is ported.
+float32, cast to the compute dtype, then SiLU in that dtype.
+
+Train mode is `bn_silu_train`, a `torch.autograd.Function` with the math
+of the JAX `custom_vjp`: float32 fast-variance batch statistics
+(`mean(x^2) - mean(x)^2` clipped at 0), and a backward that saves only the
+conv output and the per-channel vectors and recomputes the elementwise
+chain,
+
+    dx = scale * r * (dz - mean(dz) - xhat * mean(dz * xhat)),
+
+with the SiLU gradient `s * (1 + z * (1 - s))` in the compute dtype. The
+running statistics move with momentum 0.9 towards the BIASED batch
+variance, as flax does; `nn.BatchNorm2d` would use the unbiased one.
 """
 
 from __future__ import annotations
@@ -15,13 +25,58 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
+_C = (1, -1, 1, 1)  # a per-channel vector against an NCHW tensor
+
+
+def _stats(x):
+    """float32 fast-variance batch statistics per channel of NCHW x."""
+    xf = x.float()
+    mu = xf.mean(dim=(0, 2, 3))
+    mu2 = torch.square(xf).mean(dim=(0, 2, 3))
+    return mu, torch.clamp(mu2 - torch.square(mu), min=0.0)
+
+
+def _affine_silu(x, mu, var, scale, bias, eps):
+    mul = torch.rsqrt(var + eps) * scale
+    z = ((x.float() - mu.view(_C)) * mul.view(_C) + bias.view(_C)).to(x.dtype)
+    return F.silu(z)
+
+
+class _BNSiLUTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        mu, var = _stats(x)
+        ctx.save_for_backward(x, mu, var, scale, bias)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mu, var)
+        return _affine_silu(x, mu, var, scale, bias, eps), mu, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmu, _dvar):
+        x, mu, var, scale, bias = ctx.saved_tensors
+        r = torch.rsqrt(var + ctx.eps)
+        xhat = (x.float() - mu.view(_C)) * r.view(_C)
+        z = (xhat * scale.view(_C) + bias.view(_C)).to(x.dtype)
+        s = torch.sigmoid(z)
+        dz = (dy * (s * (1.0 + z * (1.0 - s)))).float()
+        m = x.numel() // x.shape[1]
+        dbeta = dz.sum(dim=(0, 2, 3))
+        dgamma = (dz * xhat).sum(dim=(0, 2, 3))
+        dx = (scale * r).view(_C) * (dz - (dbeta / m).view(_C)
+                                     - xhat * (dgamma / m).view(_C))
+        return dx.to(x.dtype), dgamma, dbeta, None
+
+
+def bn_silu_train(x, scale, bias, eps=BN_EPS):
+    """Train-mode fused BatchNorm+SiLU over NCHW x. Returns (y, mean,
+    var); mean and var feed the (undifferentiated) running-stat update."""
+    return _BNSiLUTrain.apply(x, scale, bias, eps)
 
 
 class BNSiLU(nn.Module):
-    """`BatchNorm -> silu` over the channel axis of an NCHW tensor. Eval
-    mode only: the train-mode statistics, their momentum update and the
-    fused backward come with the training port."""
+    """`BatchNorm -> silu` over the channel axis of an NCHW tensor."""
 
     def __init__(self, features, device=None):
         super().__init__()
@@ -31,11 +86,19 @@ class BNSiLU(nn.Module):
         self.register_buffer("mean", torch.zeros(features, **f32))
         self.register_buffer("var", torch.ones(features, **f32))
 
+    def reset_parameters(self):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
     def forward(self, x, train: bool = False):
-        if train:
-            raise NotImplementedError("training is ported in a later PR")
-        mul = torch.rsqrt(self.var + BN_EPS) * self.scale
-        c = (1, -1, 1, 1)
-        z = ((x.float() - self.mean.view(c)) * mul.view(c)
-             + self.bias.view(c)).to(x.dtype)
-        return F.silu(z)
+        if not train:
+            return _affine_silu(x, self.mean, self.var, self.scale, self.bias,
+                                BN_EPS)
+        y, mu, var = bn_silu_train(x, self.scale, self.bias, BN_EPS)
+        with torch.no_grad():
+            self.mean.copy_(BN_MOMENTUM * self.mean + (1.0 - BN_MOMENTUM) * mu)
+            self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
+        return y

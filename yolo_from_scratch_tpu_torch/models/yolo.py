@@ -7,13 +7,20 @@ bias). The public layouts are the JAX package's: images in NHWC
 (B, S, S, 3), head outputs (B, H, W, A, 5+nc) in float32. Inside, tensors
 are NCHW (the NHWC input permuted, which is channels-last in memory).
 
+Parameters are float32 master weights, cast to the compute dtype at use
+(`models/blocks.py`); `reset_parameters(generator)` draws them from the JAX
+package's initial distributions.
+
 Not ported: the anchor-free head (a later PR) and the space-to-depth
 packed layouts (`packed_*`), which exist for TPU lane fill; both raise.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from yolo_from_scratch_tpu.config import YoloConfig
@@ -21,8 +28,12 @@ from yolo_from_scratch_tpu_torch.models.blocks import (
     C3,
     SPPF,
     ConvBNSiLU,
+    cast,
+    uniform_fan_in_,
     upsample_nearest_2x,
 )
+
+HEAD_PRIOR = 0.01  # objectness prior of a fresh head: bias -log((1-p)/p)
 
 
 def compute_dtype(cfg: YoloConfig) -> torch.dtype:
@@ -40,15 +51,28 @@ class DetectHead(nn.Module):
                  device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.dtype = dtype or torch.float32
         self.num_anchors = num_anchors
         self.num_classes = num_classes
         self.conv1 = ConvBNSiLU(channels, channels, 3, **kw)
         self.conv2 = ConvBNSiLU(channels, channels, 3, **kw)
         self.pred = nn.Conv2d(channels, num_anchors * (5 + num_classes), 1,
-                              bias=True, **kw)
+                              bias=True, dtype=torch.float32, device=device)
+
+    def reset_parameters(self, generator):
+        """The pred conv as the JAX `DetectHead` sets it: bias 0 except
+        -log(99) on each anchor's objectness channel (`_head_bias_init`).
+        conv1 and conv2 reset themselves."""
+        uniform_fan_in_(self.pred.weight, self.pred.in_channels, generator)
+        bias = torch.zeros(self.num_anchors, 5 + self.num_classes)
+        bias[:, 4] = -math.log((1.0 - HEAD_PRIOR) / HEAD_PRIOR)
+        with torch.no_grad():
+            self.pred.bias.copy_(bias.reshape(-1))
 
     def forward(self, x, train: bool = False):
-        x = self.pred(self.conv2(self.conv1(x, train), train))
+        x = self.conv2(self.conv1(x, train), train)
+        x = F.conv2d(x, cast(self.pred.weight, self.dtype),
+                     cast(self.pred.bias, self.dtype))
         b, _, h, w = x.shape
         # channel c = a * (5+nc) + k, as the JAX head's NHWC reshape
         return x.permute(0, 2, 3, 1).reshape(b, h, w, self.num_anchors,
@@ -103,6 +127,16 @@ class YOLO(nn.Module):
         self.head_p4 = DetectHead(c4, na, nc, **kw)
         self.head_p5 = DetectHead(c5, na, nc, **kw)
 
+    def reset_parameters(self, generator: torch.Generator):
+        """Fresh weights from the JAX package's initial distributions, drawn
+        on the CPU from `generator` in module order: every conv kernel and
+        bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)), BatchNorm scale 1, bias 0,
+        mean 0, var 1, the heads' pred bias as `DetectHead` sets it."""
+        for module in self.modules():
+            if isinstance(module, (ConvBNSiLU, DetectHead)):
+                module.reset_parameters(generator)
+        return self
+
     def forward(self, x, train: bool = False):
         x = x.to(compute_dtype(self.cfg)).permute(0, 3, 1, 2)  # NHWC -> NCHW
 
@@ -142,6 +176,16 @@ class YOLO(nn.Module):
         # heads return float32 so decode runs in full precision even when
         # the convs compute in bfloat16
         return [out.float() for out in outs]
+
+
+def cast_convs_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every conv's weight and bias to `dtype` in place, so the
+    forward's cast to the compute dtype is a no-op (serving: one cast at
+    load instead of one per request). BatchNorm stays float32."""
+    for module in model.modules():
+        if isinstance(module, nn.Conv2d):
+            module.to(dtype)
+    return model
 
 
 def count_params(model: nn.Module) -> int:

@@ -39,3 +39,8 @@ def box_iou_corner(a, b, eps=1e-6):
 def pairwise_iou_corner(a, b, eps=1e-6):
     """All-pairs IoU: a (N, 4) x b (M, 4) -> (N, M). Corner format."""
     return box_iou_corner(a[:, None, :], b[None, :, :], eps=eps)
+
+
+def box_iou_center(a, b, eps=1e-6):
+    """Elementwise IoU of center-format boxes."""
+    return box_iou_corner(center_to_corner(a), center_to_corner(b), eps=eps)

@@ -1,0 +1,136 @@
+"""Training and evaluation steps (counterpart of
+`yolo_from_scratch_tpu/train/steps.py`, the anchor head with dense host
+targets).
+
+A train step is forward in train mode (batch statistics, running-stat
+update), the multi-scale loss, backward, clip by global norm 10 and an Adam
+update. Clipping is optax's `clip_by_global_norm`: the norm is taken over
+every parameter's gradient, and when it is >= 10 each gradient becomes
+`g / norm * 10` (not `clip_grad_norm_`, which divides by `norm + 1e-6`);
+the choice is made on the device, with no host sync. Adam is optax's
+(b1 0.9, b2 0.999, eps 1e-8, bias-corrected `mu_hat / (sqrt(nu_hat) +
+eps)`), which `torch.optim.Adam` computes. The learning rate is set per
+epoch (`set_learning_rate`). The step's metrics stay on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from yolo_from_scratch_tpu.config import INV255, YoloConfig
+from yolo_from_scratch_tpu_torch.models.yolo import YOLO
+from yolo_from_scratch_tpu_torch.ops.losses import yolo_loss_multiscale
+from yolo_from_scratch_tpu_torch.train.metrics import grid_metric_counts
+
+GRAD_CLIP_NORM = 10.0
+METRIC_KEYS = ("loss", "bbox", "obj", "cls")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (float32 master weights and BatchNorm statistics), its
+    optimizer, and the number of optimizer steps taken."""
+
+    model: YOLO
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def make_optimizer(params, learning_rate: float = 1e-2):
+    """Adam with optax's constants; clipping happens in the step."""
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
+def set_learning_rate(state: TrainState, lr: float) -> TrainState:
+    """Set the learning rate of every parameter group (per epoch)."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    return state
+
+
+def create_train_state(cfg: YoloConfig, learning_rate=1e-2, *, seed=0,
+                       device) -> TrainState:
+    """A fresh model from `YOLO.reset_parameters` with a generator seeded
+    by `seed`, on `device`, with its Adam."""
+    model = YOLO(cfg).reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(device)
+    return TrainState(model, make_optimizer(model.parameters(),
+                                            learning_rate))
+
+
+def clip_by_global_norm_(grads, max_norm=GRAD_CLIP_NORM):
+    """optax's `clip_by_global_norm`, in place: g stays when the global
+    norm is below `max_norm`, else becomes g / norm * max_norm. Returns the
+    norm (a device tensor)."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+    return norm
+
+
+def _normalize(images):
+    if images.dtype == torch.uint8:
+        # the shared float32 reciprocal, never a divide by 255
+        return images.float() * float(INV255)
+    return images
+
+
+def make_loss_fn(cfg: YoloConfig, quirk_640: bool = False, device=None):
+    """loss_fn(model, images, targets) -> (total, (bbox, obj, cls)), the
+    model in train mode (its running statistics move)."""
+    anchors = torch.as_tensor(cfg.anchors_array, device=device)
+
+    def loss_fn(model, images, targets):
+        preds = model(_normalize(images), train=True)
+        total, bbox, obj, cls = yolo_loss_multiscale(
+            preds, targets, anchors, cfg.num_classes, cfg.img_size, quirk_640)
+        return total, (bbox, obj, cls)
+
+    return loss_fn
+
+
+def make_train_step(cfg: YoloConfig, quirk_640: bool = False, device=None):
+    """train_step(state, images, targets) -> (state, metrics): images
+    (B, S, S, 3) float32 in [0, 1] or uint8, targets [P3, P4, P5] dense, all
+    on `device`; metrics are 0-dim device tensors under METRIC_KEYS."""
+    loss_fn = make_loss_fn(cfg, quirk_640, device)
+
+    def train_step(state: TrainState, images, targets):
+        state.optimizer.zero_grad(set_to_none=True)
+        total, (bbox, obj, cls) = loss_fn(state.model, images, targets)
+        total.backward()
+        clip_by_global_norm_([p.grad for p in state.model.parameters()])
+        state.optimizer.step()
+        state.step += 1
+        metrics = dict(zip(METRIC_KEYS, (total, bbox, obj, cls)))
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_eval_step(cfg: YoloConfig, conf_threshold=0.5, iou_threshold=0.5,
+                   quirk_640: bool = False, device=None):
+    """eval_step(model, images, targets) -> (loss, tp, fp, fn): the eval-mode
+    loss and per-image (B,) int32 counts summed over the scales, all on the
+    device."""
+    anchors = torch.as_tensor(cfg.anchors_array, device=device)
+
+    @torch.no_grad()
+    def eval_step(model, images, targets):
+        preds = model(_normalize(images), train=False)
+        loss, _, _, _ = yolo_loss_multiscale(
+            preds, targets, anchors, cfg.num_classes, cfg.img_size, quirk_640)
+        tp = fp = fn = 0
+        for pred, tgt, anc in zip(preds, targets, anchors):
+            t, f, n = grid_metric_counts(pred, tgt, anc, cfg.img_size,
+                                         conf_threshold, iou_threshold,
+                                         quirk_640, per_image=True)
+            tp, fp, fn = tp + t, fp + f, fn + n
+        return loss, tp, fp, fn
+
+    return eval_step

@@ -1,18 +1,22 @@
-"""Read the JAX package's msgpack checkpoints with `msgpack` alone
-(counterpart of `yolo_from_scratch_tpu/utils/checkpoint.py::load_checkpoint`).
+"""Read and write the JAX package's msgpack checkpoints with `msgpack`
+alone (counterpart of `yolo_from_scratch_tpu/utils/checkpoint.py`).
 
 The JAX package's serializer writes each array as a msgpack extension
 (type 1, ndarray; type 3, numpy scalar) whose payload is itself msgpack
 `(shape, dtype name, raw C bytes)`; this decodes exactly that and refuses
-any other extension.
+any other extension, and `save_checkpoint` encodes the same way, so the
+JAX `load_checkpoint` reads what the port writes.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from yolo_from_scratch_tpu.config import YoloConfig
 
+CKPT_VERSION = 1
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 
@@ -33,6 +37,56 @@ def _ext_hook(code, data):
     if code == _EXT_NPSCALAR:
         return _ndarray_from_bytes(data)[()]
     raise ValueError(f"unsupported msgpack extension type {code}")
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    import msgpack
+
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")),
+                         use_bin_type=True)
+
+
+def _ext_pack(obj):
+    import msgpack
+
+    if isinstance(obj, np.ndarray):
+        return msgpack.ExtType(_EXT_NDARRAY, _ndarray_to_bytes(obj))
+    if isinstance(obj, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR,
+                               _ndarray_to_bytes(np.asarray(obj)))
+    raise TypeError(f"cannot serialize {type(obj).__name__} in a checkpoint")
+
+
+def save_checkpoint(path, variables: dict, cfg: YoloConfig, epoch: int = 0,
+                    extra: dict | None = None):
+    """Write a checkpoint in the JAX package's format. `variables` is
+    `{'params': ..., 'batch_stats': ...}` of numpy arrays (see
+    `utils/convert.py::to_flax_variables`). No optimizer state is written.
+    The file is replaced atomically: a crash mid-write keeps the old one."""
+    import msgpack
+
+    payload = {
+        "version": CKPT_VERSION,
+        "model": variables,
+        "epoch": int(epoch),
+        "num_classes": int(cfg.num_classes),
+        "img_size": int(cfg.img_size),
+        "width_mult": float(cfg.width_mult),
+        "depth_mult": float(cfg.depth_mult),
+        "anchors": np.asarray(cfg.anchors, np.float32),
+        "compute_dtype": cfg.compute_dtype,
+        "head_type": cfg.head_type,
+    }
+    if extra:
+        payload["extra"] = extra
+    blob = msgpack.packb(payload, default=_ext_pack, strict_types=True)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
 
 
 def read_payload(path) -> dict:

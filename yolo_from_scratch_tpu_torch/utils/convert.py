@@ -37,8 +37,7 @@ def from_flax_variables(variables, model: nn.Module) -> dict:
     Every JAX leaf is consumed exactly once, and every key of
     `model.state_dict()` must be produced with its shape: an unmatched key
     on either side, or a shape mismatch, raises ValueError. Returns a dict
-    of float32 CPU tensors (`load_state_dict` casts conv weights to the
-    model's compute dtype).
+    of float32 CPU tensors.
     """
     expected = model.state_dict()
     out = {}
@@ -82,6 +81,20 @@ def _jax_location(key, shape):
     if leaf == "weight":
         shape = (shape[2], shape[3], shape[1], shape[0])  # OIHW -> HWIO
     return collection, tuple(mods) + (name,), tuple(shape)
+
+
+def to_flax_variables(state_dict) -> dict:
+    """The inverse of `from_flax_variables`: a state dict (any device,
+    float32 or bfloat16) -> `{'params': ..., 'batch_stats': ...}` nested
+    dicts of float32 C-contiguous numpy arrays, conv kernels HWIO."""
+    tree = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        collection, path, _ = _jax_location(key, tuple(t.shape))
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if path[-1] == "kernel":
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        _insert(tree[collection], path, np.ascontiguousarray(arr))
+    return tree
 
 
 def _insert(tree, path, value):
