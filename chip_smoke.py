@@ -2,12 +2,15 @@
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-Drives the port's two paths on the card with the 's' model (width 0.50,
-depth 0.33) at 640x640, nc=1, anchor head, random weights from a seed:
-single-image serving through `Predictor`, and training through the CLI,
-and checks each hand-written CUDA kernel (NMS; the fused 3x3 conv
-backward) against its plain PyTorch version. Phases, each of which raises
-on failure (the script then exits non-zero and prints no result):
+Drives the port's paths on the card: with the 's' model (width 0.50,
+depth 0.33) at 640x640, nc=1, anchor head, random weights from a seed,
+single-image serving through `Predictor` and training through the CLI;
+then the conv-backward prototype entry points (`benchmarks/bwdproto.py`,
+`benchmarks/blockbwd.py`) at the training path's 64-channel shapes. It
+checks each hand-written CUDA kernel (NMS; the fused 3x3 conv backward
+K2; the prototypes K3, K4 and K5) against its plain PyTorch version.
+Phases, each of which raises on failure (the script then exits non-zero
+and prints no result):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the kernels from `csrc/` into `build/torch_kernels/`;
@@ -29,7 +32,17 @@ on failure (the script then exits non-zero and prints no result):
    CPU: loss and gradients;
 9. train img/s at batch 8, bfloat16, with the kernel on and off, the
    device time per step, and 30 steps on one batch that must lower the
-   loss.
+   loss;
+10. K3 (patch matrix) and K4 (per-tap) against their plain versions (TF32
+   off) at phase 6's cases, bit-equal across two runs; device times of
+   each, its plain version, cuDNN's dgrad + wgrad and K2 at the two bf16
+   shapes;
+11. K5 (the bottleneck chain's backward) the same way, and the chain's
+   forward + backward with K5 against autograd with cuDNN;
+12. the slice: `python -m yolo_from_scratch_tpu_torch.benchmarks.bwdproto
+   --iters 1` and `... .blockbwd --iters 1`, each in its own process, must
+   exit 0, print their timing and projection lines and launch K3, K4 and
+   K5.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -54,6 +67,7 @@ import numpy as np
 import torch
 
 from yolo_from_scratch_tpu_torch import INV255, YoloConfig, cli
+from yolo_from_scratch_tpu_torch.benchmarks import blockbwd, bwdproto
 from yolo_from_scratch_tpu_torch.data import DataLoader, YoloDataset
 from yolo_from_scratch_tpu_torch.device import cuda_device, tf32_disabled
 from yolo_from_scratch_tpu_torch.infer.predict import Predictor
@@ -73,6 +87,11 @@ from yolo_from_scratch_tpu_torch.utils.convert import (
     random_variables,
 )
 from yolo_from_scratch_tpu_torch.utils.synth import make_dataset
+from yolo_from_scratch_tpu_torch.utils.timing import (
+    device_ms,
+    kernel_ms,
+    median_ms,
+)
 
 SEED = 0
 CONF = 0.005  # random weights give obj ~ sigmoid(-4.6) ~ 0.01
@@ -93,6 +112,17 @@ K2_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-3)}
 K2_CASES = ((8, 40, 40, torch.bfloat16), (8, 80, 80, torch.bfloat16),
             (8, 40, 40, torch.float32), (2, 16, 16, torch.float32),
             (1, 7, 5, torch.float32))
+# K5 (the chain) at K2's cases, B=4 at float32 40x40, as the JAX check
+K5_CASES = tuple((4 if (h, dt) == (40, torch.float32) else b, h, w, dt)
+                 for b, h, w, dt in K2_CASES)
+# K5 vs its plain version, (dx, dw1, dw2) relative to the largest
+# reference magnitude: float32 sums in another order (and expf against
+# torch's sigmoid); in bf16, dz1 is rounded to bf16 from a float32 sum taken
+# in another order, so an element can land one bf16 ulp (2^-8 of it) away:
+# dx, rounded once more, stays within 2^-7 of the max; dw1 sums such flips
+# over the batch's pixels, far under 1e-3 of its max; dw2 as K2's dW
+K5_TOL = {torch.float32: (1e-5, 1e-5, 1e-5),
+          torch.bfloat16: (2.0 ** -7, 1e-3, 1e-3)}
 GATED_CONVS_BF16 = 8  # 6 bottleneck convs at 40x40 + head_p3's two at 80x80
 TRAIN_STEPS = 2       # 16 synthetic images at batch 8
 # float32 step on the card (TF32 off) vs the CPU: loss relative, gradients
@@ -114,46 +144,6 @@ EPOCH_LINE = re.compile(r"Epoch 1: Loss: .* \| LR: .* \| (\S+) img/s")
 
 def log(msg):
     print(msg, flush=True)
-
-
-def median_ms(fn, runs=TIMING_RUNS, warmup=2):
-    """Median over `runs` synchronised runs, each timed by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def kernel_ms(fn, runs):
-    """{CUDA kernel name: device ms} over `runs` calls of fn, from the
-    profiler's self times. Host launch overhead is not in it, unlike
-    `median_ms`."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
-
-
-def device_ms(fn, runs=TIMING_RUNS, warmup=2):
-    """Device time of one call (profiler), after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    return sum(kernel_ms(fn, runs).values()) / runs
 
 
 def nms_case(rng, b, n, ncls, tied):
@@ -601,6 +591,179 @@ def phase_throughput(dev, yaml_path):
     return rates
 
 
+def _nhwc_case(b, h, w, dtype, dev, seed):
+    """x, dy (B, H, W, 64), two HWIO weights (3, 3, 64, 64) and two (64,)
+    float32 scales in [0.5, 1.5) on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, dy = (torch.randn((b, h, w, 64), generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    w1, w2 = ((torch.randn((3, 3, 64, 64), generator=g, device=dev)
+               * 0.05).to(dtype) for _ in range(2))
+    s1, s2 = (torch.rand(64, generator=g, device=dev) + 0.5 for _ in range(2))
+    return x, dy, w1, w2, s1, s2
+
+
+def _case_name(b, h, w, dtype):
+    return f"B={b} {h}x{w} {str(dtype).split('.')[1]}"
+
+
+def _held(name, firsts, seconds, wants, tols, dtype):
+    """Raise unless two kernel runs are bit-equal and the first is within
+    `tols` (relative to the plain version's largest magnitude) of the
+    plain version. Returns (relative errors, largest absolute error)."""
+    if not all(torch.equal(a, b) for a, b in zip(firsts, seconds)):
+        raise AssertionError(f"{name}: two runs differ")
+    rel, worst = [], 0.0
+    for got, want in zip(firsts, wants):
+        diff = (got.float() - want.float()).abs().max().item()
+        rel.append(diff / want.float().abs().max().item())
+        worst = max(worst, diff)
+    if firsts[0].dtype != dtype or any(r > t for r, t in zip(rel, tols)):
+        raise AssertionError(f"{name} vs plain: errors {rel}, tolerances "
+                             f"{tols}, dx {firsts[0].dtype}")
+    return rel, worst
+
+
+PROTOTYPES = (("conv_bwd_patch", bwdproto.make_fused_bwd,
+               bwdproto.fused_bwd_patch_plain),
+              ("conv_bwd_tap", bwdproto.make_fused_bwd_v2,
+               bwdproto.fused_bwd_tap_plain))
+
+
+def phase_prototypes(dev):
+    """K3 and K4 against their plain versions (TF32 off) at K2's cases and
+    tolerances, two runs bit-equal; device times of each kernel, its plain
+    version, cuDNN's dgrad + wgrad and K2 at the two bf16 training
+    shapes."""
+    worst = {name: 0.0 for name, _, _ in PROTOTYPES}
+    times = {}
+    for i, (b, h, w, dtype) in enumerate(K2_CASES):
+        x, dy, wt = _nhwc_case(b, h, w, dtype, dev, SEED + i)[:3]
+        case = _case_name(b, h, w, dtype)
+        row = {}
+        for name, make, plain in PROTOTYPES:
+            fused = make(b, h, w, 64, dtype)
+            runs = [fused(x, dy, wt) for _ in range(2)]
+            with tf32_disabled():
+                want = plain(x, dy, wt)
+            torch.cuda.synchronize()
+            rel, err = _held(f"{name} {case}", *runs, want, K2_TOL[dtype],
+                             dtype)
+            worst[name] = max(worst[name], err)
+            log(f"  {name} {case}: dx err {rel[0]:.3e}, dW err {rel[1]:.3e} "
+                f"of max (tol {K2_TOL[dtype][0]:.1e} / "
+                f"{K2_TOL[dtype][1]:.1e}), 2 runs bit-equal")
+            if dtype == torch.bfloat16:
+                row[name] = device_ms(lambda: fused(x, dy, wt))
+                with tf32_disabled():
+                    row[f"{name} plain"] = device_ms(lambda: plain(x, dy, wt))
+        if dtype == torch.bfloat16:
+            xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            wo = wt.permute(3, 2, 0, 1).contiguous()
+
+            def cudnn():
+                torch.nn.grad.conv2d_input(xn.shape, wo, dyn, padding=1)
+                torch.nn.grad.conv2d_weight(xn, wo.shape, dyn, padding=1)
+
+            row["cuDNN dgrad+wgrad"] = device_ms(cudnn)
+            row["K2"] = device_ms(lambda: conv_bwd._launch(xn, dyn, wo))
+            times[(h, w)] = row
+            log(f"  device ms {case} (profiler, {TIMING_RUNS} calls): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+    return worst, times
+
+
+def phase_chain(dev):
+    """K5 against its plain version (TF32 off), two runs bit-equal; device
+    times of K5, its plain version, and the chain's forward + backward with
+    K5 against autograd with cuDNN at the two bf16 training shapes."""
+    worst, times = 0.0, {}
+    for i, (b, h, w, dtype) in enumerate(K5_CASES):
+        x, dy, w1, w2, s1, s2 = _nhwc_case(b, h, w, dtype, dev, SEED + 10 + i)
+        with torch.no_grad(), tf32_disabled():
+            z1, a1, _ = blockbwd.chain_fwd(x, w1, w2, s1, s2)
+        args = (x, z1, a1, dy, w1, w2, s1, s2)
+        fused = blockbwd.make_chain_bwd(b, h, w, 64, dtype)
+        runs = [fused(*args) for _ in range(2)]
+        with tf32_disabled():
+            want = blockbwd.chain_bwd_plain(*args)
+        torch.cuda.synchronize()
+        case = _case_name(b, h, w, dtype)
+        rel, err = _held(f"chain_bwd {case}", *runs, want, K5_TOL[dtype],
+                         dtype)
+        worst = max(worst, err)
+        log(f"  chain_bwd {case}: dx err {rel[0]:.3e}, dw1 err {rel[1]:.3e}, "
+            f"dw2 err {rel[2]:.3e} of max (tol "
+            + " / ".join(f"{t:.1e}" for t in K5_TOL[dtype])
+            + "), 2 runs bit-equal")
+        if dtype != torch.bfloat16:
+            continue
+        leaves = [t.clone().requires_grad_(True) for t in (x, w1, w2)]
+
+        def autograd_arm():
+            y = blockbwd.chain_fwd(*leaves, s1, s2)[2]
+            torch.autograd.grad(y, leaves, dy)
+
+        def k5_arm():
+            with torch.no_grad():
+                z1_, a1_, _ = blockbwd.chain_fwd(x, w1, w2, s1, s2)
+            fused(x, z1_, a1_, dy, w1, w2, s1, s2)
+
+        row = {"chain_bwd": device_ms(lambda: fused(*args))}
+        with tf32_disabled():
+            row["chain_bwd plain"] = device_ms(
+                lambda: blockbwd.chain_bwd_plain(*args))
+        row["fwd+bwd with K5"] = device_ms(k5_arm)
+        row["fwd+bwd autograd+cuDNN"] = device_ms(autograd_arm)
+        times[(h, w)] = row
+        log(f"  device ms {case} (profiler, {TIMING_RUNS} calls): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+    return worst, times
+
+
+# each entry point's output must show its timing and projection lines
+ENTRY_POINTS = (
+    ("bwdproto", (r"bwd 8x80x80x64 bfloat16: cuDNN .* K3-patch .* K4-tap",
+                  r"bwd 8x40x40x64 bfloat16: cuDNN .* K3-patch .* K4-tap",
+                  r"gated 3x3 64-channel convs in the 's' @640 bf16 step: "
+                  r"6 at 40x40, 2 at 80x80",
+                  r"projected step saving .*: [-+]\d")),
+    ("blockbwd", (r"chain 8x80x80x64 fwd\+bwd bfloat16: autograd\+cuDNN",
+                  r"chain 8x40x40x64 fwd\+bwd bfloat16: autograd\+cuDNN",
+                  r"64-channel bottleneck chains in the 's' @640 model: "
+                  r"3 at 40x40",
+                  r"projected step delta .*: [-+]\d")),
+)
+
+
+def phase_entry_points():
+    """The slice's path: both prototype entry points run as a user runs
+    them, each in its own process; returns each kernel's launch count
+    from those runs."""
+    counts = {}
+    for module, patterns in ENTRY_POINTS:
+        cmd = [sys.executable, "-m",
+               f"yolo_from_scratch_tpu_torch.benchmarks.{module}", "--iters",
+               "1"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300, cwd=Path(__file__).resolve().parent)
+        out = res.stdout + res.stderr
+        log(f"{' '.join(cmd[1:])}: exit {res.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for line in out.splitlines():
+            log(f"  {line}")
+        missing = [p for p in patterns if not re.search(p, out)]
+        launched = re.search(r"^launches: (.*)$", out, re.M)
+        if res.returncode != 0 or missing or not launched:
+            raise AssertionError(f"{module}: exit {res.returncode}, missing "
+                                 f"{missing}")
+        counts.update((k, int(n)) for k, n in
+                      re.findall(r"(\w+) (\d+)", launched.group(1)))
+    if sorted(counts) != ["chain_bwd", "conv_bwd_patch", "conv_bwd_tap"] or (
+            min(counts.values()) <= 0):
+        raise AssertionError(f"entry points' kernel launches: {counts}")
+    return counts
 
 
 def main():
@@ -622,7 +785,7 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     ptxas = path.with_suffix(".log")
     for line in (ptxas.read_text().splitlines() if ptxas.exists() else []):
-        if "conv3x3" in line or "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
     # 3. kernel vs plain version
@@ -640,6 +803,14 @@ def main():
         k2_launches, yaml_path = phase_train_slice(dev, Path(tmp))
         phase_parity(dev, yaml_path)
         phase_throughput(dev, yaml_path)
+
+    # 10. K3 and K4, 11. K5 against their plain versions; 12. the slice:
+    # both prototype entry points
+    proto_err, proto_ms = phase_prototypes(dev)
+    chain_err, chain_ms = phase_chain(dev)
+    proto_launches = phase_entry_points()
+    log(f"prototype kernel launches through the entry points: "
+        f"{proto_launches}")
 
     print(json.dumps({"kernels": [{
         "name": "nms_pivot_walk",
@@ -659,7 +830,22 @@ def main():
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
-    }]}))
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": f"yolo_from_scratch_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": proto_launches[name],
+        "max_abs_err": err,
+        "ms": times[name],
+        "plain_ms": times[f"{name} plain"],
+    } for name, replaces, err, times in (
+        ("conv_bwd_patch", "benchmarks/bwdproto.py:58",
+         proto_err["conv_bwd_patch"], proto_ms[(40, 40)]),
+        ("conv_bwd_tap", "benchmarks/bwdproto.py:101",
+         proto_err["conv_bwd_tap"], proto_ms[(40, 40)]),
+        ("chain_bwd", "benchmarks/blockbwd.py:71", chain_err,
+         chain_ms[(40, 40)])))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

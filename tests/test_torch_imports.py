@@ -5,11 +5,15 @@ fresh interpreter the port must import, build a Predictor and serve an
 S x S uint8 array (whose letterbox is the identity and needs no PIL) on the
 CPU with none of jax, flax or PIL in `sys.modules`; and train one step on
 the CPU from a dataset of JPEGs (PIL decodes them) with no jax or flax.
+The conv-backward prototype benchmarks import with none of jax, flax or
+triton, and run their CPU check as a user runs them.
 """
 
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
@@ -89,3 +93,40 @@ def test_port_trains_without_jax_or_flax(temp_dataset_dir):
         capture_output=True, text=True, timeout=300, cwd=REPO_ROOT)
     assert result.returncode == 0, result.stderr
     assert "LOADED []" in result.stdout, result.stdout
+
+
+PROTOTYPES = ["bwdproto", "blockbwd"]
+
+PROTOTYPE_IMPORT = """
+import sys
+import importlib
+
+importlib.import_module(sys.argv[1])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton"))
+print("LOADED", loaded)
+"""
+
+
+@pytest.mark.parametrize("module", PROTOTYPES)
+def test_prototype_benchmark_imports_without_jax_flax_or_triton(module):
+    result = subprocess.run(
+        [sys.executable, "-c", PROTOTYPE_IMPORT,
+         f"yolo_from_scratch_tpu_torch.benchmarks.{module}"],
+        capture_output=True, text=True, timeout=300, cwd=REPO_ROOT)
+    assert result.returncode == 0, result.stderr
+    assert "LOADED []" in result.stdout, result.stdout
+
+
+@pytest.mark.parametrize("module", PROTOTYPES)
+def test_prototype_benchmark_runs_on_the_cpu(module):
+    """`--device cpu` checks the plain versions at 2x16x16x64 against
+    autograd and skips timing, as the JAX scripts' `--interpret` does."""
+    result = subprocess.run(
+        [sys.executable, "-m",
+         f"yolo_from_scratch_tpu_torch.benchmarks.{module}", "--device",
+         "cpu"], capture_output=True, text=True, timeout=300, cwd=REPO_ROOT)
+    assert result.returncode == 0, result.stderr
+    assert "correctness" in result.stderr and "2x16x16x64 (cpu)" in \
+        result.stderr, result.stderr
+    assert "timing skipped" in result.stderr, result.stderr

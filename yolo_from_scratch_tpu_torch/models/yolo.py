@@ -19,11 +19,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolo_from_scratch_tpu.config import YoloConfig
+from yolo_from_scratch_tpu.config import NUM_ANCHORS_PER_SCALE, YoloConfig
 from yolo_from_scratch_tpu_torch.models.blocks import (
     C3,
     SPPF,
@@ -42,6 +43,31 @@ def compute_dtype(cfg: YoloConfig) -> torch.dtype:
     if cfg.compute_dtype not in dtypes:
         raise ValueError(f"unsupported compute_dtype {cfg.compute_dtype!r}")
     return dtypes[cfg.compute_dtype]
+
+
+def head_bias_init(num_anchors: int, num_classes: int) -> np.ndarray:
+    """A fresh head's pred bias, (A * (5+nc),) float32: 0 except
+    -log((1-p)/p) on each anchor's objectness channel (`_head_bias_init`)."""
+    bias = np.zeros((num_anchors, 5 + num_classes), np.float32)
+    bias[:, 4] = -math.log((1.0 - HEAD_PRIOR) / HEAD_PRIOR)
+    return bias.reshape(-1)
+
+
+def ensure_detection_biases(params, cfg: YoloConfig, log=print):
+    """Repair a JAX-layout params tree whose detection-head pred bias is
+    missing or None, as the JAX loader does: anchor heads only, the bias
+    rebuilt by `head_bias_init` with the same warning. Returns `params`,
+    repaired in place."""
+    if cfg.head_type != "anchor":
+        return params
+    for head in ("head_p3", "head_p4", "head_p5"):
+        pred = params.get(head, {}).get("pred")
+        if pred is not None and pred.get("bias") is None:
+            pred["bias"] = head_bias_init(NUM_ANCHORS_PER_SCALE,
+                                          cfg.num_classes)
+            log("Warning: Detection head bias was None, created new bias "
+                "parameter")
+    return params
 
 
 class DetectHead(nn.Module):
@@ -64,10 +90,9 @@ class DetectHead(nn.Module):
         -log(99) on each anchor's objectness channel (`_head_bias_init`).
         conv1 and conv2 reset themselves."""
         uniform_fan_in_(self.pred.weight, self.pred.in_channels, generator)
-        bias = torch.zeros(self.num_anchors, 5 + self.num_classes)
-        bias[:, 4] = -math.log((1.0 - HEAD_PRIOR) / HEAD_PRIOR)
+        bias = head_bias_init(self.num_anchors, self.num_classes)
         with torch.no_grad():
-            self.pred.bias.copy_(bias.reshape(-1))
+            self.pred.bias.copy_(torch.from_numpy(bias))
 
     def forward(self, x, train: bool = False):
         x = self.conv2(self.conv1(x, train), train)

@@ -40,11 +40,17 @@ _TAPS = [(i, j) for i in range(3) for j in range(3)]
 
 def use_fused_bwd(kernel: int, stride: int, cin: int, cout: int, h: int,
                   w: int, dtype=torch.bfloat16) -> bool:
-    """Should this conv take its backward from `fused_bwd`? The JAX
-    gate's shape rule and H*W bounds, so both packages select the same
-    convs."""
+    """Should this conv take its backward from `fused_bwd`? The switch,
+    then `fused_bwd_fits`."""
     if os.environ.get("YOLO_FUSED_CONV_BWD", "0") == "0":
         return False
+    return fused_bwd_fits(kernel, stride, cin, cout, h, w, dtype)
+
+
+def fused_bwd_fits(kernel: int, stride: int, cin: int, cout: int, h: int,
+                   w: int, dtype=torch.bfloat16) -> bool:
+    """The JAX gate's shape rule and H*W bounds, so both packages select
+    the same convs once the switch is on."""
     if not (kernel == 3 and stride == 1 and cin == cout == _FUSED_C):
         return False
     limit = _MAX_HW if dtype.itemsize <= 2 else _MAX_HW // 2

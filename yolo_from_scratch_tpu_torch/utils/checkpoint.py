@@ -117,7 +117,10 @@ def load_checkpoint(path):
     """Read a checkpoint. Returns (state_dict, cfg, meta): the port's
     state dict (float32 CPU tensors), the config, and epoch / opt_state /
     extra / version as the JAX loader returns them."""
-    from yolo_from_scratch_tpu_torch.models.yolo import YOLO
+    from yolo_from_scratch_tpu_torch.models.yolo import (
+        YOLO,
+        ensure_detection_biases,
+    )
     from yolo_from_scratch_tpu_torch.utils.convert import from_flax_variables
 
     payload = read_payload(path)
@@ -128,6 +131,10 @@ def load_checkpoint(path):
         "extra": payload.get("extra"),
         "version": int(payload.get("version", 0)),
     }
-    state_dict = from_flax_variables(payload["model"],
-                                     YOLO(cfg, device="meta"))
+    variables = payload["model"]
+    if isinstance(variables.get("params"), dict):
+        # a degenerate checkpoint may lack a head bias: repair and warn, as
+        # the JAX loader does
+        variables["params"] = ensure_detection_biases(variables["params"], cfg)
+    state_dict = from_flax_variables(variables, YOLO(cfg, device="meta"))
     return state_dict, cfg, meta
