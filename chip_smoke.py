@@ -13,7 +13,10 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the kernels from `csrc/` into `build/torch_kernels/`;
+2. build: compiles the kernels from `csrc/` into `build/torch_kernels/`,
+   prints ptxas's registers and spills (a spill in a conv-backward kernel
+   fails) and the bf16 conv backwards' launch geometry; their dW workspace
+   at B=8 80x80 must stay within 5 MB;
 3. kernel vs plain version on the card, bit-equal keep masks over
    clustered, tied, padded, 1- and 4-class boxes at B in {1, 8} and
    N in {300, 4096}, presorted or not, max_keep below N or equal to it;
@@ -24,7 +27,10 @@ and prints no result):
 5. one bfloat16 request, which must be finite;
 6. the conv backward kernel against its plain version (TF32 off) at the
    training path's shapes and two small ones, bit-equal across two runs;
-   kernel, plain and cuDNN backward times;
+   kernel, plain and library times (one `aten.convolution_backward` call:
+   cuDNN's dgrad + wgrad, a yardstick the port never calls) beside the
+   H100 bound (`utils/roofline.py`); at the bf16 shapes, K2 on this
+   phase's inputs and on phase 10's in rounds A B B A;
 7. the training slice: the CLI trains one epoch of 2 steps at batch 8 in
    bfloat16 with YOLO_FUSED_CONV_BWD=1 on a synthetic dataset, counts the
    kernel's launches, and serves one request from the checkpoint it wrote;
@@ -35,8 +41,8 @@ and prints no result):
    loss;
 10. K3 (patch matrix) and K4 (per-tap) against their plain versions (TF32
    off) at phase 6's cases, bit-equal across two runs; device times of
-   each, its plain version, cuDNN's dgrad + wgrad and K2 at the two bf16
-   shapes;
+   each, its plain version, the one-call library backward and K2 at the
+   two bf16 shapes, beside the bound, and K2's A B B A rounds again;
 11. K5 (the bottleneck chain's backward) the same way, and the chain's
    forward + backward with K5 against autograd with cuDNN;
 12. the slice: `python -m yolo_from_scratch_tpu_torch.benchmarks.bwdproto
@@ -44,8 +50,11 @@ and prints no result):
    exit 0, print their timing and projection lines and launch K3, K4 and
    K5.
 
-The line before the last is the kernels' JSON record; the last line is
-`{"ok": true, "device": {...}}`.
+The line before the last is the kernels' JSON record (per kernel: launches
+on the main path, largest error against the plain version, device ms of
+the kernel, its plain version and the one-call library equivalent where
+there is one, and the H100 bound with what bounds it, all at the same
+inputs); the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ from yolo_from_scratch_tpu_torch.train.steps import (
     make_loss_fn,
     make_train_step,
 )
+from yolo_from_scratch_tpu_torch.utils import roofline
 from yolo_from_scratch_tpu_torch.utils.checkpoint import load_checkpoint
 from yolo_from_scratch_tpu_torch.utils.convert import (
     from_flax_variables,
@@ -138,6 +148,10 @@ TIMED_STEPS = 20
 # steps before each timed run: with 3, the first timed run was still the
 # slowest of the four in every call
 WARMUP_STEPS = 10
+DW_WORKSPACE_LIMIT = 5e6  # bytes of dW partials, bf16 B=8 80x80
+SPILL = re.compile(r"(\d+) bytes spill (?:stores|loads)")
+ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+CONV_BWD_ENTRIES = ("conv3x3_bwd", "patch_bwd", "tap_bwd", "chain_bwd")
 IMG_SIZE = 640  # phases 7-9
 EPOCH_LINE = re.compile(r"Epoch 1: Loss: .* \| LR: .* \| (\S+) img/s")
 
@@ -293,11 +307,19 @@ def phase_slice(dev):
         off, scores[None], IOU, presorted=True))
     p_ms = median_ms(lambda: nms_plain.nms_keep_mask(
         off, scores[None], IOU, presorted=True))
-    n_valid = int((scores > nms_plain.NEG_INF / 2).sum())
+    valid = scores > nms_plain.NEG_INF / 2
+    n_valid = int(valid.sum())
+    keep = nms_cuda.nms_keep_mask_batched(off, scores[None], IOU,
+                                          presorted=True)[0]
+    n_iou = roofline.nms_iou_count(keep, valid)
+    bound = roofline.bound_ms(*roofline.nms_work(scores.numel(), n_iou),
+                              "float32")
     log(f"one request on the card: forward {fwd_ms:.4f} ms, forward + "
         f"postprocess {post_ms:.4f} ms; NMS on its {scores.numel()} "
-        f"candidates ({n_valid} above the gate): kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms")
+        f"candidates ({n_valid} above the gate, {int(keep.sum())} kept, "
+        f"{n_iou} IoU tests): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"H100 bound {bound[0]:.6f} ms ({bound[1]}; the walk is sequential, "
+        f"one kept box after another, which the bound does not see)")
 
     # the same candidates through both NMS paths: bit-equal
     fixed_k = nms_cuda.batched_nms_fixed_cuda(boxes, scores, classes, IOU,
@@ -334,7 +356,7 @@ def phase_slice(dev):
         f"predictions: max |corner| err {errs[0]:.3e} px (tol "
         f"{CORNER_TOL_PX}), max |obj| err {errs[1]:.3e}, max |cls| err "
         f"{errs[2]:.3e} (tol {PROB_TOL})")
-    return state, cfg, requests, launches, (k_ms, p_ms)
+    return state, cfg, requests, launches, (k_ms, p_ms, bound)
 
 
 def phase_bf16(state, cfg, requests, dev):
@@ -362,9 +384,39 @@ def _conv_case(b, h, w, dtype, dev, seed):
     return x, dy, wt
 
 
+def _bound(b, h, w, dtype):
+    return roofline.conv3x3_bwd_bound_ms(b, h, w, str(dtype).split(".")[1])
+
+
+def _smi(query):
+    """One `nvidia-smi --query-gpu` reading of the card, as printed."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def _log_k2_rounds(phase, b, h, w, dtype, dev, seed):
+    """K2's device ms on phase 6's inputs (A: NCHW tensors made
+    channels-last) and on phase 10's (B: NCHW views of NHWC tensors), both
+    from `seed`, timed in rounds A B B A, each followed by a reading of the
+    SM clock, the temperature and the power draw."""
+    a = _conv_case(b, h, w, dtype, dev, seed)
+    x, dy, wt = _nhwc_case(b, h, w, dtype, dev, seed)[:3]
+    bb = (x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2),
+          wt.permute(3, 2, 0, 1).contiguous())
+    rounds = []
+    for label, t in (("A", a), ("B", bb), ("B", bb), ("A", a)):
+        ms = device_ms(lambda t=t: conv_bwd._launch(*t))
+        rounds.append(f"{label} {ms:.4f} ms "
+                      f"({_smi('clocks.sm,temperature.gpu,power.draw')})")
+    log(f"  K2 {_case_name(b, h, w, dtype)} in {phase}, rounds A B B A "
+        f"(A phase 6's inputs, B phase 10's; profiler, {TIMING_RUNS} calls "
+        f"each; then SM clock, temperature, power): " + "; ".join(rounds))
+
+
 def phase_conv_bwd(dev):
     """The conv backward kernel against its plain version (TF32 off), two
-    runs bit-equal; kernel, plain and cuDNN backward times."""
+    runs bit-equal; kernel, plain and one-call library backward times."""
     max_abs_err = 0.0
     times = {}
     for i, (b, h, w, dtype) in enumerate(K2_CASES):
@@ -398,26 +450,31 @@ def phase_conv_bwd(dev):
             with tf32_disabled():
                 conv_bwd.fused_bwd_plain(x, dy, wt)
 
-        def cudnn():
-            torch.nn.grad.conv2d_input(x.shape, wt, dy, padding=1)
-            torch.nn.grad.conv2d_weight(x, wt.shape, dy, padding=1)
+        def library():
+            bwdproto.library_bwd(x, dy, wt)
 
-        ev = [median_ms(f) for f in (kernel, plain, cudnn)]
-        dev_ms = [device_ms(f) for f in (kernel, plain, cudnn)]
-        times[(b, h, w, dtype)] = dev_ms
+        ev = [median_ms(f) for f in (kernel, plain, library)]
+        dev_ms = [device_ms(f) for f in (kernel, plain, library)]
+        bound = _bound(b, h, w, dtype)
+        times[(b, h, w, dtype)] = (*dev_ms, bound)
         log(f"  conv bwd {name}: dx err {rel_dx:.3e}, dW err {rel_dw:.3e} "
             f"of max (tol {tol_dx:.1e} / {tol_dw:.1e}), 2 runs bit-equal; "
             f"device ms (profiler, {TIMING_RUNS} calls): kernel "
-            f"{dev_ms[0]:.4f}, plain {dev_ms[1]:.4f}, cuDNN {dev_ms[2]:.4f}; "
-            f"per call with host launch (CUDA events, median of "
-            f"{TIMING_RUNS}): {ev[0]:.4f} / {ev[1]:.4f} / {ev[2]:.4f}")
-    (k40, p40, c40), (k80, p80, c80) = (times[K2_CASES[0]],
-                                        times[K2_CASES[1]])
+            f"{dev_ms[0]:.4f}, plain {dev_ms[1]:.4f}, library "
+            f"convolution_backward {dev_ms[2]:.4f}, H100 bound "
+            f"{bound[0]:.4f} ({bound[1]}; kernel at "
+            f"{bound[0] / dev_ms[0]:.1%} of it); per call with host launch "
+            f"(CUDA events, median of {TIMING_RUNS}): {ev[0]:.4f} / "
+            f"{ev[1]:.4f} / {ev[2]:.4f}")
+    for i, (b, h, w, dtype) in enumerate(K2_CASES[:2]):
+        _log_k2_rounds("phase 6", b, h, w, dtype, dev, SEED + i)
+    (k40, p40, c40, _), (k80, p80, c80, _) = (times[K2_CASES[0]],
+                                              times[K2_CASES[1]])
     log(f"conv bwd device time per bf16 train step (6 calls at 40x40 + 2 at "
         f"80x80, B=8): kernel {6 * k40 + 2 * k80:.4f} ms, plain "
-        f"{6 * p40 + 2 * p80:.4f} ms, cuDNN dgrad+wgrad (TF32 default) "
-        f"{6 * c40 + 2 * c80:.4f} ms")
-    return max_abs_err, k40, p40
+        f"{6 * p40 + 2 * p80:.4f} ms, library convolution_backward "
+        f"(TF32 default) {6 * c40 + 2 * c80:.4f} ms")
+    return max_abs_err, times[K2_CASES[0]]
 
 
 class _Tee(io.TextIOBase):
@@ -445,7 +502,7 @@ def phase_train_slice(dev, workdir):
     t0 = time.perf_counter()
     backend = YoloDataset(str(workdir / "data" / "val" / "images")).backend
     log(f"dataset backend '{backend}' ({time.perf_counter() - t0:.2f} s to "
-        f"open, including any build of the native JPEG loader)")
+        f"open)")
 
     os.environ["YOLO_FUSED_CONV_BWD"] = "1"
     cwd = os.getcwd()
@@ -633,8 +690,8 @@ PROTOTYPES = (("conv_bwd_patch", bwdproto.make_fused_bwd,
 def phase_prototypes(dev):
     """K3 and K4 against their plain versions (TF32 off) at K2's cases and
     tolerances, two runs bit-equal; device times of each kernel, its plain
-    version, cuDNN's dgrad + wgrad and K2 at the two bf16 training
-    shapes."""
+    version, the one-call library backward and K2 at the two bf16 training
+    shapes, beside the bound."""
     worst = {name: 0.0 for name, _, _ in PROTOTYPES}
     times = {}
     for i, (b, h, w, dtype) in enumerate(K2_CASES):
@@ -661,15 +718,16 @@ def phase_prototypes(dev):
             xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
             wo = wt.permute(3, 2, 0, 1).contiguous()
 
-            def cudnn():
-                torch.nn.grad.conv2d_input(xn.shape, wo, dyn, padding=1)
-                torch.nn.grad.conv2d_weight(xn, wo.shape, dyn, padding=1)
-
-            row["cuDNN dgrad+wgrad"] = device_ms(cudnn)
+            row["library"] = device_ms(
+                lambda: bwdproto.library_bwd(xn, dyn, wo))
             row["K2"] = device_ms(lambda: conv_bwd._launch(xn, dyn, wo))
+            row["bound"] = _bound(b, h, w, dtype)[0]
             times[(h, w)] = row
             log(f"  device ms {case} (profiler, {TIMING_RUNS} calls): "
-                + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+                + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+                + f" (library = one convolution_backward call; bound = H100 "
+                f"data sheet, {_bound(b, h, w, dtype)[1]})")
+            _log_k2_rounds("phase 10", b, h, w, dtype, dev, SEED + i)
     return worst, times
 
 
@@ -715,9 +773,13 @@ def phase_chain(dev):
                 lambda: blockbwd.chain_bwd_plain(*args))
         row["fwd+bwd with K5"] = device_ms(k5_arm)
         row["fwd+bwd autograd+cuDNN"] = device_ms(autograd_arm)
+        row["bound"], bound_by = roofline.chain_bwd_bound_ms(
+            b, h, w, str(dtype).split(".")[1])
         times[(h, w)] = row
         log(f"  device ms {case} (profiler, {TIMING_RUNS} calls): "
-            + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+            + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+            + f" (no one library call computes the chain's backward: "
+            f"autograd's is ~30 ops; bound = H100 data sheet, {bound_by})")
     return worst, times
 
 
@@ -784,19 +846,41 @@ def main():
     log(f"build: {path.name}, nvcc {nvcc_s:.2f} s, build+load "
         f"{time.perf_counter() - t0:.2f} s")
     ptxas = path.with_suffix(".log")
+    spills, entry = {}, ""
     for line in (ptxas.read_text().splitlines() if ptxas.exists() else []):
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
+        entry = (ENTRY.search(line) or [None, entry])[1]
+        n = sum(int(k) for k in SPILL.findall(line))
+        if n:
+            spills[entry] = n
+    conv_spills = [e for e in spills if any(k in e for k in CONV_BWD_ENTRIES)]
+    log(f"ptxas: spill bytes (stores + loads) {spills or 'none'}")
+    if conv_spills:
+        raise AssertionError(f"ptxas spilled in conv backward kernels "
+                             f"{conv_spills} (log above)")
+    log("ptxas: no spills in the conv backward kernels (K2-K5)")
+    lib = load_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kernel in ("conv3x3_bwd", "conv_bwd_patch"):
+        geom = conv_bwd.geometry(lib, kernel, 1)
+        grid, floats = conv_bwd.launch_plan(lib, kernel, 8, 80, 80, 1, sms)
+        log(f"{kernel} bf16: {geom.tile[0]}x{geom.tile[1]} tiles, clusters "
+            f"of {geom.cluster}, {geom.max_clusters} resident on {sms} SMs; "
+            f"B=8 80x80: {grid} blocks, dW workspace {floats * 4 / 1e6:.2f} "
+            f"MB (limit {DW_WORKSPACE_LIMIT / 1e6:.0f})")
+        if floats * 4 > DW_WORKSPACE_LIMIT:
+            raise AssertionError(f"{kernel}: dW workspace over the limit")
 
     # 3. kernel vs plain version
     max_abs_err = phase_kernel_vs_plain(dev)
 
     # 4. the serving slice, 5. bfloat16
-    state, cfg, requests, launches, (k_ms, p_ms) = phase_slice(dev)
+    state, cfg, requests, launches, (k_ms, p_ms, k1_bound) = phase_slice(dev)
     phase_bf16(state, cfg, requests, dev)
 
     # 6. conv backward kernel vs plain version
-    k2_err, k2_ms, k2_plain_ms = phase_conv_bwd(dev)
+    k2_err, (k2_ms, k2_plain_ms, k2_lib_ms, k2_bound) = phase_conv_bwd(dev)
 
     # 7. the training slice, 8. parity with the CPU, 9. throughput
     with tempfile.TemporaryDirectory() as tmp:
@@ -821,6 +905,9 @@ def main():
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
@@ -830,6 +917,9 @@ def main():
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": k2_lib_ms,
     }, *({
         "name": name,
         "route": "cuda",
@@ -839,13 +929,19 @@ def main():
         "max_abs_err": err,
         "ms": times[name],
         "plain_ms": times[f"{name} plain"],
-    } for name, replaces, err, times in (
+        "bound_ms": times["bound"],
+        "bound_by": bound_by,
+        "library_ms": times.get("library"),
+    } for name, replaces, err, times, bound_by in (
         ("conv_bwd_patch", "benchmarks/bwdproto.py:58",
-         proto_err["conv_bwd_patch"], proto_ms[(40, 40)]),
+         proto_err["conv_bwd_patch"], proto_ms[(40, 40)],
+         _bound(8, 40, 40, torch.bfloat16)[1]),
         ("conv_bwd_tap", "benchmarks/bwdproto.py:101",
-         proto_err["conv_bwd_tap"], proto_ms[(40, 40)]),
+         proto_err["conv_bwd_tap"], proto_ms[(40, 40)],
+         _bound(8, 40, 40, torch.bfloat16)[1]),
         ("chain_bwd", "benchmarks/blockbwd.py:71", chain_err,
-         chain_ms[(40, 40)])))]}))
+         chain_ms[(40, 40)],
+         roofline.chain_bwd_bound_ms(8, 40, 40, "bfloat16")[1])))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

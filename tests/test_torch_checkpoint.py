@@ -10,6 +10,8 @@ the float32 tolerance of tests/test_torch_model.py (rtol=atol=1e-4: XLA and
 PyTorch sum each convolution in another order).
 """
 
+from dataclasses import asdict
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -56,7 +58,8 @@ def test_load_repairs_head_bias_as_jax(cfg, tmp_path, capsys, how):
     jax_out = capsys.readouterr().out
     state, port_cfg, meta = load_checkpoint(path)
     port_out = capsys.readouterr().out
-    assert port_cfg == jax_cfg == cfg and meta["epoch"] == 1
+    assert asdict(port_cfg) == asdict(jax_cfg) == asdict(cfg)
+    assert meta["epoch"] == 1
     assert jax_out == port_out == WARNING + "\n"
 
     want = np.asarray(jax_vars["params"]["head_p3"]["pred"]["bias"])

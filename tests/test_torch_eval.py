@@ -11,6 +11,7 @@ tests/test_torch_model.py).
 """
 
 import re
+from dataclasses import asdict
 
 import jax
 import numpy as np
@@ -143,7 +144,7 @@ def test_checkpoint_round_trip_through_jax(cfg, variables, tmp_path, dtype):
     jax.tree_util.tree_map(np.testing.assert_array_equal, jax_vars, flat)
 
     back, back_cfg, back_meta = load_checkpoint(path)
-    assert back_cfg == cfg and back_meta["epoch"] == 2
+    assert asdict(back_cfg) == asdict(cfg) and back_meta["epoch"] == 2
     for key, t in state.items():
         torch.testing.assert_close(back[key], t, rtol=0, atol=0)
     assert not list(tmp_path.glob("*.tmp"))

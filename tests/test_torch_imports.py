@@ -6,9 +6,12 @@ S x S uint8 array (whose letterbox is the identity and needs no PIL) on the
 CPU with none of jax, flax or PIL in `sys.modules`; and train one step on
 the CPU from a dataset of JPEGs (PIL decodes them) with no jax or flax.
 The conv-backward prototype benchmarks import with none of jax, flax or
-triton, and run their CPU check as a user runs them.
+triton, and run their CPU check as a user runs them. None of these loads
+any module of the JAX package (`yolo_from_scratch_tpu`), and no source
+file of the port or `chip_smoke.py` names one in an import.
 """
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -16,6 +19,16 @@ from pathlib import Path
 import pytest
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
+PORT_DIR = REPO_ROOT / "yolo_from_scratch_tpu_torch"
+JAX_PACKAGE = "yolo_from_scratch_tpu"
+
+# appended to each subprocess script: no module of the JAX package loaded
+NO_JAX_PACKAGE = """
+jax_package = sorted(m for m in sys.modules
+                     if m.split(".")[0] == "yolo_from_scratch_tpu")
+assert not jax_package, jax_package
+print("NO JAX PACKAGE")
+"""
 
 SCRIPT = """
 import sys
@@ -45,7 +58,7 @@ assert nms_cuda.launches == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "PIL"))
 print("LOADED", loaded)
-"""
+""" + NO_JAX_PACKAGE
 
 
 def test_port_serves_without_jax_flax_or_pil():
@@ -54,6 +67,7 @@ def test_port_serves_without_jax_flax_or_pil():
                             cwd=REPO_ROOT)
     assert result.returncode == 0, result.stderr
     assert "LOADED []" in result.stdout, result.stdout
+    assert "NO JAX PACKAGE" in result.stdout, result.stdout
 
 
 TRAIN_SCRIPT = """
@@ -83,7 +97,7 @@ assert state.step == 1 and torch.isfinite(metrics["loss"]), metrics
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax"))
 print("LOADED", loaded)
-"""
+""" + NO_JAX_PACKAGE
 
 
 def test_port_trains_without_jax_or_flax(temp_dataset_dir):
@@ -93,6 +107,7 @@ def test_port_trains_without_jax_or_flax(temp_dataset_dir):
         capture_output=True, text=True, timeout=300, cwd=REPO_ROOT)
     assert result.returncode == 0, result.stderr
     assert "LOADED []" in result.stdout, result.stdout
+    assert "NO JAX PACKAGE" in result.stdout, result.stdout
 
 
 PROTOTYPES = ["bwdproto", "blockbwd"]
@@ -105,7 +120,7 @@ importlib.import_module(sys.argv[1])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton"))
 print("LOADED", loaded)
-"""
+""" + NO_JAX_PACKAGE
 
 
 @pytest.mark.parametrize("module", PROTOTYPES)
@@ -116,6 +131,7 @@ def test_prototype_benchmark_imports_without_jax_flax_or_triton(module):
         capture_output=True, text=True, timeout=300, cwd=REPO_ROOT)
     assert result.returncode == 0, result.stderr
     assert "LOADED []" in result.stdout, result.stdout
+    assert "NO JAX PACKAGE" in result.stdout, result.stdout
 
 
 @pytest.mark.parametrize("module", PROTOTYPES)
@@ -130,3 +146,43 @@ def test_prototype_benchmark_runs_on_the_cpu(module):
     assert "correctness" in result.stderr and "2x16x16x64 (cpu)" in \
         result.stderr, result.stderr
     assert "timing skipped" in result.stderr, result.stderr
+
+
+def _imported_modules(path):
+    """Every module name an import statement of `path` names, absolute or
+    relative (resolved against the port's package)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                names.append("yolo_from_scratch_tpu_torch")
+            elif node.module:
+                names.append(node.module)
+                names += [f"{node.module}.{a.name}" for a in node.names]
+    return names
+
+
+PORT_SOURCES = sorted(PORT_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=[str(p.relative_to(REPO_ROOT))
+                              for p in PORT_SOURCES])
+def test_port_source_imports_nothing_of_the_jax_package(path):
+    """Static check: no import in the port's sources or in chip_smoke.py
+    names `yolo_from_scratch_tpu` or one of its submodules, at module level
+    or inside a function."""
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib", "flax")]
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_static_check_sees_the_port():
+    """The static check above parses the whole port, including lazy
+    imports inside functions (a guard against an empty glob)."""
+    assert len(PORT_SOURCES) > 30
+    names = _imported_modules(PORT_DIR / "infer" / "predict.py")
+    assert "yolo_from_scratch_tpu_torch.data.letterbox" in names

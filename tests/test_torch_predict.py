@@ -19,6 +19,7 @@ import os
 import re
 import subprocess
 import sys
+from dataclasses import asdict
 from pathlib import Path
 
 import jax
@@ -232,7 +233,7 @@ def jax_checkpoint(tmp_path_factory, cfg, served):
 def test_jax_checkpoint_loads_and_serves(cfg, served, jax_checkpoint,
                                          sample_image, jax_detections):
     state, cfg2, meta = load_checkpoint(jax_checkpoint)
-    assert cfg2 == cfg
+    assert asdict(cfg2) == asdict(cfg)
     assert meta["epoch"] == 3 and meta["version"] == 1
     for key, t in _state(cfg, served).items():
         torch.testing.assert_close(state[key], t, rtol=0, atol=0)

@@ -6,16 +6,18 @@ counterpart at the same relative path there. Public functions keep the JAX
 layouts (images NHWC `(B, S, S, 3)`, head outputs `(B, H, W, A, 5+nc)`);
 inside the model tensors are NCHW.
 
-This package imports `torch` and never `jax`. The host-side configuration
-is shared by import (`yolo_from_scratch_tpu.config` and the PIL letterbox
-in `yolo_from_scratch_tpu.data.letterbox` load only numpy).
+This package imports `torch` and never `jax`, and nothing of the JAX
+package: the host-side configuration (`config.py`) and data layer
+(`data/letterbox.py`, `data/dataset.py`, `data/loader.py`) are the port's
+own copies, held bit-equal to the JAX package's by the tests.
 
 Ported so far: the single-image serving path (letterbox -> forward ->
-decode -> gate -> top-k -> class-aware greedy NMS), with NMS as a CUDA
-kernel written by hand (`csrc/nms.cu`).
+decode -> gate -> top-k -> class-aware greedy NMS), training and
+evaluation, and the conv-backward prototype benchmarks; every TPU kernel
+of the JAX package is a CUDA kernel written by hand (`csrc/`).
 """
 
-from yolo_from_scratch_tpu.config import (
+from yolo_from_scratch_tpu_torch.config import (
     DEFAULT_ANCHORS,
     INV255,
     YOLO_SIZES,

@@ -53,6 +53,7 @@ from yolo_from_scratch_tpu_torch.benchmarks.bwdproto import (
     tap_products,
 )
 from yolo_from_scratch_tpu_torch.device import cuda_device, tf32_disabled
+from yolo_from_scratch_tpu_torch.ops import conv_bwd
 from yolo_from_scratch_tpu_torch.utils.timing import log, time_per_iter
 
 launches = 0
@@ -103,9 +104,10 @@ def _launch(x, z1, a1, dy, w1, w2, s1, s2):
     dws = torch.empty((2, 3, 3, c, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         lib, sms, stream, bf16, error = launch_env(x)
-        grid = lib.chain_bwd_grid(b, h, wd, sms)
-        workspace = torch.empty(grid * 2 * lib.conv3x3_bwd_partial_floats(),
-                                dtype=torch.float32, device=x.device)
+        grid, ws_floats = conv_bwd.launch_plan(lib, "chain_bwd", b, h, wd,
+                                               bf16, sms)
+        workspace = torch.empty(ws_floats, dtype=torch.float32,
+                                device=x.device)
         rc = lib.chain_bwd(
             x.data_ptr(), z1.data_ptr(), a1.data_ptr(), dy.data_ptr(),
             w1f.data_ptr(), w2f.data_ptr(), s1.data_ptr(), s2.data_ptr(),

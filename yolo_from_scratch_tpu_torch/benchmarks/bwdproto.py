@@ -18,9 +18,11 @@ tensor the hand-written kernel (`csrc/conv_bwd_patch.cu`,
 launches and nothing else.
 
 `main` checks both against autograd of `F.conv2d` (TF32 off) and times
-them at the training path's two bf16 shapes against cuDNN's dgrad + wgrad
-and the port's shipped kernel K2, then projects the saving over the gated
-convs of the port's 's' @640 bf16 step, counted from the model.
+them at the training path's two bf16 shapes against one library call that
+computes the same function (`torch.ops.aten.convolution_backward`: cuDNN's
+dgrad + wgrad) and the port's shipped kernel K2, then projects the saving
+over the gated convs of the port's 's' @640 bf16 step, counted from the
+model. The library call is a yardstick only; the port never calls it.
 
 Usage: python -m yolo_from_scratch_tpu_torch.benchmarks.bwdproto
            [--iters 3] [--device cuda|cpu]
@@ -40,15 +42,13 @@ import torch.nn.functional as F
 from yolo_from_scratch_tpu_torch import YoloConfig
 from yolo_from_scratch_tpu_torch.device import cuda_device, tf32_disabled
 from yolo_from_scratch_tpu_torch.ops import conv_bwd
+from yolo_from_scratch_tpu_torch.utils import roofline
 from yolo_from_scratch_tpu_torch.utils.timing import log, time_per_iter
 
 C = 64
 TAPS = [(i, j) for i in range(3) for j in range(3)]
 LAUNCHES_PER_CALL = 2  # the tile kernel and the sum of its dW partials
 launches = {"conv_bwd_patch": 0, "conv_bwd_tap": 0}
-# H100 SXM data sheet: device memory bandwidth and dense bf16 tensor rate
-H100_BYTES_PER_S = 3.35e12
-H100_BF16_FLOPS = 989e12
 LOOP = (50, 550)  # the two loop lengths of `time_per_iter`, as in JAX
 
 
@@ -57,6 +57,14 @@ def flip9(w, dtype):
     w[2-i, 2-j, ci, co], the weights of the input-gradient conv."""
     c = w.shape[-1]
     return w.flip(0, 1).permute(0, 1, 3, 2).reshape(9 * c, c).to(dtype)
+
+
+def flip9t(w, dtype):
+    """W9T (9C, C) in `dtype` from HWIO w: W9flip transposed tap by tap,
+    row t*C + ci, column co = w[2-i, 2-j, ci, co] (K3's bf16 layout: each
+    tap's block is the K-major B operand of its dx product)."""
+    c = w.shape[-1]
+    return w.flip(0, 1).reshape(9 * c, c).to(dtype)
 
 
 def pad_hw(t):
@@ -147,18 +155,21 @@ def launch_env(x):
 
 def _launch(name, x, dy, w):
     """dx, dW of one conv through kernel `name` (conv_bwd_patch or
-    conv_bwd_tap): the tile kernel, then the block-order sum of its dW
-    partials."""
-    x, dy = x.contiguous(), dy.contiguous()
-    w9 = flip9(w, x.dtype).contiguous()
+    conv_bwd_tap): the tile kernel, then the fixed-order sum of its dW
+    partials. x and dy must be contiguous (the kernels read them by TMA or
+    by dense indexing); nothing is copied."""
+    for t, label in ((x, "x"), (dy, "dy")):
+        conv_bwd.check_tma_operand(t, label, channels_last=False)
+    patch_bf16 = name == "conv_bwd_patch" and x.dtype == torch.bfloat16
+    w9 = (flip9t if patch_bf16 else flip9)(w, x.dtype).contiguous()
     b, h, wd, c = x.shape
     dx = torch.empty_like(x)
     dw = torch.empty((3, 3, c, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         lib, sms, stream, bf16, error = launch_env(x)
-        grid = getattr(lib, f"{name}_grid")(b, h, wd, bf16, sms)
-        workspace = torch.empty(grid * lib.conv3x3_bwd_partial_floats(),
-                                dtype=torch.float32, device=x.device)
+        grid, ws_floats = conv_bwd.launch_plan(lib, name, b, h, wd, bf16, sms)
+        workspace = torch.empty(ws_floats, dtype=torch.float32,
+                                device=x.device)
         rc = getattr(lib, name)(
             x.data_ptr(), dy.data_ptr(), w9.data_ptr(), dx.data_ptr(),
             dw.data_ptr(), workspace.data_ptr(), b, h, wd, grid, bf16,
@@ -280,17 +291,27 @@ def check_correctness(B, H, W, device):
 
 def roofline_floor_s(B, H, W, convs, itemsize=2):
     """H100 data-sheet floor (not a measurement) for the backward of
-    `convs` 3x3 C->C convs: the larger of reading x and dy and writing dx
-    at 3.35 TB/s, and the 4 * B*H*W*9*C*C flops of dx and dW each at 989
-    TFLOP/s bf16."""
-    bytes_ = convs * 3 * B * H * W * C * itemsize
-    flops = convs * 4 * B * H * W * 9 * C * C
-    return max(bytes_ / H100_BYTES_PER_S, flops / H100_BF16_FLOPS)
+    `convs` 3x3 C->C convs: `utils.roofline.conv3x3_bwd_work` (x and dy
+    read, dx written, the weights read and dW written; 4 * B*H*W*9*C*C
+    flops) at 3.35 TB/s and the dtype's peak (bf16 989 TFLOP/s, float32 67
+    TFLOP/s), whichever is slower. Seconds."""
+    flops, bytes_ = roofline.conv3x3_bwd_work(B, H, W, itemsize)
+    dtype = "bfloat16" if itemsize == 2 else "float32"
+    return roofline.bound_ms(convs * flops, convs * bytes_, dtype)[0] / 1e3
+
+
+def library_bwd(x, dy, w):
+    """The one PyTorch call that computes dx and dW of y = conv2d(x, w,
+    padding=1): `aten.convolution_backward` (cuDNN's dgrad and wgrad on
+    the card). x, dy NCHW, w OIHW. A yardstick for timing only."""
+    return torch.ops.aten.convolution_backward(
+        dy, x, w, None, (1, 1), (1, 1), (1, 1), False, (0, 0), 1,
+        (True, True, False))
 
 
 def bench_shape(B, H, W, reps, dtype=torch.bfloat16):
-    """Seconds per call of cuDNN's dgrad + wgrad, K3, K4 and K2 at one
-    shape; returns (cuDNN, the better of K3 and K4)."""
+    """Seconds per call of the library's backward (cuDNN), K3, K4 and K2
+    at one shape; returns (cuDNN, the better of K3 and K4)."""
     dev = cuda_device()
     x, w, dy = _inputs(B, H, W, dtype, dev)
     xn, dyn, wo = _nchw(x), _nchw(dy), _oihw(w).contiguous()
@@ -298,8 +319,7 @@ def bench_shape(B, H, W, reps, dtype=torch.bfloat16):
     k4 = make_fused_bwd_v2(B, H, W, C, dtype)
 
     def cudnn():
-        torch.nn.grad.conv2d_input(xn.shape, wo, dyn, padding=1)
-        torch.nn.grad.conv2d_weight(xn, wo.shape, dyn, padding=1)
+        library_bwd(xn, dyn, wo)
 
     arms = {"cuDNN": cudnn, "K3-patch": lambda: k3(x, dy, w),
             "K4-tap": lambda: k4(x, dy, w),

@@ -19,7 +19,7 @@ import sys
 
 import numpy as np
 
-from yolo_from_scratch_tpu.config import YOLO_SIZES, YoloConfig
+from yolo_from_scratch_tpu_torch.config import YOLO_SIZES, YoloConfig
 
 CKPT_EXTS = (".ckpt", ".msgpack")
 IMG_EXTS = (".jpg", ".png", ".jpeg")
@@ -153,7 +153,7 @@ def _loader(config, split, cfg, batch_size, shuffle=False, seed=0):
     from yolo_from_scratch_tpu_torch.data import DataLoader, YoloDataset
 
     return DataLoader(YoloDataset(config[split], cfg.num_classes,
-                                  cfg.anchors_array, cfg.img_size, seed=seed),
+                                  cfg.anchors_array, cfg.img_size),
                       batch_size=batch_size, shuffle=shuffle, seed=seed)
 
 

@@ -174,17 +174,24 @@ int launch(const void* x, const void* z1, const void* a1, const void* dy, const 
 
 extern "C" {
 
-// Blocks the tile kernel runs with: one per SM, at most one per 8x8 tile.
-// The workspace holds grid * 2 * 36,864 floats.
-int chain_bwd_grid(int b, int h, int w, int sms) {
-  const int n = Tiles(b, h, w, kT, kT).n;
-  return n < sms ? n : sms;
+// Launch geometry of the tile kernel, the one source of it that the wrapper
+// reads, in conv3x3_bwd_geometry's layout: 8x8 tiles in either type,
+// unclustered (one block per SM), a partial a block holding dw1 then dw2.
+// Returns 0.
+int chain_bwd_geometry(int bf16_, int* out) {
+  (void)bf16_;
+  out[0] = kT;
+  out[1] = kT;
+  out[2] = 1;
+  out[3] = 2 * kPartial;
+  out[4] = 0;
+  return 0;
 }
 
 // x, z1, a1, dy, dx (B, H, W, 64) NHWC and w1f, w2f = W9flip of each conv
 // (576, 64), all float32 (bf16 = 0) or all bfloat16 (bf16 = 1); s1, s2 (64,)
 // float32; dws (2, 3, 3, 64, 64) float32 receives dw1 then dw2 (HWIO);
-// workspace grid * 2 * 36,864 floats, grid from chain_bwd_grid. Launches the
+// grid and workspace as chain_bwd_geometry gives them. Launches the
 // tile kernel and the sum of the partials on `stream`, does not
 // synchronise; returns cudaGetLastError() (0 on success).
 int chain_bwd(const void* x, const void* z1, const void* a1, const void* dy,

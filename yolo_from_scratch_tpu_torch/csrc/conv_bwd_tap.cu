@@ -170,16 +170,21 @@ Tiles tiles_for(int b, int h, int w, int bf16_) {
 
 extern "C" {
 
-// Blocks the tile kernel runs with: one per SM (its shared memory holds one
-// block), at most one per tile. The workspace holds grid * 36,864 floats.
-int conv_bwd_tap_grid(int b, int h, int w, int bf16_, int sms) {
-  const int n = tiles_for(b, h, w, bf16_).n;
-  return n < sms ? n : sms;
+// Launch geometry of the tile kernel, the one source of it that the wrapper
+// reads, in conv3x3_bwd_geometry's layout: unclustered (one block per SM,
+// whose shared memory holds one), a partial a block. Returns 0.
+int conv_bwd_tap_geometry(int bf16_, int* out) {
+  out[0] = kTH;
+  out[1] = bf16_ ? kTWb : kTWf;
+  out[2] = 1;
+  out[3] = kPartial;
+  out[4] = 0;
+  return 0;
 }
 
 // x, dy, dx (B, H, W, 64) NHWC and w9 = W9flip (576, 64), all float32
 // (bf16 = 0) or all bfloat16 (bf16 = 1); dw (3, 3, 64, 64) HWIO float32;
-// workspace grid * 36,864 floats, grid from conv_bwd_tap_grid. Launches the
+// grid and workspace as conv_bwd_tap_geometry gives them. Launches the
 // tile kernel and the sum of the partials on `stream`, does not
 // synchronise; returns cudaGetLastError() (0 on success).
 int conv_bwd_tap(const void* x, const void* dy, const void* w9, void* dx, void* dw,

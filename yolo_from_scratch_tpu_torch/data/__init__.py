@@ -1,8 +1,8 @@
-"""Host data layer. The dataset, the loader and the letterbox are the JAX
-package's (`yolo_from_scratch_tpu/data/`), shared by import: they load
-only numpy (PIL and the native JPEG loader lazily), never jax."""
+"""Host data layer: the port's copies of the JAX package's dataset, loader
+and host letterbox (`yolo_from_scratch_tpu/data/`). They load only numpy
+(PIL lazily), never jax, and import nothing of the JAX package."""
 
-from yolo_from_scratch_tpu.data.dataset import YoloDataset
-from yolo_from_scratch_tpu.data.loader import DataLoader
+from yolo_from_scratch_tpu_torch.data.dataset import YoloDataset
+from yolo_from_scratch_tpu_torch.data.loader import DataLoader
 
 __all__ = ["YoloDataset", "DataLoader"]

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from yolo_from_scratch_tpu.config import INV255, YoloConfig
+from yolo_from_scratch_tpu_torch.config import INV255, YoloConfig
 from yolo_from_scratch_tpu_torch.models.yolo import (
     YOLO,
     cast_convs_,
@@ -131,7 +131,7 @@ def letterbox_input(image, img_size: int):
         from PIL import Image
 
         image = Image.open(image)
-    from yolo_from_scratch_tpu.data.letterbox import letterbox_image
+    from yolo_from_scratch_tpu_torch.data.letterbox import letterbox_image
 
     return letterbox_image(image.convert("RGB"), img_size)
 

@@ -127,17 +127,15 @@ def load_library() -> ctypes.CDLL:
     lib.conv3x3_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                 i32, i32, ptr]
     lib.conv3x3_bwd.restype = i32
-    lib.conv3x3_bwd_partial_floats.argtypes = []
-    lib.conv3x3_bwd_partial_floats.restype = i32
     lib.conv3x3_bwd_error_string.argtypes = [i32]
     lib.conv3x3_bwd_error_string.restype = ctypes.c_char_p
     for name in ("conv_bwd_patch", "conv_bwd_tap"):
         getattr(lib, name).argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         getattr(lib, name).restype = i32
-        getattr(lib, f"{name}_grid").argtypes = [i32] * 5
-        getattr(lib, f"{name}_grid").restype = i32
+    for name in ("conv3x3_bwd", "conv_bwd_patch", "conv_bwd_tap",
+                 "chain_bwd"):
+        getattr(lib, f"{name}_geometry").argtypes = [i32, ptr]
+        getattr(lib, f"{name}_geometry").restype = i32
     lib.chain_bwd.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
     lib.chain_bwd.restype = i32
-    lib.chain_bwd_grid.argtypes = [i32] * 4
-    lib.chain_bwd_grid.restype = i32
     return lib

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolo_from_scratch_tpu.config import NUM_ANCHORS_PER_SCALE, YoloConfig
+from yolo_from_scratch_tpu_torch.config import NUM_ANCHORS_PER_SCALE, YoloConfig
 from yolo_from_scratch_tpu_torch.models.blocks import (
     C3,
     SPPF,

@@ -17,6 +17,13 @@ CPU tensor it runs `fused_bwd_plain`, the patch math in torch, which is also
 what the kernel is checked against. There is no fallback from the kernel to
 the plain version. `launches` counts kernel launches and nothing else.
 
+The bf16 kernels of this module and of `benchmarks/bwdproto.py` (K3) load
+their tiles by TMA and run in clusters of blocks that sum their dW partials
+on chip. Each conv-backward kernel (K2-K5) owns its launch geometry and
+exports it (`<kernel>_geometry`); `geometry` reads it and `launch_plan`
+turns it into the grid and the dW workspace, the arithmetic every wrapper
+uses. `check_tma_operand` refuses what TMA cannot read.
+
 `YOLO_FUSED_CONV_BWD` (default "0") is read at every call of
 `use_fused_bwd`; any other value turns the gate on. Unlike the JAX
 package, which reads it when a program is traced, the port can switch it
@@ -25,7 +32,9 @@ between steps.
 
 from __future__ import annotations
 
+import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -82,6 +91,75 @@ def fused_bwd_plain(x, dy, w):
     return dx, dw9.reshape(3, 3, c, c).permute(3, 2, 0, 1)
 
 
+class Geometry(NamedTuple):
+    """A conv-backward tile kernel's launch geometry, as the kernel's
+    `<kernel>_geometry` export gives it."""
+    tile: tuple          # output tile (rows, columns)
+    cluster: int         # blocks of a cluster; 1: no clusters
+    partial_floats: int  # floats of one dW partial
+    max_clusters: int    # clusters the card holds at once; 0 unclustered
+
+
+def geometry(lib, kernel, bf16):
+    """Geometry of `kernel` (conv3x3_bwd, conv_bwd_patch, conv_bwd_tap or
+    chain_bwd) for bf16 or float32, read from the kernel library."""
+    out = (ctypes.c_int * 5)()
+    rc = getattr(lib, f"{kernel}_geometry")(int(bf16), out)
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: the card cannot run a cluster of the "
+                           f"kernel ({lib.conv3x3_bwd_error_string(rc).decode()})")
+    return Geometry((out[0], out[1]), out[2], out[3], out[4])
+
+
+def tile_count(b, h, w, tile):
+    """Output tiles of (rows, columns) `tile` over a (B, H, W) batch."""
+    return b * -(-h // tile[0]) * -(-w // tile[1])
+
+
+def launch_grid(n_tiles, sms, geom):
+    """Blocks a kernel runs with. Clustered: the cluster size x the smaller
+    of the clusters the card holds at once and the tiles / cluster rounded
+    up, so no cluster waits for another to finish. Otherwise one block per
+    SM, at most one a tile."""
+    if geom.cluster == 1:
+        return min(n_tiles, sms)
+    if geom.max_clusters < 1:
+        raise RuntimeError("the card cannot run a cluster of the kernel")
+    return geom.cluster * min(geom.max_clusters, -(-n_tiles // geom.cluster))
+
+
+def workspace_floats(grid, geom):
+    """Floats of the dW workspace: a partial a cluster, else one a block."""
+    return grid // geom.cluster * geom.partial_floats
+
+
+def launch_plan(lib, kernel, b, h, w, bf16, sms):
+    """(grid, workspace floats) of one launch of `kernel` over a (B, H, W)
+    batch on a card with `sms` SMs."""
+    geom = geometry(lib, kernel, bf16)
+    grid = launch_grid(tile_count(b, h, w, geom.tile), sms, geom)
+    return grid, workspace_floats(grid, geom)
+
+
+def check_tma_operand(t, name, channels_last):
+    """Raise ValueError unless t is what the kernels' TMA tensor maps read:
+    dense with its channels innermost (an NCHW tensor in channels-last
+    memory if `channels_last`, else a contiguous NHWC tensor), a base
+    address and strides that are multiples of 16 bytes. No copy is made."""
+    dense = (t.is_contiguous(memory_format=torch.channels_last)
+             if channels_last else t.is_contiguous())
+    if not dense:
+        layout = "channels-last NCHW" if channels_last else "contiguous NHWC"
+        raise ValueError(f"{name}: the kernel reads a dense {layout} tensor, "
+                         f"got shape {tuple(t.shape)} strides {t.stride()}")
+    bad = [st for st, n in zip(t.stride(), t.shape)
+           if n > 1 and st != 1 and st * t.element_size() % 16]
+    if t.data_ptr() % 16 or bad:
+        raise ValueError(f"{name}: TMA needs a 16-byte aligned base and "
+                         f"strides that are multiples of 16 bytes, got "
+                         f"address {t.data_ptr():#x}, strides {t.stride()}")
+
+
 def _launch(x, dy, w):
     global launches
     from yolo_from_scratch_tpu_torch.kernels.build import load_library
@@ -101,25 +179,30 @@ def _launch(x, dy, w):
     if not (x.device == dy.device == w.device):
         raise ValueError(f"x, dy and w on different devices: {x.device}, "
                          f"{dy.device}, {w.device}")
+    # the kernel reads channels-last x and dy (by TMA in bf16) and
+    # contiguous w; nothing is copied here
     cl = torch.channels_last
-    if not x.is_contiguous(memory_format=cl):
-        x = x.contiguous(memory_format=cl)
-    if not dy.is_contiguous(memory_format=cl):
-        dy = dy.contiguous(memory_format=cl)
-    w = w.contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    for t, name in ((x, "x"), (dy, "dy")):
+        if bf16:
+            check_tma_operand(t, name, channels_last=True)
+        elif not t.is_contiguous(memory_format=cl):
+            raise ValueError(f"{name}: the kernel reads a dense channels-last "
+                             f"NCHW tensor, got strides {t.stride()}")
+    if not w.is_contiguous():
+        raise ValueError(f"w: the kernel reads a contiguous OIHW tensor, got "
+                         f"strides {w.stride()}")
     lib = load_library()
     dx = torch.empty_like(x, memory_format=cl)
     dw = torch.empty((c, c, 3, 3), dtype=torch.float32, device=x.device)
-    n_tiles = b * -(-h // 8) * -(-wd // 8)
     with torch.cuda.device(x.device):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        grid = min(n_tiles, sms)
-        workspace = torch.empty(grid * lib.conv3x3_bwd_partial_floats(),
-                                dtype=torch.float32, device=x.device)
+        grid, ws_floats = launch_plan(lib, "conv3x3_bwd", b, h, wd, bf16, sms)
+        workspace = torch.empty(ws_floats, dtype=torch.float32,
+                                device=x.device)
         rc = lib.conv3x3_bwd(
             x.data_ptr(), dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
-            dw.data_ptr(), workspace.data_ptr(), b, h, wd, grid,
-            int(x.dtype == torch.bfloat16),
+            dw.data_ptr(), workspace.data_ptr(), b, h, wd, grid, int(bf16),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv backward kernel launch failed: "
@@ -131,7 +214,9 @@ def _launch(x, dy, w):
 
 def fused_bwd(x, dy, w):
     """(dx in x's dtype, dW float32 OIHW) for y = conv2d(x, w, padding=1).
-    CPU tensors run the plain version, CUDA tensors the kernel."""
+    CPU tensors run the plain version, CUDA tensors the kernel, which takes
+    channels-last x and dy and a contiguous w and raises on anything
+    else."""
     if x.device.type == "cpu":
         return fused_bwd_plain(x, dy, w)
     if x.device.type != "cuda":
@@ -149,7 +234,14 @@ class _Conv3x3Same(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dx, dw = fused_bwd(x, dy.to(x.dtype), w)
+        dy = dy.to(x.dtype)
+        if x.device.type == "cuda":
+            # the kernel reads channels-last x and dy and refuses anything
+            # else; autograd may hand dy (and the caller x) in another format
+            cl = torch.channels_last
+            x, dy = (t.contiguous(memory_format=cl) for t in (x, dy))
+            w = w.contiguous()
+        dx, dw = fused_bwd(x, dy, w)
         return dx.to(x.dtype), dw.to(w.dtype)
 
 

@@ -19,7 +19,7 @@ import dataclasses
 
 import torch
 
-from yolo_from_scratch_tpu.config import INV255, YoloConfig
+from yolo_from_scratch_tpu_torch.config import INV255, YoloConfig
 from yolo_from_scratch_tpu_torch.models.yolo import YOLO
 from yolo_from_scratch_tpu_torch.ops.losses import yolo_loss_multiscale
 from yolo_from_scratch_tpu_torch.train.metrics import grid_metric_counts

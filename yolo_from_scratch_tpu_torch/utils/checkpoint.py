@@ -14,7 +14,7 @@ import os
 
 import numpy as np
 
-from yolo_from_scratch_tpu.config import YoloConfig
+from yolo_from_scratch_tpu_torch.config import YoloConfig
 
 CKPT_VERSION = 1
 _EXT_NDARRAY = 1
