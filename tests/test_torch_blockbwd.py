@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from benchmarks import blockbwd as jax_blockbwd
-from yolo_from_scratch_tpu_torch.benchmarks import blockbwd, bwdproto
+from yolo_from_scratch_tpu_torch.benchmarks import blockbwd, bwdproto, chain_parts
 
 CASES = [(2, 8, 8, "float32"), (1, 7, 5, "float32"), (2, 16, 16, "float32"),
          (2, 8, 8, "bfloat16"), (1, 7, 5, "bfloat16")]
@@ -133,3 +133,45 @@ def test_bottleneck_chain_count_of_the_step():
     merge, PANet merge), all at 40x40."""
     assert blockbwd.bottleneck_chains(bwdproto.step_config()) == {
         (40, 40): 3}
+
+
+def _misaligned(t):
+    """t's values in a view whose base is 2 bytes past a 16-byte boundary."""
+    flat = torch.zeros(t.numel() + 8, dtype=t.dtype)
+    start = next(i for i in range(1, 9) if flat[i:].data_ptr() % 16)
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("which", ["x", "z1", "a1", "dy"])
+@pytest.mark.parametrize("how", ["not contiguous", "misaligned"])
+def test_k5_launch_refuses_without_copying(which, how):
+    """K5's kernel reads its activations by TMA from dense NHWC tensors
+    with 16-byte aligned bases; its wrapper raises on anything else before
+    it builds or launches anything, as K2's does, instead of copying."""
+    x, w1, w2, s1, s2, dy = (torch.from_numpy(a).bfloat16()
+                             for a in _inputs(5, 1, 4, 6))
+    z1, a1, _ = blockbwd.chain_fwd(x, w1, w2, s1.float(), s2.float())
+    acts = {"x": x, "z1": z1, "a1": a1, "dy": dy}
+    t = acts[which]
+    if how == "not contiguous":
+        acts[which] = t.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        acts[which] = _misaligned(t)
+    before = blockbwd.launches
+    with pytest.raises(ValueError, match=f"{which}: .*(dense|TMA)"):
+        blockbwd._launch(acts["x"], acts["z1"], acts["a1"], acts["dy"], w1,
+                         w2, s1, s2)
+    assert blockbwd.launches == before
+
+
+@pytest.mark.parametrize("name", sorted(chain_parts.VARIANTS))
+def test_chain_parts_variants_find_their_lines(name):
+    """Each variant of the kernel-time breakdown (`benchmarks/chain_parts.py`)
+    replaces lines that `csrc/chain_bwd.cu` holds exactly once, so a change
+    of the kernel that moves them fails here and not on the card."""
+    path = chain_parts.CSRC_DIR / chain_parts.SOURCE
+    text = path.read_text()
+    got = chain_parts.variant_source(name, text)
+    assert (got == text) == (name == "full")

@@ -1,19 +1,23 @@
 """The Python side of the port's TMA-fed conv backward kernels (K2,
-`ops/conv_bwd.py`; K3, `benchmarks/bwdproto.py`) and the H100 bounds of
-`utils/roofline.py`, on the CPU.
+`ops/conv_bwd.py`; K3 and K4, `benchmarks/bwdproto.py`; K5,
+`benchmarks/blockbwd.py`) and the H100 bounds of `utils/roofline.py`, on
+the CPU.
 
 The kernels run only on the card; what their wrappers compute here (tile
 counts, the clustered grid and the dW workspace from each kernel's exported
-geometry, what a TMA tensor map can read, the weight layout K3's kernel
-reads) and the bound arithmetic that `chip_smoke.py` reports are exact, so
-they are held to exact values.
+geometry, what a TMA tensor map can read, the weight layout the bf16
+kernels read) and the bound arithmetic that `chip_smoke.py` reports are
+exact, so they are held to exact values.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from yolo_from_scratch_tpu_torch.benchmarks import bwdproto
+from yolo_from_scratch_tpu_torch.benchmarks import blockbwd, bwdproto
 from yolo_from_scratch_tpu_torch.ops import conv_bwd
 from yolo_from_scratch_tpu_torch.utils import roofline
 
@@ -31,8 +35,8 @@ class _Lib:
     GEOMETRY = {  # kernel: {bf16: (rows, columns, cluster, partial floats)}
         "conv3x3_bwd": {1: (8, 16, 4, PARTIAL), 0: (8, 8, 1, PARTIAL)},
         "conv_bwd_patch": {1: (8, 16, 4, PARTIAL), 0: (4, 8, 1, PARTIAL)},
-        "conv_bwd_tap": {1: (8, 16, 1, PARTIAL), 0: (8, 8, 1, PARTIAL)},
-        "chain_bwd": {1: (8, 8, 1, 2 * PARTIAL), 0: (8, 8, 1, 2 * PARTIAL)},
+        "conv_bwd_tap": {1: (8, 16, 4, PARTIAL), 0: (8, 8, 1, PARTIAL)},
+        "chain_bwd": {1: (8, 16, 4, 2 * PARTIAL), 0: (8, 8, 1, 2 * PARTIAL)},
     }
 
     def __init__(self, max_clusters=MAX_CLUSTERS):
@@ -108,14 +112,17 @@ def test_unclustered_grid_and_refusal():
                              conv_bwd.Geometry((8, 16), 4, PARTIAL, 0))
 
 
-@pytest.mark.parametrize("kernel", ["conv3x3_bwd", "conv_bwd_patch"])
+@pytest.mark.parametrize("kernel,limit", [
+    ("conv3x3_bwd", 5 * MB), ("conv_bwd_patch", 5 * MB),
+    ("conv_bwd_tap", 5 * MB), ("chain_bwd", 2 * 5 * MB)])
 @pytest.mark.parametrize("h", [40, 80])
-def test_dw_workspace_under_5_mb(kernel, h):
+def test_dw_workspace_under_5_mb(kernel, limit, h):
     """At B=8 on 132 SMs the clustered bf16 kernels write at most 33
-    partials of 576 x 64 floats (4.87 MB); one partial a block would be
-    19.5 MB."""
+    partials of 576 x 64 floats (4.87 MB), the chain two such dW a partial
+    (9.73 MB); one partial a block would be 19.5 MB (39 MB for the
+    chain)."""
     grid, floats = conv_bwd.launch_plan(_Lib(), kernel, 8, h, h, 1, H100_SMS)
-    assert floats * 4 <= 5 * MB and grid <= H100_SMS
+    assert floats * 4 <= limit and grid <= H100_SMS
     assert PARTIAL * 4 * H100_SMS > 19 * MB
 
 
@@ -194,6 +201,83 @@ def test_k3_weight_layout_gives_the_plain_backward():
              for t in range(9)).reshape(x.shape)
     want, _ = bwdproto.fused_bwd_patch_plain(x, dy, w)
     torch.testing.assert_close(dx, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k4_weight_layout_gives_the_plain_backward(dtype):
+    """K4's wrapper hands its kernel `weight_layout(w)`: W9T in bf16 (row
+    t*64 + ci, column co, the TMA-loaded wgmma operand), W9flip in float32.
+    dx as the kernel forms it from that layout, nine per-tap products
+    summed in float and rounded once, is the plain version's dx."""
+    rng = np.random.default_rng(1)
+    x, dy = (torch.from_numpy(rng.standard_normal((2, 5, 7, 64))
+                              .astype(np.float32)).to(dtype) for _ in range(2))
+    w = torch.from_numpy((rng.standard_normal((3, 3, 64, 64)) * 0.05)
+                         .astype(np.float32)).to(dtype)
+    w9 = bwdproto.weight_layout(w, dtype)
+    assert w9.dtype == dtype and w9.is_contiguous() and w9.shape == (576, 64)
+    blocks = [w9[t * 64:(t + 1) * 64].float() for t in range(9)]
+    if dtype == torch.bfloat16:  # the kernel reads each tap block transposed
+        blocks = [blk.T for blk in blocks]
+    dy9 = conv_bwd._patches(dy.permute(0, 3, 1, 2)).float()
+    dx = sum(dy9[..., t * 64:(t + 1) * 64] @ blocks[t] for t in range(9))
+    want, _ = bwdproto.fused_bwd_tap_plain(x, dy, w)
+    torch.testing.assert_close(dx.to(dtype).reshape(x.shape), want,
+                               rtol=0, atol=2.0 ** -7 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_weight_layout_gives_the_plain_backward(dtype):
+    """K5's wrapper hands its kernel `weight_layout` of both convs. The
+    chain's backward formed from those layouts as the bf16 kernel forms it
+    (dz2, da1 on the one-pixel ring by per-tap products with W2T's blocks
+    transposed, dz1, dx with W1T's) is the plain version's."""
+    rng = np.random.default_rng(2)
+    x, dy = (torch.from_numpy(rng.standard_normal((1, 6, 9, 64))
+                              .astype(np.float32)).to(dtype) for _ in range(2))
+    w1, w2 = (torch.from_numpy((rng.standard_normal((3, 3, 64, 64)) * 0.05)
+                               .astype(np.float32)).to(dtype) for _ in range(2))
+    s1, s2 = (torch.from_numpy((rng.random(64) + 0.5).astype(np.float32))
+              for _ in range(2))
+    z1, a1, _ = blockbwd.chain_fwd(x, w1, w2, s1, s2)
+
+    def input_grad(g, w):
+        """sum over taps of shift_t(g) @ block_t, block_t from the layout
+        the kernel reads (W9T blocks transposed in bf16)."""
+        w9 = bwdproto.weight_layout(w, dtype)
+        g9 = conv_bwd._patches(g.permute(0, 3, 1, 2)).float()
+        return sum(g9[..., t * 64:(t + 1) * 64]
+                   @ (w9[t * 64:(t + 1) * 64].float().T
+                      if dtype == torch.bfloat16
+                      else w9[t * 64:(t + 1) * 64].float())
+                   for t in range(9)).reshape(g.shape)
+
+    dz2 = (dy.float() * s2).to(dtype)
+    dz1 = (input_grad(dz2, w2) * blockbwd._silu_grad(z1.float()) * s1).to(dtype)
+    dx = (input_grad(dz1, w1) + dy.float()).to(dtype)
+    want = blockbwd.chain_bwd_plain(x, z1, a1, dy, w1, w2, s1, s2)[0]
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(dx, want, rtol=0,
+                               atol=tol * want.float().abs().max().item())
+
+
+def test_spill_check_names_every_conv_backward_kernel():
+    """`chip_smoke.py` fails phase 2 on a spill in any kernel whose name
+    holds one of its CONV_BWD_ENTRIES: every kernel defined in a conv
+    backward source must match one, so that a renamed kernel stays
+    checked."""
+    import chip_smoke
+
+    csrc = Path(bwdproto.__file__).resolve().parents[1] / "csrc"
+    kernels = {src.name: re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(",
+                                    src.read_text())
+               for src in csrc.glob("*.cu") if src.name != "nms.cu"}
+    assert set(kernels) == {"conv_bwd.cu", "conv_bwd_patch.cu",
+                            "conv_bwd_tap.cu", "chain_bwd.cu"}
+    for name, found in kernels.items():
+        assert found, name
+        for kernel in found:
+            assert any(e in kernel for e in chip_smoke.CONV_BWD_ENTRIES), kernel
 
 
 @pytest.mark.parametrize("b,h,w,dtype,us", [

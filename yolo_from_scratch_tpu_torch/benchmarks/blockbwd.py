@@ -51,6 +51,7 @@ from yolo_from_scratch_tpu_torch.benchmarks.bwdproto import (
     roofline_floor_s,
     step_config,
     tap_products,
+    weight_layout,
 )
 from yolo_from_scratch_tpu_torch.device import cuda_device, tf32_disabled
 from yolo_from_scratch_tpu_torch.ops import conv_bwd
@@ -95,9 +96,15 @@ def chain_bwd_plain(x, z1, a1, dy, w1, w2, s1, s2):
 
 
 def _launch(x, z1, a1, dy, w1, w2, s1, s2):
+    """dx, dw1, dw2 through the chain_bwd kernel: the tile kernel, then
+    the fixed-order sum of its dW partials. The activations must be
+    contiguous NHWC with 16-byte aligned bases (the bf16 kernel reads them
+    by TMA); nothing is copied. The weights go in the layout the kernel
+    reads (W9T in bf16, W9flip in float32), the scales as float32."""
     global launches
-    x, z1, a1, dy = (t.contiguous() for t in (x, z1, a1, dy))
-    w1f, w2f = (flip9(w, x.dtype).contiguous() for w in (w1, w2))
+    for t, label in ((x, "x"), (z1, "z1"), (a1, "a1"), (dy, "dy")):
+        conv_bwd.check_tma_operand(t, label, channels_last=False)
+    w1f, w2f = (weight_layout(w, x.dtype) for w in (w1, w2))
     s1, s2 = (s.float().reshape(C).contiguous() for s in (s1, s2))
     b, h, wd, c = x.shape
     dx = torch.empty_like(x)

@@ -61,10 +61,18 @@ def flip9(w, dtype):
 
 def flip9t(w, dtype):
     """W9T (9C, C) in `dtype` from HWIO w: W9flip transposed tap by tap,
-    row t*C + ci, column co = w[2-i, 2-j, ci, co] (K3's bf16 layout: each
-    tap's block is the K-major B operand of its dx product)."""
+    row t*C + ci, column co = w[2-i, 2-j, ci, co] (the bf16 kernels' layout,
+    K3, K4 and K5: each tap's block is the K-major B operand of its dx
+    product, loaded by TMA as it lies)."""
     c = w.shape[-1]
     return w.flip(0, 1).reshape(9 * c, c).to(dtype)
+
+
+def weight_layout(w, dtype):
+    """The weights as the kernels read them, from HWIO w: W9T in bf16
+    (loaded by TMA), W9flip in float32; contiguous, in `dtype`."""
+    flip = flip9t if dtype == torch.bfloat16 else flip9
+    return flip(w, dtype).contiguous()
 
 
 def pad_hw(t):
@@ -157,11 +165,11 @@ def _launch(name, x, dy, w):
     """dx, dW of one conv through kernel `name` (conv_bwd_patch or
     conv_bwd_tap): the tile kernel, then the fixed-order sum of its dW
     partials. x and dy must be contiguous (the kernels read them by TMA or
-    by dense indexing); nothing is copied."""
+    by dense indexing); nothing is copied. The weights go in the layout
+    the kernel reads: W9T in bf16, W9flip in float32."""
     for t, label in ((x, "x"), (dy, "dy")):
         conv_bwd.check_tma_operand(t, label, channels_last=False)
-    patch_bf16 = name == "conv_bwd_patch" and x.dtype == torch.bfloat16
-    w9 = (flip9t if patch_bf16 else flip9)(w, x.dtype).contiguous()
+    w9 = weight_layout(w, x.dtype)
     b, h, wd, c = x.shape
     dx = torch.empty_like(x)
     dw = torch.empty((3, 3, c, c), dtype=torch.float32, device=x.device)

@@ -59,6 +59,8 @@
 // box) come from L2 through one issuing thread that waits for both
 // warpgroups, and that stream sets the pace.
 
+#include <cuda_bf16.h>
+
 #include "conv_tiles.cuh"
 #include "hopper.cuh"
 
@@ -407,12 +409,7 @@ int launch_bf16(const void* x, const void* dy, const void* w9t, void* dx, float*
   CUtensorMap mx, mdy, mw;
   int rc = hop::nhwc_map(&mx, x, b, h, w, kBoxRows, kTWb);
   if (rc == 0) rc = hop::nhwc_map(&mdy, dy, b, h, w, kBoxRows, kTWb);
-  if (rc == 0) {
-    const cuuint64_t dims[2] = {64, 576};
-    const cuuint64_t strides[1] = {128};
-    const cuuint32_t box[2] = {64, 64};
-    rc = hop::bf16_map(&mw, w9t, 2, dims, strides, box);
-  }
+  if (rc == 0) rc = hop::w9t_map(&mw, w9t);
   if (rc != 0) return rc;
   cudaError_t err =
       cudaFuncSetAttribute(patch_bwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemB);

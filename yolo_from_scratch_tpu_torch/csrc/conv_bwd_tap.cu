@@ -13,109 +13,96 @@
 // reading the 9 shifted views of the zero-padded x and dy halos in shared
 // memory in place; dx is summed in float and rounded to the input type once.
 //
-// Design. The TPU kernel walks the batch in order and carries dW across its
-// grid; here block k takes tiles k, k + gridDim.x, ... in no fixed order
-// against the other blocks, keeps its dW partial (576 x 64 float, 144 KiB)
-// in shared memory across its tiles, writes it to a workspace at the end,
-// and a second kernel sums the partials in block order: no atomics, the
-// same bits on every run.
-//   - bfloat16: 8x16-pixel tiles, so that a 16-pixel wmma row is one tile
-//     row and every shifted view is a strided matrix; both products run on
-//     the tensor cores as 16x16x16 bf16 fragments with float accumulation
-//     (bf16 x bf16 products are exact in float). Shared memory: the 10x18
-//     halos of x and dy (22.5 KiB each, bf16), the dW partial, and 1 KiB a
-//     warp to round dx fragments; W9flip is read from device memory (L2).
-//   - float32: 8x8-pixel tiles in FP32 FMAs (TF32 fragments would miss the
-//     1e-5 tolerance): each thread sums 4 pixels x 4 input channels of dx
-//     and owns 144 entries of the dW partial.
+// bfloat16: K2's tile routine (`conv_tap_tile.cuh`, shared with
+// conv_bwd.cu): a persistent kernel of two warpgroups a block, in clusters
+// of 4.
+//   - The 10x18 halos of x and dy around each 8x16 output tile arrive by
+//     TMA (zeros outside the image: the SAME padding), double-buffered
+//     behind mbarriers; thread 0 issues them.
+//   - dW by ldmatrix + mma.sync, 144 accumulator floats a thread held in
+//     registers across all of the block's tiles; dx by wgmma with A (the
+//     dy halo's shifted rows) from registers and B from W9T in shared
+//     memory, summed over 576 in float and rounded to bf16 once.
+//   - W9T (576, 64), row t*64 + ci, column co, is prepared once by the
+//     wrapper (`bwdproto.flip9t`) and loaded by TMA into the 128-byte-
+//     swizzled layout that wgmma reads: each block of a cluster issues a
+//     quarter of the nine 8 KiB tap blocks, multicast to all four, so a
+//     cluster reads W9T from L2 once. (K2 builds the same layout from OIHW
+//     w inside every block, 8 gathered loads per 16-byte chunk.)
+//   - At the end the cluster sums its four dW partials in rank order
+//     through distributed shared memory and writes one partial (at most 33
+//     x 144 KiB = 4.87 MB on 132 SMs); a second kernel sums those in
+//     cluster order. No float atomics: two runs give the same bits.
+// float32: 8x8-pixel tiles in FP32 FMAs (TF32 would miss the 1e-5
+// tolerance): each thread sums 4 pixels x 4 input channels of dx, and the
+// block's 144 KiB dW partial lives in shared memory; one partial a block.
 //
-// What bounds it on the H100: each per-tap product is [128 x 64] @ [64 x 64]
-// (dx) or [64 x 16-pixel] @ [16 x 64] (dW), so a warp issues one mma per
-// fragment it loads from shared memory: shared-memory bandwidth and the
-// per-tile read-modify-write of the 144 KiB dW partial, not the tensor
-// cores, set the pace. The fast version (a later change) keeps dW in
-// registers, feeds wgmma from TMA-loaded tiles and reuses W9flip from
-// shared memory.
+// What bounds it on the H100: as K2, the products are 1.9 / 7.6 GFLOP at
+// B=8 40x40 / 80x80 (about 2 / 8 us at the tensor cores' peak); a call
+// pays a fixed cost (the first tile's halos and W9T, the cluster's dW
+// reduction, the second kernel's sum of up to 33 partials), and a tile's dW
+// product is mma.sync fed by ldmatrix (one x4 load for about three mma),
+// with the dx wgmma waited for tap by tap.
 
+#include "conv_tap_tile.cuh"
 #include "conv_tiles.cuh"
 
 namespace {
 
 using namespace convk;
 using bf16 = __nv_bfloat16;
+namespace tt = taptile;
 
-constexpr int kTH = 8;             // tile rows, both types
-constexpr int kTWb = 16;           // tile columns, bfloat16 (one wmma row)
-constexpr int kTWf = 8;            // tile columns, float
-constexpr int kHaloB = (kTH + 2) * (kTWb + 2);  // 180 pixels
-constexpr int kHaloF = (kTH + 2) * (kTWf + 2);  // 100 pixels
-constexpr int kScratch = (kThreads / 32) * 256;  // floats, 1 KiB a warp
-constexpr int kSmemB = (kPartial + kScratch) * 4 + 2 * kHaloB * kC * 2;  // 201,728
-constexpr int kSmemF = (kPartial + 2 * kHaloF * kC) * 4;                 // 198,656
+// ------------------------------------------------------------ bfloat16 path
 
-__global__ void __launch_bounds__(kThreads, 1)
-tap_bwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-             const bf16* __restrict__ w9, bf16* __restrict__ dx,
-             float* __restrict__ partial, int h, int w, Tiles tiles) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* dw = reinterpret_cast<float*>(smem);
-  float* scratch = dw + kPartial + (threadIdx.x >> 5) * 256;
-  bf16* xh = reinterpret_cast<bf16*>(dw + kPartial + kScratch);
-  bf16* dyh = xh + kHaloB * kC;
-  constexpr int hw = kTWb + 2;  // halo row, pixels
-  const int warp = threadIdx.x >> 5;
-
-  zero_block(dw, kPartial);
-  for (int k = blockIdx.x; k < tiles.n; k += gridDim.x) {
-    int b, r0, c0;
-    tiles.origin(k, &b, &r0, &c0);
-    __syncthreads();  // dw zeroed; the previous tile's halos consumed
-    load_region(xh, x, b, h, w, r0 - 1, c0 - 1, kTH + 2, hw);
-    load_region(dyh, dy, b, h, w, r0 - 1, c0 - 1, kTH + 2, hw);
-    __syncthreads();
-
-    // dW: A^T = the shifted x view of tap rb / 4, channels 16 (rb % 4) ..;
-    // k-chunk kc = tile row kc. Pixels outside the image carry dy = 0.
-    dw_wmma(
-        dw, kTH, kC,
-        [&](int rb, int kc) {
-          const int t = rb >> 2, i = t / 3, j = t - 3 * (t / 3);
-          return static_cast<const bf16*>(xh + ((kc + i) * hw + j) * kC + (rb & 3) * 16);
-        },
-        [&](int kc) { return static_cast<const bf16*>(dyh + ((kc + 1) * hw + 1) * kC); });
-
-    // dx: warp = tile row; 9 taps x 4 chunks of 16 output channels
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.0f);
-#pragma unroll 1
-    for (int t = 0; t < 9; ++t) {
-      const int i = t / 3, j = t - 3 * (t / 3);
-#pragma unroll
-      for (int ck = 0; ck < 4; ++ck) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, dyh + ((warp + i) * hw + j) * kC + ck * 16, kC);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> wf;
-          wmma::load_matrix_sync(wf, w9 + (t * kC + ck * 16) * kC + n * 16, kC);
-          wmma::mma_sync(acc[n], a, wf, acc[n]);
-        }
-      }
-    }
-    const int oh = r0 + warp;
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      store_frag<bf16>(scratch, acc[n], [&](int m) -> bf16* {
-        const int ow = c0 + m;
-        if (oh >= h || ow >= w) return nullptr;
-        return dx + ((static_cast<size_t>(b) * h + oh) * w + ow) * kC + n * 16;
-      });
+__global__ void __launch_bounds__(tt::kThreads, 1)
+tap_bwd_bf16(const __grid_constant__ CUtensorMap map_x,
+             const __grid_constant__ CUtensorMap map_dy,
+             const __grid_constant__ CUtensorMap map_w9, bf16* __restrict__ dx,
+             float* __restrict__ partial, int h, int wd, int tiles_h, int tiles_w,
+             int n_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = tt::aligned_smem(smem_raw);
+  uint64_t* w9_full = reinterpret_cast<uint64_t*>(smem + tt::kOffBar) + 4;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  if (threadIdx.x == 0) {
+    hop::mbar_init(w9_full, 1);
+    tt::start_tiles(smem, &map_x, &map_dy, tiles_h, tiles_w, n_tiles);
+    hop::prefetch_map(&map_w9);
   }
-  __syncthreads();
-  copy_block(partial + static_cast<size_t>(blockIdx.x) * kPartial, dw, kPartial);
+  cluster.sync();  // every block's W9T barrier is initialised before any multicast
+  if (threadIdx.x == 0)
+    hop::load_w9t_multicast(smem + tt::kOffW9, &map_w9, w9_full,
+                            static_cast<int>(cluster.block_rank()), tt::kCluster, 0xF);
+  hop::mbar_wait(w9_full, 0);
+  tt::tap_tiles(smem, &map_x, &map_dy, dx, partial, h, wd, tiles_h, tiles_w, n_tiles);
 }
+
+int launch_bf16(const void* x, const void* dy, const void* w9t, void* dx, float* ws, int b,
+                int h, int wd, int grid, cudaStream_t st) {
+  const int tiles_h = (h + tt::kTH - 1) / tt::kTH;
+  const int tiles_w = (wd + tt::kTW - 1) / tt::kTW;
+  if (grid < tt::kCluster || grid % tt::kCluster != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mdy, mw;
+  int rc = hop::nhwc_map(&mx, x, b, h, wd, tt::kTH + 2, tt::kHaloW);
+  if (rc == 0) rc = hop::nhwc_map(&mdy, dy, b, h, wd, tt::kTH + 2, tt::kHaloW);
+  if (rc == 0) rc = hop::w9t_map(&mw, w9t);
+  if (rc != 0) return rc;
+  const cudaError_t err =
+      cudaFuncSetAttribute(tap_bwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, tt::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return hop::launch_clustered(tap_bwd_bf16, grid, tt::kThreads, tt::kSmem, tt::kCluster, st,
+                               mx, mdy, mw, static_cast<bf16*>(dx), ws, h, wd, tiles_h, tiles_w,
+                               b * tiles_h * tiles_w);
+}
+
+// ------------------------------------------------------------- float32 path
+
+constexpr int kTH = 8;             // tile rows
+constexpr int kTWf = 8;            // tile columns
+constexpr int kHaloF = (kTH + 2) * (kTWf + 2);  // 100 pixels
+constexpr int kSmemF = (kPartial + 2 * kHaloF * kC) * 4;  // 198,656
 
 __global__ void __launch_bounds__(kThreads, 1)
 tap_bwd_f32(const float* __restrict__ x, const float* __restrict__ dy,
@@ -162,58 +149,55 @@ tap_bwd_f32(const float* __restrict__ x, const float* __restrict__ dy,
   copy_block(partial + static_cast<size_t>(blockIdx.x) * kPartial, dw, kPartial);
 }
 
-Tiles tiles_for(int b, int h, int w, int bf16_) {
-  return Tiles(b, h, w, kTH, bf16_ ? kTWb : kTWf);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Launch geometry of the tile kernel, the one source of it that the wrapper
-// reads, in conv3x3_bwd_geometry's layout: unclustered (one block per SM,
-// whose shared memory holds one), a partial a block. Returns 0.
+// Launch geometry of the tile kernel for bfloat16 (bf16 = 1) or float32, in
+// conv3x3_bwd_geometry's layout: bfloat16 8x16 tiles in clusters of 4, a
+// partial a cluster; float32 8x8 tiles, one block per SM, a partial a
+// block. Returns 0, or cudaErrorInvalidValue if the card cannot run a
+// cluster.
 int conv_bwd_tap_geometry(int bf16_, int* out) {
-  out[0] = kTH;
-  out[1] = bf16_ ? kTWb : kTWf;
-  out[2] = 1;
+  out[0] = bf16_ ? tt::kTH : kTH;
+  out[1] = bf16_ ? tt::kTW : kTWf;
+  out[2] = bf16_ ? tt::kCluster : 1;
   out[3] = kPartial;
-  out[4] = 0;
-  return 0;
+  out[4] = bf16_ ? hop::max_active_clusters(tap_bwd_bf16, tt::kThreads, tt::kSmem, tt::kCluster)
+                 : 0;
+  return bf16_ && out[4] < 1 ? static_cast<int>(cudaErrorInvalidValue) : 0;
 }
 
-// x, dy, dx (B, H, W, 64) NHWC and w9 = W9flip (576, 64), all float32
-// (bf16 = 0) or all bfloat16 (bf16 = 1); dw (3, 3, 64, 64) HWIO float32;
-// grid and workspace as conv_bwd_tap_geometry gives them. Launches the
-// tile kernel and the sum of the partials on `stream`, does not
-// synchronise; returns cudaGetLastError() (0 on success).
+// x, dy, dx (B, H, W, 64) NHWC and the weights, all float32 (bf16 = 0) or
+// all bfloat16 (bf16 = 1); the weights are W9flip (576, 64), row t*64 + co,
+// in float32 and W9T (576, 64), row t*64 + ci, column co, in bfloat16. dw
+// (3, 3, 64, 64) HWIO float32; grid and workspace as conv_bwd_tap_geometry
+// gives them. The bfloat16 tensors must be dense and 16-byte aligned
+// (TMA). Launches the tile kernel and the sum of the partials on `stream`,
+// does not synchronise; returns a cudaError_t (0 on success).
 int conv_bwd_tap(const void* x, const void* dy, const void* w9, void* dx, void* dw,
                  void* workspace, int b, int h, int w, int grid, int bf16_,
                  void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto* ws = static_cast<float*>(workspace);
   if (b <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Tiles tiles = tiles_for(b, h, w, bf16_);
-  if (grid < 1 || grid > tiles.n) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
+  int rc;
   if (bf16_) {
-    err = cudaFuncSetAttribute(tap_bwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemB);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    tap_bwd_bf16<<<grid, kThreads, kSmemB, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
-        static_cast<const bf16*>(w9), static_cast<bf16*>(dx), ws, h, w, tiles);
+    rc = launch_bf16(x, dy, w9, dx, ws, b, h, w, grid, st);
   } else {
-    err = cudaFuncSetAttribute(tap_bwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemF);
+    const Tiles tiles(b, h, w, kTH, kTWf);
+    if (grid < 1 || grid > tiles.n) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err =
+        cudaFuncSetAttribute(tap_bwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemF);
     if (err != cudaSuccess) return static_cast<int>(err);
     tap_bwd_f32<<<grid, kThreads, kSmemF, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(dy),
         static_cast<const float*>(w9), static_cast<float*>(dx), ws, h, w, tiles);
+    rc = static_cast<int>(cudaGetLastError());
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_sum(ws, grid, kPartial, kPartial, static_cast<float*>(dw), st);
+  if (rc != 0) return rc;
+  return launch_sum(ws, bf16_ ? grid / tt::kCluster : grid, kPartial, kPartial,
+                    static_cast<float*>(dw), st);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the TMA-fed conv backward kernels
-// (conv_bwd.cu, conv_bwd_patch.cu), sm_90a: tensor maps, mbarriers, TMA
-// loads, wgmma descriptors and fences, and the deterministic reduction of
-// per-block dW partials across a thread-block cluster.
+// (conv_bwd.cu, conv_bwd_patch.cu, conv_bwd_tap.cu, chain_bwd.cu), sm_90a:
+// tensor maps, mbarriers, TMA loads (multicast across a cluster too), wgmma
+// descriptors and fences, and the deterministic reduction of per-block dW
+// partials across a thread-block cluster.
 //
 // The tensor-map encoder is the driver's cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint so that the library links against the
@@ -126,19 +127,31 @@ __device__ __forceinline__ void fence_barrier_init() {
 // Block until the phase of parity `parity` of `bar` has completed. A wait
 // that outlasts kSpinLimit polls (seconds; a healthy wait takes
 // microseconds) traps, so that a pipeline fault ends the launch with an
-// error instead of hanging the card.
+// error instead of hanging the card. kClusterScope: the phase is completed
+// by threads of other blocks of the cluster (mbar_arrive_remote), whose
+// writes before they arrived are visible after the wait.
 constexpr uint32_t kSpinLimit = 1u << 26;
+template <bool kClusterScope = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done;
   for (uint32_t spins = 0;; ++spins) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
+    if constexpr (kClusterScope)
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
     if (done) return;
     if (spins == kSpinLimit) __trap();
   }
@@ -146,6 +159,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive on the mbarrier at `bar`'s offset in block `rank` of the cluster,
+// releasing this thread's earlier writes (to that block's shared memory
+// too) at cluster scope.
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
 }
 
 // Arrive and announce `bytes` of TMA traffic that completes this phase.
@@ -174,6 +197,41 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// As tma_load_2d, but the box lands at the same shared-memory offset in
+// every block of the cluster named in `mask` (bit r: rank r) and completes
+// the mbarrier at `bar`'s offset in each of them.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map, int c0,
+                                                      int c1, uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The map of a dense (576, 64) bf16 W9T (row t*64 + ci, column co) that
+// loads one tap's 64 x 64 block (8 KiB) a box.
+inline int w9t_map(CUtensorMap* map, const void* base) {
+  const cuuint64_t dims[2] = {64, 576};
+  const cuuint64_t strides[1] = {128};
+  const cuuint32_t box[2] = {64, 64};
+  return bf16_map(map, base, 2, dims, strides, box);
+}
+
+// W9T (9 tap blocks of 8 KiB, 128-byte swizzled: the K-major wgmma B
+// operand of each tap) into `dst` of every block of `mask`, `parts` blocks
+// sharing the loads: this one, number `part`, issues taps part, part +
+// parts, ... and announces all 72 KiB on its own `bar`. Every block of
+// `mask` must have initialised its `bar` (a cluster barrier after the
+// init) before any of them issues.
+__device__ __forceinline__ void load_w9t_multicast(unsigned char* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int part, int parts,
+                                                   uint16_t mask) {
+  mbar_expect_tx(bar, 9 * 8192);
+  for (int t = part; t < 9; t += parts)
+    tma_load_2d_multicast(dst + t * 8192, map, 0, t * 64, bar, mask);
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -214,29 +272,30 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// The deterministic cross-block reduction of dW partials. Every block of a
-// cluster of kCluster has written its (576 x 64 float) partial to its own
-// shared memory at `mine`; block r of the cluster sums rows [r * n / kC,
-// (r + 1) * n / kC) of the kCluster partials in rank order and writes them
-// to the cluster's slot `out` (n floats) of the device workspace. Two
-// cluster barriers keep every partial alive until all have been read.
-template <int kCluster>
-__device__ void cluster_sum_partials(float* mine, float* __restrict__ out, int n) {
+// The deterministic cross-block reduction of dW partials. The blocks of a
+// cluster of kCluster have each written a partial of n floats to their own
+// shared memory at `mine`; block r of the cluster sums elements [r * n /
+// kC, (r + 1) * n / kC) of the partials of ranks kFirst, kFirst + kStep,
+// ... in rank order and writes them to `out` (n floats) of the device
+// workspace. The caller brackets it with cluster barriers, which keep
+// every partial alive until all have been read.
+template <int kCluster, int kFirst, int kStep>
+__device__ void sum_cluster_ranks(float* mine, float* __restrict__ out, int n) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();  // every block's partial is in its shared memory
+  constexpr int kParts = (kCluster - kFirst + kStep - 1) / kStep;
   const int rank = static_cast<int>(cluster.block_rank());
-  const float4* src[kCluster];
+  const float4* src[kParts];
 #pragma unroll
-  for (int q = 0; q < kCluster; ++q)
-    src[q] = reinterpret_cast<const float4*>(cluster.map_shared_rank(mine, q));
+  for (int q = 0; q < kParts; ++q)
+    src[q] = reinterpret_cast<const float4*>(cluster.map_shared_rank(mine, kFirst + q * kStep));
   const int per = n / 4 / kCluster;  // float4s this block sums
   float4* dst = reinterpret_cast<float4*>(out);
   for (int i = rank * per + static_cast<int>(threadIdx.x); i < (rank + 1) * per;
        i += blockDim.x) {
     float4 s = src[0][i];
 #pragma unroll
-    for (int q = 1; q < kCluster; ++q) {
+    for (int q = 1; q < kParts; ++q) {
       const float4 v = src[q][i];
       s.x = __fadd_rn(s.x, v.x);
       s.y = __fadd_rn(s.y, v.y);
@@ -245,7 +304,15 @@ __device__ void cluster_sum_partials(float* mine, float* __restrict__ out, int n
     }
     dst[i] = s;
   }
-  cluster.sync();  // no block leaves while another still reads its partial
+}
+
+// Every block's partial of a cluster summed in rank order into `out`.
+template <int kCluster>
+__device__ void cluster_sum_partials(float* mine, float* __restrict__ out, int n) {
+  namespace cg = cooperative_groups;
+  cg::this_cluster().sync();  // every block's partial is in its shared memory
+  sum_cluster_ranks<kCluster, 0, 1>(mine, out, n);
+  cg::this_cluster().sync();  // no block leaves while another still reads its partial
 }
 
 }  // namespace hop

@@ -4,7 +4,8 @@ Every `csrc/*.cu` source compiles into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds): one nvcc per
 source, all started together, then one link. The library lands in
 `build/torch_kernels/` at the repository root, under a file name that
-carries a hash of the sources and flags, so a stale build is never loaded;
+carries a hash of the sources, headers and flags, so a stale build is
+never loaded;
 ptxas's report (registers, shared memory, spills of every kernel) goes to a
 `.log` beside it. A file lock serialises concurrent builds. If nvcc is
 missing or fails, the error carries nvcc's stderr; there is no fallback.
@@ -56,9 +57,10 @@ def _sources():
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libyolo_kernels_{h.hexdigest()[:16]}.so"

@@ -17,12 +17,13 @@ CPU tensor it runs `fused_bwd_plain`, the patch math in torch, which is also
 what the kernel is checked against. There is no fallback from the kernel to
 the plain version. `launches` counts kernel launches and nothing else.
 
-The bf16 kernels of this module and of `benchmarks/bwdproto.py` (K3) load
-their tiles by TMA and run in clusters of blocks that sum their dW partials
-on chip. Each conv-backward kernel (K2-K5) owns its launch geometry and
-exports it (`<kernel>_geometry`); `geometry` reads it and `launch_plan`
-turns it into the grid and the dW workspace, the arithmetic every wrapper
-uses. `check_tma_operand` refuses what TMA cannot read.
+The bf16 kernels of this module and of `benchmarks/bwdproto.py` (K3, K4)
+and `benchmarks/blockbwd.py` (K5) load their tiles by TMA and run in
+clusters of blocks that sum their dW partials on chip. Each conv-backward
+kernel (K2-K5) owns its launch geometry and exports it
+(`<kernel>_geometry`); `geometry` reads it and `launch_plan` turns it into
+the grid and the dW workspace, the arithmetic every wrapper uses.
+`check_tma_operand` refuses what TMA cannot read.
 
 `YOLO_FUSED_CONV_BWD` (default "0") is read at every call of
 `use_fused_bwd`; any other value turns the gate on. Unlike the JAX
