@@ -14,27 +14,35 @@ and prints no result):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the kernels from `csrc/` into `build/torch_kernels/`,
-   prints ptxas's registers and spills (a spill in a conv-backward kernel
-   fails) and the launch geometry of the four bf16 conv backwards (K2-K5);
-   their dW workspace at B=8 80x80 must stay within 5 MB, K5's (two dW)
-   within 10 MB;
+   prints ptxas's registers and spills (a spill in a conv-backward or NMS
+   kernel fails), the launch geometry of the four bf16 conv backwards
+   (K2-K5) and the NMS kernel's mask workspace at N=4096 (B=1, 8, 32) and
+   N=16,384; the conv backwards' dW workspace at B=8 80x80 must stay
+   within 5 MB, K5's (two dW) within 10 MB;
 3. kernel vs plain version on the card, bit-equal keep masks over
    clustered, tied, padded, 1- and 4-class boxes at B in {1, 8} and
-   N in {300, 4096}, presorted or not, max_keep below N or equal to it;
-   kernel and plain times at N=4096;
+   N in {300, 4096}, and at N=4097 (a partial last word), N=16,384 (the
+   largest the wrapper takes) and B=32 at N=4096; presorted or not,
+   max_keep 65 and 100 (inside a chunk of 64 ranks) or N; kernel times
+   split into the mask pass and the scan, and plain times, at N=4096 and
+   B=1, 8, 32;
 4. the slice: serves requests, counts the kernel's launches, checks the
    detections, the TF32-off parity of the pre-NMS candidates with the CPU,
-   and equality with the plain NMS on the card; prints the p50 latency;
+   and equality with the plain NMS on the card; prints the p50 latency and
+   the NMS kernel's two passes on a request's candidates beside the bound
+   (the walk's IoU tests) and the tests the mask pass does;
 5. one bfloat16 request, which must be finite;
 6. the conv backward kernel against its plain version (TF32 off) at the
    training path's shapes and two small ones, bit-equal across two runs;
    kernel, plain and library times (one `aten.convolution_backward` call:
-   cuDNN's dgrad + wgrad, a yardstick the port never calls) beside the
+   cuDNN's dgrad + wgrad, a yardstick the port never calls; at float32
+   also with TF32 off, the accuracy the kernel is held to) beside the
    H100 bound (`utils/roofline.py`); at the bf16 shapes, K2 on this
    phase's inputs and on phase 10's in rounds A B B A;
 7. the training slice: the CLI trains one epoch of 2 steps at batch 8 in
    bfloat16 with YOLO_FUSED_CONV_BWD=1 on a synthetic dataset, counts the
-   kernel's launches, and serves one request from the checkpoint it wrote;
+   kernel's launches, reads Adam's state back from the checkpoint it wrote
+   (the optax layout, counts at 2) and serves one request from it;
 8. one float32 train step (TF32 off) on the card against the port on the
    CPU: loss and gradients;
 9. train img/s at batch 8, bfloat16, with the kernel on and off, the
@@ -156,6 +164,17 @@ CONV_BWD_KERNELS = (("conv3x3_bwd", 1), ("conv_bwd_patch", 1),
 SPILL = re.compile(r"(\d+) bytes spill (?:stores|loads)")
 ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 CONV_BWD_ENTRIES = ("conv3x3_bwd", "patch_bwd", "tap_bwd", "chain_bwd")
+# the NMS kernel's two passes (csrc/nms.cu), by their names in ptxas's
+# report and in the profiler
+NMS_ENTRIES = ("nms_mask_pass", "nms_scan")
+# phase 3: (B, N) at which every NMS case runs, and the max_keep values
+# below N (65 and 100 fall inside a scan chunk of 64 ranks)
+NMS_SHAPES = ((1, 300), (1, 4096), (8, 300), (8, 4096), (1, 4097),
+              (1, 16384), (32, 4096))
+NMS_CAPS = (65, 100)
+NMS_TIMED_BATCHES = (1, 8, 32)  # at N=4096
+# mask workspace printed in phase 2: (B, N)
+NMS_WORKSPACES = ((1, 4096), (8, 4096), (32, 4096), (1, 16384))
 IMG_SIZE = 640  # phases 7-9
 EPOCH_LINE = re.compile(r"Epoch 1: Loss: .* \| LR: .* \| (\S+) img/s")
 
@@ -184,80 +203,100 @@ def nms_case(rng, b, n, ncls, tied):
     return boxes, scores, classes
 
 
+def nms_split_ms(fn, runs=TIMING_RUNS):
+    """(mask pass ms, scan ms) of one call of fn, profiler device time
+    over `runs` calls after 2 warm-up calls."""
+    fn()
+    fn()
+    per = kernel_ms(fn, runs)
+    parts = [sum(v for k, v in per.items() if name in k) / runs
+             for name in NMS_ENTRIES]
+    if min(parts) <= 0.0:
+        raise AssertionError(f"the profiler saw no NMS pass: {sorted(per)}")
+    return parts
+
+
 def phase_kernel_vs_plain(dev):
     rng = np.random.default_rng(SEED)
     n_cases = 0
     max_abs_err = 0.0
-    for b in (1, 8):
-        for n in (300, 4096):
-            for ncls in (1, 4):
-                boxes, scores, classes = nms_case(rng, b, n, ncls,
-                                                  tied=ncls == 4)
-                cpu = [torch.from_numpy(a) for a in (boxes, scores, classes)]
-                gpu = [t.to(dev) for t in cpu]
-                for presorted in (False, True):
-                    for max_keep in (100, n):
-                        args = []
-                        for bx, sc, cl in (cpu, gpu):
-                            bx = nms_plain._class_offset_boxes(bx, cl)
-                            if presorted:
-                                sc, order = nms_plain.sort_desc(sc, dim=1)
-                                bx = torch.gather(
-                                    bx, 1, order[..., None].expand(b, n, 4))
-                            args.append((bx, sc))
-                        kernel = nms_cuda.nms_keep_mask_batched(
-                            *args[1], IOU, max_keep=max_keep,
-                            presorted=presorted)
-                        plain_gpu = nms_plain.nms_keep_mask(
-                            *args[1], IOU, max_keep=max_keep,
-                            presorted=presorted)
-                        plain_cpu = nms_plain.nms_keep_mask(
-                            *args[0], IOU, max_keep=max_keep,
-                            presorted=presorted)
-                        torch.cuda.synchronize()
-                        k, pg = kernel.cpu(), plain_gpu.cpu()
-                        err = (k.float() - pg.float()).abs().max().item()
-                        max_abs_err = max(max_abs_err, err)
-                        if not (torch.equal(k, pg)
-                                and torch.equal(k, plain_cpu)):
-                            raise AssertionError(
-                                f"keep masks differ at B={b} N={n} "
-                                f"classes={ncls} presorted={presorted} "
-                                f"max_keep={max_keep}: kernel kept "
-                                f"{int(k.sum())}, plain (card) "
-                                f"{int(pg.sum())}, plain (CPU) "
-                                f"{int(plain_cpu.sum())}")
-                        n_cases += 1
-                        log(f"  B={b} N={n} classes={ncls} "
-                            f"presorted={presorted} max_keep={max_keep}: "
-                            f"bit-equal, kept {int(k.sum())}")
-                # the full class-aware entry point against the plain one
-                got = nms_cuda.batched_nms_fixed_cuda_images(
-                    *gpu, IOU, max_outputs=n)
-                for i in range(b):
-                    want = nms_plain.batched_nms_fixed(
-                        cpu[0][i], cpu[1][i], cpu[2][i], IOU, n)
-                    for g, w in zip(got, want):
-                        if not torch.equal(g[i].cpu(), w):
-                            raise AssertionError(
-                                f"batched_nms_fixed_cuda_images differs at "
-                                f"B={b} N={n} classes={ncls}, image {i}")
+    for b, n in NMS_SHAPES:
+        for ncls in (1, 4):
+            boxes, scores, classes = nms_case(rng, b, n, ncls, tied=ncls == 4)
+            cpu = [torch.from_numpy(a) for a in (boxes, scores, classes)]
+            gpu = [t.to(dev) for t in cpu]
+            for presorted in (False, True):
+                for max_keep in (*NMS_CAPS, n):
+                    args = []
+                    for bx, sc, cl in (cpu, gpu):
+                        bx = nms_plain._class_offset_boxes(bx, cl)
+                        if presorted:
+                            sc, order = nms_plain.sort_desc(sc, dim=1)
+                            bx = torch.gather(
+                                bx, 1, order[..., None].expand(b, n, 4))
+                        args.append((bx, sc))
+                    kernel = nms_cuda.nms_keep_mask_batched(
+                        *args[1], IOU, max_keep=max_keep, presorted=presorted)
+                    plain_gpu = nms_plain.nms_keep_mask(
+                        *args[1], IOU, max_keep=max_keep, presorted=presorted)
+                    plain_cpu = nms_plain.nms_keep_mask(
+                        *args[0], IOU, max_keep=max_keep, presorted=presorted)
+                    torch.cuda.synchronize()
+                    k, pg = kernel.cpu(), plain_gpu.cpu()
+                    err = (k.float() - pg.float()).abs().max().item()
+                    max_abs_err = max(max_abs_err, err)
+                    if not (torch.equal(k, pg) and torch.equal(k, plain_cpu)):
+                        raise AssertionError(
+                            f"keep masks differ at B={b} N={n} "
+                            f"classes={ncls} presorted={presorted} "
+                            f"max_keep={max_keep}: kernel kept "
+                            f"{int(k.sum())}, plain (card) {int(pg.sum())}, "
+                            f"plain (CPU) {int(plain_cpu.sum())}")
+                    n_cases += 1
+                    log(f"  B={b} N={n} classes={ncls} presorted={presorted} "
+                        f"max_keep={max_keep}: bit-equal, kept "
+                        f"{int(k.sum())}")
+            # the full class-aware entry point against the plain one
+            got = nms_cuda.batched_nms_fixed_cuda_images(
+                *gpu, IOU, max_outputs=n)
+            for i in range(b):
+                want = nms_plain.batched_nms_fixed(
+                    cpu[0][i], cpu[1][i], cpu[2][i], IOU, n)
+                for g, w in zip(got, want):
+                    if not torch.equal(g[i].cpu(), w):
+                        raise AssertionError(
+                            f"batched_nms_fixed_cuda_images differs at "
+                            f"B={b} N={n} classes={ncls}, image {i}")
     log(f"kernel vs plain: {n_cases} keep-mask cases bit-equal on the card "
         f"and against the CPU")
 
-    for b in (1, 8):
+    for b in NMS_TIMED_BATCHES:
         boxes, scores, _ = nms_case(rng, b, 4096, 1, tied=False)
         sc, order = nms_plain.sort_desc(torch.from_numpy(scores).to(dev), 1)
         bx = torch.gather(torch.from_numpy(boxes).to(dev), 1,
                           order[..., None].expand(b, 4096, 4))
-        kept = int(nms_plain.nms_keep_mask(bx, sc, IOU, presorted=True).sum())
-        k_ms = median_ms(lambda: nms_cuda.nms_keep_mask_batched(
-            bx, sc, IOU, presorted=True))
+        valid = sc > nms_plain.NEG_INF / 2
+        keep = nms_plain.nms_keep_mask(bx, sc, IOU, presorted=True)
+
+        def kernel():
+            nms_cuda.nms_keep_mask_batched(bx, sc, IOU, presorted=True)
+
+        mask_ms, scan_ms = nms_split_ms(kernel)
+        k_ms = median_ms(kernel)
+        runs = 3 if b > 8 else TIMING_RUNS  # the plain walk syncs each step
         p_ms = median_ms(lambda: nms_plain.nms_keep_mask(
-            bx, sc, IOU, presorted=True))
-        log(f"NMS keep mask B={b} N=4096 presorted, {kept} kept in all: "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-            f"(median of {TIMING_RUNS}, CUDA events)")
+            bx, sc, IOU, presorted=True), runs=runs, warmup=1)
+        walk = roofline.nms_iou_count(keep, valid)
+        bound = roofline.bound_ms(*roofline.nms_work(sc.numel(), walk),
+                                  "float32")
+        log(f"NMS keep mask B={b} N=4096 presorted, {int(keep.sum())} kept "
+            f"in all: kernel {mask_ms + scan_ms:.4f} ms device (mask pass "
+            f"{mask_ms:.4f} + scan {scan_ms:.4f}; profiler, {TIMING_RUNS} "
+            f"calls), {k_ms:.4f} ms a call with its launches (CUDA events, "
+            f"median of {TIMING_RUNS}); plain {p_ms:.4f} ms (CUDA events, "
+            f"median of {runs}); H100 bound {bound[0]:.6f} ms ({bound[1]}, "
+            f"the walk's {walk} IoU tests; the mask pass does "
+            f"{roofline.nms_mask_pass_tests(valid)})")
     return max_abs_err
 
 
@@ -307,8 +346,12 @@ def phase_slice(dev):
         post_ms = median_ms(lambda: predictor.postprocess(*args))
     boxes, scores, classes = cand
     off = nms_plain._class_offset_boxes(boxes, classes)[None]
-    k_ms = median_ms(lambda: nms_cuda.nms_keep_mask_batched(
-        off, scores[None], IOU, presorted=True))
+
+    def kernel():
+        nms_cuda.nms_keep_mask_batched(off, scores[None], IOU, presorted=True)
+
+    mask_ms, scan_ms = nms_split_ms(kernel)
+    ev_ms = median_ms(kernel)
     p_ms = median_ms(lambda: nms_plain.nms_keep_mask(
         off, scores[None], IOU, presorted=True))
     valid = scores > nms_plain.NEG_INF / 2
@@ -318,12 +361,17 @@ def phase_slice(dev):
     n_iou = roofline.nms_iou_count(keep, valid)
     bound = roofline.bound_ms(*roofline.nms_work(scores.numel(), n_iou),
                               "float32")
+    k_ms = mask_ms + scan_ms
     log(f"one request on the card: forward {fwd_ms:.4f} ms, forward + "
-        f"postprocess {post_ms:.4f} ms; NMS on its {scores.numel()} "
-        f"candidates ({n_valid} above the gate, {int(keep.sum())} kept, "
-        f"{n_iou} IoU tests): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"H100 bound {bound[0]:.6f} ms ({bound[1]}; the walk is sequential, "
-        f"one kept box after another, which the bound does not see)")
+        f"postprocess {post_ms:.4f} ms (CUDA events); NMS on its "
+        f"{scores.numel()} candidates ({n_valid} above the gate, "
+        f"{int(keep.sum())} kept): kernel {k_ms:.4f} ms device (mask pass "
+        f"{mask_ms:.4f} + scan {scan_ms:.4f}; profiler, {TIMING_RUNS} "
+        f"calls), {ev_ms:.4f} ms a call with its launches (CUDA events), "
+        f"plain {p_ms:.4f} ms; H100 bound {bound[0]:.6f} ms ({bound[1]}, "
+        f"the walk's {n_iou} IoU tests); the mask pass takes "
+        f"{roofline.nms_mask_pass_tests(valid)} tests over the whole card, "
+        f"the scan one chunk of 64 ranks after another on one SM")
 
     # the same candidates through both NMS paths: bit-equal
     fixed_k = nms_cuda.batched_nms_fixed_cuda(boxes, scores, classes, IOU,
@@ -461,11 +509,20 @@ def phase_conv_bwd(dev):
         dev_ms = [device_ms(f) for f in (kernel, plain, library)]
         bound = _bound(b, h, w, dtype)
         times[(b, h, w, dtype)] = (*dev_ms, bound)
+        fair = ""
+        if dtype == torch.float32:
+            # cuDNN's default TF32 misses the 1e-5 the float32 kernel is
+            # held to; the fair yardstick computes in float32
+            with tf32_disabled():
+                lib_f32 = device_ms(library)
+            fair = (f", with TF32 off {lib_f32:.4f} (kernel "
+                    f"{dev_ms[0] / lib_f32:.2f}x it, {dev_ms[0] / dev_ms[2]:.2f}x "
+                    f"the TF32 call)")
         log(f"  conv bwd {name}: dx err {rel_dx:.3e}, dW err {rel_dw:.3e} "
             f"of max (tol {tol_dx:.1e} / {tol_dw:.1e}), 2 runs bit-equal; "
             f"device ms (profiler, {TIMING_RUNS} calls): kernel "
             f"{dev_ms[0]:.4f}, plain {dev_ms[1]:.4f}, library "
-            f"convolution_backward {dev_ms[2]:.4f}, H100 bound "
+            f"convolution_backward {dev_ms[2]:.4f}{fair}, H100 bound "
             f"{bound[0]:.4f} ({bound[1]}; kernel at "
             f"{bound[0] / dev_ms[0]:.1%} of it); per call with host launch "
             f"(CUDA events, median of {TIMING_RUNS}): {ev[0]:.4f} / "
@@ -539,8 +596,14 @@ def phase_train_slice(dev, workdir):
 
     state, cfg, meta = load_checkpoint(workdir / saved.group(1))
     dtype = "bfloat16" if dev.type == "cuda" else "float32"  # --dtype auto
-    if cfg.compute_dtype != dtype or meta["extra"] != {"step": TRAIN_STEPS}:
-        raise AssertionError(f"checkpoint: {cfg}, {meta}")
+    opt = meta["opt_state"] or {}
+    counts = tuple(None if c is None else int(c) for c in (
+        opt.get("count"),
+        opt.get("inner_state", {}).get("1", {}).get("0", {}).get("count")))
+    if (cfg.compute_dtype != dtype or meta["extra"] != {"step": TRAIN_STEPS}
+            or counts != (TRAIN_STEPS, TRAIN_STEPS)):
+        raise AssertionError(f"checkpoint: {cfg}, {meta['extra']}, optimizer "
+                             f"counts {counts}")
     image = sorted((workdir / "data" / "val" / "images").glob("*.jpg"))[0]
     nms_cuda.launches = 0
     dets = Predictor(state, cfg, conf_threshold=CONF, iou_threshold=IOU,
@@ -550,7 +613,8 @@ def phase_train_slice(dev, workdir):
         raise AssertionError(f"checkpoint request: {nms_cuda.launches} NMS "
                              f"launches, {len(dets)} detections")
     log(f"checkpoint {saved.group(1)} read back: {dtype}, step "
-        f"{meta['extra']['step']}; one request, 1 NMS launch, {len(dets)} "
+        f"{meta['extra']['step']}, Adam's state in the optax layout (counts "
+        f"{counts[0]} / {counts[1]}); one request, 1 NMS launch, {len(dets)} "
         f"detections, all finite")
     return launches, yaml_path
 
@@ -858,13 +922,22 @@ def main():
         n = sum(int(k) for k in SPILL.findall(line))
         if n:
             spills[entry] = n
-    conv_spills = [e for e in spills if any(k in e for k in CONV_BWD_ENTRIES)]
+    checked = [e for e in spills
+               if any(k in e for k in CONV_BWD_ENTRIES + NMS_ENTRIES)]
     log(f"ptxas: spill bytes (stores + loads) {spills or 'none'}")
-    if conv_spills:
-        raise AssertionError(f"ptxas spilled in conv backward kernels "
-                             f"{conv_spills} (log above)")
-    log("ptxas: no spills in the conv backward kernels (K2-K5)")
+    if checked:
+        raise AssertionError(f"ptxas spilled in conv backward or NMS kernels "
+                             f"{checked} (log above)")
+    log("ptxas: no spills in the conv backward kernels (K2-K5) or the NMS "
+        "kernel's two passes (K1)")
     lib = load_library()
+    for b, n in NMS_WORKSPACES:
+        geom = nms_cuda.geometry(lib, b, n)
+        log(f"NMS B={b} N={n}: {geom.words} words a row, mask workspace "
+            f"{geom.workspace_bytes / 2 ** 20:.2f} MiB, {geom.mask_blocks} "
+            f"mask-pass blocks, scan chunks of {64 * geom.words * 8 // 1024} "
+            f"KiB, {geom.stages} in flight ({geom.scan_smem_bytes} bytes of "
+            f"shared memory)")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for kernel, n_dw in CONV_BWD_KERNELS:
         geom = conv_bwd.geometry(lib, kernel, 1)
@@ -902,7 +975,7 @@ def main():
         f"{proto_launches}")
 
     print(json.dumps({"kernels": [{
-        "name": "nms_pivot_walk",
+        "name": "nms_bitmask",
         "route": "cuda",
         "source": "yolo_from_scratch_tpu_torch/csrc/nms.cu",
         "replaces": "yolo_from_scratch_tpu/ops/nms_pallas.py:46",

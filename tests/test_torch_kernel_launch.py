@@ -280,6 +280,18 @@ def test_spill_check_names_every_conv_backward_kernel():
             assert any(e in kernel for e in chip_smoke.CONV_BWD_ENTRIES), kernel
 
 
+def test_spill_check_names_every_nms_kernel():
+    """Phase 2 fails on a spill in a kernel whose name holds one of
+    `chip_smoke.NMS_ENTRIES`, and phases 3-4 split the NMS time by the same
+    names: they are exactly the kernels `csrc/nms.cu` defines."""
+    import chip_smoke
+
+    src = Path(bwdproto.__file__).resolve().parents[1] / "csrc" / "nms.cu"
+    found = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(",
+                       src.read_text())
+    assert sorted(found) == sorted(chip_smoke.NMS_ENTRIES)
+
+
 @pytest.mark.parametrize("b,h,w,dtype,us", [
     (8, 40, 40, "bfloat16", 1.91), (8, 80, 80, "bfloat16", 7.63),
     (8, 40, 40, "float32", 28.2)])
@@ -319,3 +331,15 @@ def test_nms_iou_count():
     flops, bytes_ = roofline.nms_work(5, 4)
     assert flops == 4 * roofline.NMS_FLOPS_PER_IOU + 5 * roofline.NMS_FLOPS_PER_BOX
     assert bytes_ == 5 * 21
+
+
+def test_nms_mask_pass_tests():
+    """The mask pass tests each valid rank against every later rank, valid
+    or not: ranks 0, 1 and 3 of 5 valid -> 4 + 3 + 1 tests, against the
+    walk's 2 + 0 when ranks 0 and 3 are kept."""
+    valid = torch.tensor([[True, True, False, True, False]])
+    keep = torch.tensor([[True, False, False, True, False]])
+    assert roofline.nms_mask_pass_tests(valid) == 8
+    assert roofline.nms_iou_count(keep, valid) == 2
+    assert roofline.nms_mask_pass_tests(torch.ones((2, 4096), dtype=torch.bool)) \
+        == 2 * 4096 * 4095 // 2

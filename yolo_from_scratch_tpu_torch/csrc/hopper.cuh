@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the TMA-fed conv backward kernels
-// (conv_bwd.cu, conv_bwd_patch.cu, conv_bwd_tap.cu, chain_bwd.cu), sm_90a:
-// tensor maps, mbarriers, TMA loads (multicast across a cluster too), wgmma
-// descriptors and fences, and the deterministic reduction of per-block dW
-// partials across a thread-block cluster.
+// (conv_bwd.cu, conv_bwd_patch.cu, conv_bwd_tap.cu, chain_bwd.cu) and the
+// NMS scan (nms.cu), sm_90a: tensor maps, mbarriers, bulk and TMA loads
+// (multicast across a cluster too), wgmma descriptors and fences, and the
+// deterministic reduction of per-block dW partials across a thread-block
+// cluster.
 //
 // The tensor-map encoder is the driver's cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint so that the library links against the
@@ -176,6 +177,18 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// `bytes` of contiguous global memory from `src` into shared `dst` by the
+// bulk-copy engine, completing on `bar` (which the issuing thread armed with
+// mbar_expect_tx). Both addresses 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,

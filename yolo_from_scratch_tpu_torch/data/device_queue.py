@@ -1,11 +1,11 @@
 """Double-buffered host-to-device input queue (counterpart of
 `yolo_from_scratch_tpu/data/device_queue.py`, one device).
 
-Batches come from the JAX package's host loader (`data/loader.py`, shared
-by import: numpy only), are copied into pinned host memory and sent to the
-card with `non_blocking=True` one batch AHEAD of the consumer, so the copy
-of batch N+1 overlaps step N. On the CPU the numpy arrays are wrapped
-without a copy.
+Batches come from the port's own host loader
+(`yolo_from_scratch_tpu_torch/data/loader.py`, numpy only), are copied
+into pinned host memory and sent to the card with `non_blocking=True` one
+batch AHEAD of the consumer, so the copy of batch N+1 overlaps step N.
+On the CPU the numpy arrays are wrapped without a copy.
 """
 
 from __future__ import annotations

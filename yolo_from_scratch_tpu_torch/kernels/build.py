@@ -119,11 +119,13 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.nms_keep_mask_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+    lib.nms_keep_mask_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                       ctypes.c_float, ptr]
     lib.nms_keep_mask_f32.restype = i32
     lib.nms_max_boxes.argtypes = []
     lib.nms_max_boxes.restype = i32
+    lib.nms_geometry.argtypes = [i32, i32, ptr]
+    lib.nms_geometry.restype = i32
     lib.nms_error_string.argtypes = [i32]
     lib.nms_error_string.restype = ctypes.c_char_p
     lib.conv3x3_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,

@@ -23,6 +23,7 @@ from yolo_from_scratch_tpu_torch.train.metrics import prf1
 from yolo_from_scratch_tpu_torch.train.schedule import lr_at_epoch
 from yolo_from_scratch_tpu_torch.train.steps import (
     METRIC_KEYS,
+    optax_state_dict,
     set_learning_rate,
 )
 from yolo_from_scratch_tpu_torch.utils.checkpoint import save_checkpoint
@@ -95,8 +96,9 @@ def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
             "val_recall": val_r, "val_f1": val_f1, "lr": lr,
             "images_per_sec": n_imgs / max(dt, 1e-9),
         })
-        # the Adam state is not written: its interop with the JAX
-        # package's optax state comes with --resume
+        # Adam's state in the JAX package's optax layout, so that its
+        # --resume continues the moments instead of restarting them
         save_checkpoint(save_path, to_flax_variables(state.model.state_dict()),
-                        cfg, epoch=epoch, extra={"step": state.step})
+                        cfg, epoch=epoch, opt_state=optax_state_dict(state),
+                        extra={"step": state.step})
     return state, save_path

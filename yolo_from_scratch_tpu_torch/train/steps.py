@@ -17,12 +17,14 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from yolo_from_scratch_tpu_torch.config import INV255, YoloConfig
 from yolo_from_scratch_tpu_torch.models.yolo import YOLO
 from yolo_from_scratch_tpu_torch.ops.losses import yolo_loss_multiscale
 from yolo_from_scratch_tpu_torch.train.metrics import grid_metric_counts
+from yolo_from_scratch_tpu_torch.utils.convert import to_flax_variables
 
 GRAD_CLIP_NORM = 10.0
 METRIC_KEYS = ("loss", "bbox", "obj", "cls")
@@ -42,6 +44,52 @@ def make_optimizer(params, learning_rate: float = 1e-2):
     """Adam with optax's constants; clipping happens in the step."""
     return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
                             eps=1e-8)
+
+
+def optax_state_dict(state: TrainState) -> dict:
+    """The optimizer state as the JAX package's checkpoints hold it:
+    `flax.serialization.to_state_dict` of the state of its
+    `make_optimizer(lr)`, `optax.inject_hyperparams(chain(
+    clip_by_global_norm(10), adam(lr)))`, written out literally (the port
+    cannot import optax):
+
+        {count, hyperparams: {learning_rate}, hyperparams_states: {},
+         inner_state: {'0': {} (the clip),
+                       '1': {'0': {count, mu, nu} (Adam),
+                             '1': {} (the learning-rate scale)}}}
+
+    mu and nu are torch's exp_avg and exp_avg_sq in the JAX parameter
+    layout (`utils/convert.py::to_flax_variables`); Adam's count is torch's
+    per-parameter step, the same for every parameter; inject_hyperparams
+    keeps a count of its own, which also advances once an update: the
+    state's step. Scalars are 0-d numpy arrays, as `jax.device_get` gives
+    them. A parameter that has no Adam state yet gets zero moments."""
+    moments = {"exp_avg": {}, "exp_avg_sq": {}}
+    steps = set()
+    for name, p in state.model.named_parameters():
+        adam = state.optimizer.state.get(p, {})
+        if adam:
+            steps.add(int(adam["step"]))
+        for key, tree in moments.items():
+            tree[name] = adam[key] if adam else torch.zeros_like(p)
+    if len(steps) > 1:
+        raise ValueError(f"Adam's step differs between parameters: "
+                         f"{sorted(steps)}")
+    lr = state.optimizer.param_groups[0]["lr"]
+    return {
+        "count": np.asarray(state.step, np.int32),
+        "hyperparams": {"learning_rate": np.asarray(lr, np.float32)},
+        "hyperparams_states": {},
+        "inner_state": {
+            "0": {},
+            "1": {"0": {"count": np.asarray(steps.pop() if steps else 0,
+                                            np.int32),
+                        "mu": to_flax_variables(moments["exp_avg"])["params"],
+                        "nu": to_flax_variables(
+                            moments["exp_avg_sq"])["params"]},
+                  "1": {}},
+        },
+    }
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:

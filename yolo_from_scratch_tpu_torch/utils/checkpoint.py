@@ -58,11 +58,13 @@ def _ext_pack(obj):
 
 
 def save_checkpoint(path, variables: dict, cfg: YoloConfig, epoch: int = 0,
-                    extra: dict | None = None):
+                    opt_state: dict | None = None, extra: dict | None = None):
     """Write a checkpoint in the JAX package's format. `variables` is
     `{'params': ..., 'batch_stats': ...}` of numpy arrays (see
-    `utils/convert.py::to_flax_variables`). No optimizer state is written.
-    The file is replaced atomically: a crash mid-write keeps the old one."""
+    `utils/convert.py::to_flax_variables`); `opt_state`, when given, is the
+    optimizer state as nested dicts of numpy arrays in the layout the JAX
+    `restore_train_state` reads (`train/steps.py::optax_state_dict`). The
+    file is replaced atomically: a crash mid-write keeps the old one."""
     import msgpack
 
     payload = {
@@ -77,6 +79,8 @@ def save_checkpoint(path, variables: dict, cfg: YoloConfig, epoch: int = 0,
         "compute_dtype": cfg.compute_dtype,
         "head_type": cfg.head_type,
     }
+    if opt_state is not None:
+        payload["opt_state"] = opt_state
     if extra:
         payload["extra"] = extra
     blob = msgpack.packb(payload, default=_ext_pack, strict_types=True)

@@ -11,13 +11,15 @@ the port's hand-written kernels on the H100.)
 
 from __future__ import annotations
 
+import torch
+
 C = 64
 H100_BYTES_PER_S = 3.35e12
 # bf16 on the tensor cores; float32 outside them (the float32 kernels keep
 # FMAs: TF32 would miss their 1e-5 tolerance)
 H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-# one IoU test of the NMS walk (csrc/nms.cu): 4 min/max, 2 subtractions,
-# 2 clamps and 1 product for the overlap, 3 additions for the union (with
+# one IoU test (csrc/nms.cu::suppresses): 4 min/max, 2 subtractions, 2
+# clamps and 1 product for the overlap, 3 additions for the union (with
 # its 1e-6), 1 division, 1 comparison; and once per box its area (2
 # subtractions, 1 product)
 NMS_FLOPS_PER_IOU = 14
@@ -70,6 +72,16 @@ def nms_iou_count(keep, valid):
     (..., N) boolean masks in sorted order; returns a Python int."""
     later_valid = valid.flip(-1).cumsum(-1).flip(-1) - valid.long()
     return int((later_valid * keep.long()).sum())
+
+
+def nms_mask_pass_tests(valid):
+    """IoU tests the two-pass kernel's mask pass (csrc/nms.cu) takes: each
+    valid rank against every later rank, valid or not. That is the work of
+    the design; the bound stays the function's (`nms_iou_count`). `valid`
+    is an (..., N) boolean mask in sorted order; returns a Python int."""
+    n = valid.shape[-1]
+    later = torch.arange(n - 1, -1, -1, device=valid.device)
+    return int((valid.long() * later).sum())
 
 
 def conv3x3_bwd_bound_ms(b, h, w, dtype):

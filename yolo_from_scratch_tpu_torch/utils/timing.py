@@ -57,21 +57,32 @@ def time_per_iter(fn, n1, n2, reps=3):
     return (t2 - t1) / (n2 - n1) / 1e3
 
 
+# traces taken of one timing before it raises: now and then the profiler
+# returns a trace without device events, which would read as 0 ms
+TRACE_ATTEMPTS = 3
+
+
 def kernel_ms(fn, runs):
     """{CUDA kernel name: device ms} over `runs` calls of fn, from the
     profiler's self times. Host launch overhead is not in it, unlike
-    `median_ms`."""
+    `median_ms`. A trace with no device time is taken again, up to
+    TRACE_ATTEMPTS traces; then it raises RuntimeError."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
+    for _ in range(TRACE_ATTEMPTS):
         torch.cuda.synchronize()
-    return {e.key: getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key: getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if sum(times.values()) > 0:
+            return times
+    raise RuntimeError(f"the profiler saw no device time in {TRACE_ATTEMPTS} "
+                       f"traces of {runs} calls")
 
 
 def device_ms(fn, runs=20, warmup=2):
