@@ -4,7 +4,9 @@
 
 Drives the port's paths on the card: with the 's' model (width 0.50,
 depth 0.33) at 640x640, nc=1, anchor head, random weights from a seed,
-single-image serving through `Predictor` and training through the CLI;
+single-image and batched serving through `Predictor` and `BatchPredictor`
+(host and device letterbox), training, evaluation with mAP and the anchor
+k-means through the CLI;
 then the conv-backward prototype entry points (`benchmarks/bwdproto.py`,
 `benchmarks/blockbwd.py`) at the training path's 64-channel shapes. It
 checks each hand-written CUDA kernel (NMS; the fused 3x3 conv backward
@@ -57,13 +59,30 @@ and prints no result):
 12. the slice: `python -m yolo_from_scratch_tpu_torch.benchmarks.bwdproto
    --iters 1` and `... .blockbwd --iters 1`, each in its own process, must
    exit 0, print their timing and projection lines and launch K3, K4 and
-   K5.
+   K5;
+13. batched serving: `BatchPredictor` over B=32 seeded 640x640 uint8
+   arrays, one NMS launch a batch; every image's detections finite and
+   non-empty; kernel and plain NMS bit-equal on the batch's (32, 4096)
+   candidates; image 0's TF32-off predictions within CORNER_TOL_PX /
+   PROB_TOL of a B=1 call; `PipelinedPredictor` equal to `Predictor`; the
+   batch's p50, img/s, forward and postprocess, busy share and the NMS
+   kernel's two passes on the batch's candidates beside the bound;
+14. the device letterbox: 480x640, 720x1280 and 1080x1920 in one bucket,
+   content within 1.5/255 of the host letterbox, the pad exact;
+   `BatchPredictor(device_letterbox=True)` against the host path on each
+   image's top 5 detections; one `Predictor(device_letterbox=True)`
+   request; the letterbox's device time;
+15. the CLI on phase 7's dataset and checkpoint: `--map` evaluation and
+   `--compute-anchors` exit 0 and print their lines, the NMS kernel's
+   launches rise through `--map` (phase 7's training ran `--val-det`), and
+   `python train_torch.py ... --compute-anchors` runs in its own process.
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
 the kernel, its plain version and the one-call library equivalent where
 there is one, and the H100 bound with what bounds it, all at the same
-inputs); the last line is `{"ok": true, "device": {...}}`.
+inputs; the NMS kernel also its launches, device ms and bound on phase
+13's batch); the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -87,8 +106,19 @@ import torch
 from yolo_from_scratch_tpu_torch import INV255, YoloConfig, cli
 from yolo_from_scratch_tpu_torch.benchmarks import blockbwd, bwdproto
 from yolo_from_scratch_tpu_torch.data import DataLoader, YoloDataset
+from yolo_from_scratch_tpu_torch.data.letterbox import (
+    letterbox_device_bucketed,
+    letterbox_image,
+    letterbox_params,
+)
 from yolo_from_scratch_tpu_torch.device import cuda_device, tf32_disabled
-from yolo_from_scratch_tpu_torch.infer.predict import Predictor
+from yolo_from_scratch_tpu_torch.infer.predict import (
+    BatchPredictor,
+    PipelinedPredictor,
+    Predictor,
+    _detections_per_image,
+    _stage_batch,
+)
 from yolo_from_scratch_tpu_torch.kernels.build import build, load_library
 from yolo_from_scratch_tpu_torch.models.yolo import YOLO
 from yolo_from_scratch_tpu_torch.ops import conv_bwd
@@ -177,6 +207,15 @@ NMS_TIMED_BATCHES = (1, 8, 32)  # at N=4096
 NMS_WORKSPACES = ((1, 4096), (8, 4096), (32, 4096), (1, 16384))
 IMG_SIZE = 640  # phases 7-9
 EPOCH_LINE = re.compile(r"Epoch 1: Loss: .* \| LR: .* \| (\S+) img/s")
+BATCH = 32            # phase 13: images a BatchPredictor call
+N_BATCHES = 5         # phase 13: timed calls
+MAX_OUTPUTS = 300     # BatchPredictor's default cap
+PIPELINE_DEPTH = 4    # phase 13: PipelinedPredictor's requests in flight
+# phase 14: (h, w) of three camera frames that share one staging bucket
+LETTERBOX_SHAPES = ((480, 640), (720, 1280), (1080, 1920))
+LSB = 1.5 / 255.0     # device letterbox vs PIL, as the JAX test holds it
+MAP_LINES = (r"  mAP@0\.5: \d+\.\d\d%", r"  mAP@\[\.5:\.95\]: \d+\.\d\d%",
+             r"  Detection P/R/F1 @conf0\.5: ")
 
 
 def log(msg):
@@ -300,6 +339,13 @@ def phase_kernel_vs_plain(dev):
     return max_abs_err
 
 
+def _finite_nonempty(results, what):
+    for i, dets in enumerate(results):
+        if not dets or not np.isfinite(np.asarray(dets, np.float64)).all():
+            raise AssertionError(f"{what} {i}: {len(dets)} detections, not "
+                                 f"all finite")
+
+
 def phase_slice(dev):
     cfg = YoloConfig.from_size("s", num_classes=1, img_size=640)
     meta_model = YOLO(cfg, device="meta")
@@ -326,10 +372,7 @@ def phase_slice(dev):
     if launches != N_REQUESTS:
         raise AssertionError(f"NMS kernel launched {launches} times for "
                              f"{N_REQUESTS} requests")
-    for i, dets in enumerate(results):
-        if not dets or not np.isfinite(np.asarray(dets, np.float64)).all():
-            raise AssertionError(f"request {i}: {len(dets)} detections, "
-                                 f"finite={np.isfinite(dets).all()}")
+    _finite_nonempty(results, "request")
     p50 = statistics.median(latencies)
     log(f"served {N_REQUESTS} requests, NMS kernel launches {launches}, "
         f"detections per request {[len(d) for d in results]}")
@@ -571,19 +614,25 @@ def phase_train_slice(dev, workdir):
     tee = _Tee()
     try:
         conv_bwd.launches = 0
+        nms_cuda.launches = 0
         with contextlib.redirect_stdout(tee):
             rc = cli.main([str(yaml_path), "--epochs", "1", "--batch-size",
-                           "8", "--size", "s", "--img-size", str(IMG_SIZE)])
+                           "8", "--size", "s", "--img-size", str(IMG_SIZE),
+                           "--val-det"])
         torch.cuda.synchronize()
         launches = conv_bwd.launches
+        val_det_launches = nms_cuda.launches
     finally:
         os.chdir(cwd)
     out = tee.text.getvalue()
     epoch = EPOCH_LINE.search(out)
     saved = re.search(r"Training complete\. Model saved to (\S+)", out)
     want = GATED_CONVS_BF16 * TRAIN_STEPS * conv_bwd.LAUNCHES_PER_CALL
-    if rc != 0 or not epoch or not saved or f"Device: {dev.type}" not in out:
+    if (rc != 0 or not epoch or not saved or f"Device: {dev.type}" not in out
+            or " | Det: P " not in epoch.group(0)):
         raise AssertionError(f"training CLI: rc {rc}, output:\n{out}")
+    if val_det_launches < 1:
+        raise AssertionError("--val-det launched the NMS kernel no time")
     if launches != want:
         raise AssertionError(f"conv backward kernel launched {launches} "
                              f"times, want {want} ({GATED_CONVS_BF16} convs "
@@ -592,7 +641,9 @@ def phase_train_slice(dev, workdir):
     log(f"training slice: conv backward kernel launches {launches} "
         f"(= {GATED_CONVS_BF16} convs x {TRAIN_STEPS} steps x "
         f"{conv_bwd.LAUNCHES_PER_CALL}), epoch img/s {epoch.group(1)} "
-        f"(first-step warm-up, PIL decode and eval included)")
+        f"(first-step warm-up, PIL decode and eval included); --val-det: "
+        f"{val_det_launches} NMS kernel launch(es), "
+        f"{re.search(r'Det: [^|]*', epoch.group(0)).group(0).strip()}")
 
     state, cfg, meta = load_checkpoint(workdir / saved.group(1))
     dtype = "bfloat16" if dev.type == "cuda" else "float32"  # --dtype auto
@@ -616,7 +667,7 @@ def phase_train_slice(dev, workdir):
         f"{meta['extra']['step']}, Adam's state in the optax layout (counts "
         f"{counts[0]} / {counts[1]}); one request, 1 NMS launch, {len(dets)} "
         f"detections, all finite")
-    return launches, yaml_path
+    return launches, yaml_path, workdir / saved.group(1), val_det_launches
 
 
 def _batch(yaml_path, split, batch_size, dev):
@@ -896,6 +947,294 @@ def phase_entry_points():
     return counts
 
 
+def phase_batch(state, cfg, dev):
+    """Batched serving at B=32: one NMS launch a batch, kernel == plain on
+    the batch's candidates, image 0 against a B=1 call (TF32 off), the
+    pipelined client against Predictor; times."""
+    predictor = BatchPredictor(state, cfg, conf_threshold=CONF,
+                               iou_threshold=IOU, max_outputs=MAX_OUTPUTS,
+                               device=dev)
+    rng = np.random.default_rng(SEED + 2)
+    images = [rng.integers(0, 256, (IMG_SIZE, IMG_SIZE, 3), dtype=np.uint8)
+              for _ in range(BATCH)]
+    predictor(images)  # warm-up: cuDNN handles and algorithm choice
+    torch.cuda.synchronize()
+    nms_cuda.launches = 0
+    latencies = []
+    for _ in range(N_BATCHES):
+        t0 = time.perf_counter()
+        results = predictor(images)  # ends in a device -> host copy
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    launches = nms_cuda.launches
+    if launches != N_BATCHES:
+        raise AssertionError(f"NMS kernel launched {launches} times for "
+                             f"{N_BATCHES} batches")
+    _finite_nonempty(results, "batch image")
+    p50 = statistics.median(latencies)
+    log(f"batched serving B={BATCH}: {N_BATCHES} calls, NMS kernel launches "
+        f"{launches}, detections per image {[len(d) for d in results]}")
+    log(f"batch latency p50 {p50:.3f} ms (min {min(latencies):.3f}, max "
+        f"{max(latencies):.3f}; host clock, {BATCH} letterbox-free 640x640 "
+        f"uint8 arrays in, detection lists out): {BATCH * 1e3 / p50:.1f} "
+        f"img/s")
+
+    args = predictor.stage(images)
+    with torch.inference_mode():
+        img = args[0].float() * float(INV255)
+        fwd_ms = median_ms(lambda: predictor.model(img), runs=5)
+        post_ms = median_ms(lambda: predictor.postprocess(*args), runs=5)
+        boxes, scores, classes = predictor.postprocess.candidates(*args)
+    busy = sum(kernel_ms(lambda: predictor(images), 3).values()) / 3
+    # host-clock split of one call: staging (stack + upload), the device
+    # work, the copy back and the detection lists
+    marks = [time.perf_counter()]
+    staged = predictor.stage(images)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    out = predictor.postprocess(*staged)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    cpu_out = [t.cpu() for t in out]
+    marks.append(time.perf_counter())
+    _detections_per_image(*cpu_out, BATCH)
+    marks.append(time.perf_counter())
+    split = np.diff(marks) * 1e3
+    log(f"one batch on the card: forward {fwd_ms:.4f} ms, forward + "
+        f"postprocess {post_ms:.4f} ms (CUDA events, median of 5); device "
+        f"busy {busy:.3f} ms a call (profiler, 3 calls), "
+        f"{busy / p50:.0%} of the p50; host clock of one call: stage "
+        f"(stack + upload) {split[0]:.3f} ms, postprocess to sync "
+        f"{split[1]:.3f} ms, copy back {split[2]:.3f} ms, detection lists "
+        f"{split[3]:.3f} ms")
+
+    off = nms_plain._class_offset_boxes(boxes, classes)
+
+    def kernel():
+        nms_cuda.nms_keep_mask_batched(off, scores, IOU, max_keep=MAX_OUTPUTS,
+                                       presorted=True)
+
+    mask_ms, scan_ms = nms_split_ms(kernel)
+    ev_ms = median_ms(kernel)
+    p_ms = median_ms(lambda: nms_plain.nms_keep_mask(
+        off, scores, IOU, max_keep=MAX_OUTPUTS, presorted=True), runs=3,
+        warmup=1)
+    keep = nms_cuda.nms_keep_mask_batched(off, scores, IOU,
+                                          max_keep=MAX_OUTPUTS, presorted=True)
+    valid = scores > nms_plain.NEG_INF / 2
+    n_iou = roofline.nms_iou_count(keep, valid)
+    bound = roofline.bound_ms(*roofline.nms_work(scores.numel(), n_iou),
+                              "float32")
+    k_ms = mask_ms + scan_ms
+    log(f"NMS on the batch's {tuple(scores.shape)} candidates "
+        f"({int(valid.sum())} above the gate, {int(keep.sum())} kept, "
+        f"max_keep {MAX_OUTPUTS}): kernel {k_ms:.4f} ms device (mask pass "
+        f"{mask_ms:.4f} + scan {scan_ms:.4f}; profiler, {TIMING_RUNS} "
+        f"calls), {ev_ms:.4f} ms a call with its launches (CUDA events); "
+        f"plain {p_ms:.4f} ms (median of 3); H100 bound {bound[0]:.6f} ms "
+        f"({bound[1]}, the walks' {n_iou} IoU tests summed over the images); "
+        f"the mask pass takes {roofline.nms_mask_pass_tests(valid)} tests")
+
+    fixed_k = nms_cuda.batched_nms_fixed_cuda_images(
+        boxes, scores, classes, IOU, MAX_OUTPUTS, presorted=True)
+    fixed_p = nms_plain.batched_nms_fixed(boxes, scores, classes, IOU,
+                                          MAX_OUTPUTS, presorted=True)
+    if not all(torch.equal(a, b) for a, b in zip(fixed_k, fixed_p)):
+        raise AssertionError("kernel and plain NMS differ on the batch's "
+                             "candidates")
+    plain_pred = BatchPredictor(state, cfg, conf_threshold=CONF,
+                                iou_threshold=IOU, max_outputs=MAX_OUTPUTS,
+                                device=dev, use_cuda_nms=False)
+    if plain_pred(images) != results:
+        raise AssertionError("batch detections differ between the kernel "
+                             "and the plain NMS on the card")
+    log(f"kernel NMS == plain NMS on the card: the batch's "
+        f"{tuple(scores.shape)} candidates bit-equal, the {BATCH} detection "
+        f"lists equal")
+
+    # image 0 at B=32 against a B=1 call, TF32 off: cuDNN may pick other
+    # algorithms at B=32, so within the tolerances, not bit for bit
+    single = Predictor(state, cfg, conf_threshold=CONF, iou_threshold=IOU,
+                       device=dev)
+    one = single.stage(images[0])
+    with tf32_disabled():
+        batch_dec = [t[0].cpu() for t in predictor.postprocess.decode(*args)]
+        batch_top = predictor.postprocess.candidates(*args)[1][0].cpu()
+        one_dec = [t.cpu() for t in single.postprocess.decode(*one)]
+        one_top = single.postprocess.candidates(*one)[1].cpu()
+    errs = [(a.double() - b.double()).abs().max().item()
+            for a, b in zip(batch_dec[:3], one_dec[:3])]
+    top_err = (batch_top.double() - one_top.double()).abs().max().item()
+    if (errs[0] > CORNER_TOL_PX or max(errs[1], errs[2], top_err) > PROB_TOL
+            or not torch.equal(batch_dec[3], one_dec[3])):
+        raise AssertionError(f"TF32 off, image 0 of the batch vs B=1: "
+                             f"corners {errs[0]} px, obj {errs[1]}, cls "
+                             f"{errs[2]}, sorted scores {top_err}")
+    log(f"TF32 off, image 0 of B={BATCH} vs a B=1 call on all "
+        f"{batch_dec[1].numel()} predictions: max |corner| err {errs[0]:.3e} "
+        f"px (tol {CORNER_TOL_PX}), max |obj| err {errs[1]:.3e}, max |cls| "
+        f"err {errs[2]:.3e}, sorted candidate scores {top_err:.3e} (tol "
+        f"{PROB_TOL})")
+
+    pipelined = PipelinedPredictor(state, cfg, depth=PIPELINE_DEPTH,
+                                   conf_threshold=CONF, iou_threshold=IOU,
+                                   device=dev)
+    requests = images[:2 * PIPELINE_DEPTH]
+    want = [single(img) for img in requests]
+    t0 = time.perf_counter()
+    got = pipelined(requests)
+    pipe_s = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError("PipelinedPredictor differs from Predictor")
+    log(f"PipelinedPredictor depth {PIPELINE_DEPTH}: {len(requests)} requests "
+        f"equal to Predictor's, {len(requests) / pipe_s:.1f} img/s (host "
+        f"clock, one pass)")
+    return launches, (k_ms, bound)
+
+
+def _host_letterbox(arrays):
+    from PIL import Image
+
+    return [letterbox_image(Image.fromarray(a), IMG_SIZE) for a in arrays]
+
+
+def _top_match(a, b, n=5):
+    """Each of a's first n detections has a counterpart among the rows of
+    b within rtol 0.05, atol 1 (the JAX test's tolerances), class equal,
+    one to one."""
+    ga = np.asarray(a[:n], np.float64)
+    gb = np.asarray(b, np.float64)
+    free = np.ones(len(gb), bool)
+    for d in ga:
+        close = ((np.abs(gb[:, :5] - d[:5]) <= 1.0 + 0.05 * np.abs(d[:5]))
+                 .all(1) & (gb[:, 5] == d[5]) & free)
+        if not close.any():
+            return False
+        free[np.flatnonzero(close)[0]] = False
+    return len(ga) == n
+
+
+def phase_device_letterbox(state, cfg, dev):
+    """Three camera geometries in one bucket: the device letterbox against
+    PIL, BatchPredictor(device_letterbox=True) against the host path, one
+    Predictor(device_letterbox=True) request."""
+    rng = np.random.default_rng(SEED + 3)
+    arrays = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+              for hw in LETTERBOX_SHAPES]
+    bufs, geoms, scales = (torch.from_numpy(a).to(dev)
+                           for a in _stage_batch(arrays, IMG_SIZE))
+    out = letterbox_device_bucketed(bufs, geoms, IMG_SIZE).cpu().numpy()
+    worst = 0.0
+    for i, (arr, (host, _, pad_top, pad_left)) in enumerate(
+            zip(arrays, _host_letterbox(arrays))):
+        hostf = host.astype(np.float32) / 255.0
+        _, _, _, new_w, new_h = letterbox_params(arr.shape[1], arr.shape[0],
+                                                 IMG_SIZE)
+        pad = np.ones((IMG_SIZE, IMG_SIZE), bool)
+        pad[pad_top:pad_top + new_h, pad_left:pad_left + new_w] = False
+        content = np.abs(out[i][~pad] - hostf[~pad]).max()
+        worst = max(worst, content)
+        if content >= LSB or not np.array_equal(out[i][pad], hostf[pad]):
+            raise AssertionError(f"device letterbox {arr.shape[:2]}: content "
+                                 f"{content * 255:.3f} LSB from PIL, pad "
+                                 f"exact {np.array_equal(out[i][pad], hostf[pad])}")
+    lb_ms = device_ms(lambda: letterbox_device_bucketed(bufs, geoms,
+                                                        IMG_SIZE))
+    t0 = time.perf_counter()
+    _host_letterbox(arrays)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    log(f"device letterbox of {', '.join(f'{h}x{w}' for h, w in LETTERBOX_SHAPES)} "
+        f"in one {tuple(bufs.shape[1:3])} bucket: content within "
+        f"{worst * 255:.3f} LSB of PIL (limit 1.5), pad exact; "
+        f"{lb_ms:.4f} ms device (profiler, {TIMING_RUNS} calls) for the "
+        f"three; PIL on the host {host_ms:.1f} ms for the three (host clock)")
+
+    kw = dict(conf_threshold=CONF, iou_threshold=IOU, device=dev)
+    host_pred = BatchPredictor(state, cfg, **kw)
+    dev_pred = BatchPredictor(state, cfg, device_letterbox=True, **kw)
+    host_dets = host_pred(arrays)
+    nms_cuda.launches = 0
+    dev_dets = dev_pred(arrays)
+    if nms_cuda.launches != 1:
+        raise AssertionError(f"device-letterbox batch: {nms_cuda.launches} "
+                             f"NMS launches")
+    _finite_nonempty(dev_dets, "device-letterbox image")
+    # each path's top 5 against the other's NMS input (its candidates):
+    # random weights give rows of boxes whose scores tie to ~1e-7 where
+    # the receptive field sees the pad, an LSB of input reorders them, and
+    # the greedy walk then keeps another box of the row
+    imgs = letterbox_device_bucketed(bufs, geoms, IMG_SIZE)
+    cands = [
+        torch.cat([c[0], c[1][..., None], c[2][..., None].float()], -1)
+        .cpu().numpy()
+        for c in (host_pred.postprocess.candidates(*host_pred.stage(arrays)),
+                  dev_pred.postprocess.candidates(imgs, scales, geoms[:, 4],
+                                                  geoms[:, 5]))]
+    for i, (a, b) in enumerate(zip(host_dets, dev_dets)):
+        top_a = np.asarray([d[4] for d in a[:5]])
+        top_b = np.asarray([d[4] for d in b[:5]])
+        if not (np.allclose(top_b, top_a, rtol=0.05, atol=0)
+                and _top_match(b, cands[0][i]) and _top_match(a, cands[1][i])):
+            raise AssertionError(f"image {i}: device-letterbox top 5 {b[:5]} "
+                                 f"vs host {a[:5]}")
+    nms_cuda.launches = 0
+    one = Predictor(state, cfg, device_letterbox=True, **kw)(arrays[2])
+    _finite_nonempty([one], "device-letterbox request")
+    if nms_cuda.launches != 1:
+        raise AssertionError(f"device-letterbox request: {nms_cuda.launches} "
+                             f"NMS launches")
+    log(f"BatchPredictor(device_letterbox=True) B=3: 1 NMS launch, each "
+        f"image's top 5 scores within rtol 0.05 of the host path's, and "
+        f"each path's top 5 boxes within rtol 0.05 / 1 px of the other's "
+        f"NMS candidates "
+        f"(detections {[len(d) for d in dev_dets]} vs "
+        f"{[len(d) for d in host_dets]}); Predictor(device_letterbox=True) "
+        f"on the 1080x1920 frame: 1 NMS launch, {len(one)} detections")
+    return lb_ms
+
+
+def _cli(args):
+    """cli.main(args) with its stdout kept; returns (rc, stdout)."""
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    return rc, tee.text.getvalue()
+
+
+def phase_cli(yaml_path, ckpt_path):
+    """--map and --compute-anchors through the CLI on phase 7's dataset
+    and checkpoint; train_torch.py in its own process."""
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    rc, out = _cli([str(yaml_path), str(ckpt_path), "--map", "--batch-size",
+                    "8"])
+    map_launches = nms_cuda.launches
+    missing = [p for p in MAP_LINES if len(re.findall(p, out)) != 2]
+    if rc != 0 or missing or map_launches < 2:
+        raise AssertionError(f"--map: rc {rc}, missing {missing}, "
+                             f"{map_launches} NMS launches, output:\n{out}")
+    log(f"--map: exit 0 in {time.perf_counter() - t0:.1f} s, "
+        f"{map_launches} NMS kernel launches (a batch of up to 16 a split)")
+
+    rc, out = _cli([str(yaml_path), "--compute-anchors"])
+    if rc != 0 or "Recommended anchor configuration:" not in out:
+        raise AssertionError(f"--compute-anchors: rc {rc}, output:\n{out}")
+    log(f"--compute-anchors: exit 0, "
+        f"{re.search(r'anchors = .*', out).group(0)}")
+
+    cmd = [sys.executable, "train_torch.py", str(yaml_path),
+           "--compute-anchors"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parent)
+    if res.returncode != 0 or "P5 (large objects):" not in res.stdout:
+        raise AssertionError(f"train_torch.py: exit {res.returncode}\n"
+                             f"{res.stdout}\n{res.stderr}")
+    log(f"python train_torch.py data.yaml --compute-anchors: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return map_launches
+
+
 def main():
     # 1. device
     dev = cuda_device()
@@ -960,19 +1299,29 @@ def main():
     # 6. conv backward kernel vs plain version
     k2_err, (k2_ms, k2_plain_ms, k2_lib_ms, k2_bound) = phase_conv_bwd(dev)
 
-    # 7. the training slice, 8. parity with the CPU, 9. throughput
     with tempfile.TemporaryDirectory() as tmp:
-        k2_launches, yaml_path = phase_train_slice(dev, Path(tmp))
+        # 7. the training slice (with --val-det), 8. parity with the CPU,
+        # 9. throughput
+        k2_launches, yaml_path, ckpt_path, val_det_launches = \
+            phase_train_slice(dev, Path(tmp))
         phase_parity(dev, yaml_path)
         phase_throughput(dev, yaml_path)
 
-    # 10. K3 and K4, 11. K5 against their plain versions; 12. the slice:
-    # both prototype entry points
-    proto_err, proto_ms = phase_prototypes(dev)
-    chain_err, chain_ms = phase_chain(dev)
-    proto_launches = phase_entry_points()
-    log(f"prototype kernel launches through the entry points: "
-        f"{proto_launches}")
+        # 10. K3 and K4, 11. K5 against their plain versions; 12. the
+        # slice: both prototype entry points
+        proto_err, proto_ms = phase_prototypes(dev)
+        chain_err, chain_ms = phase_chain(dev)
+        proto_launches = phase_entry_points()
+        log(f"prototype kernel launches through the entry points: "
+            f"{proto_launches}")
+
+        # 13. batched serving, 14. the device letterbox, 15. the CLI's
+        # --map and --compute-anchors
+        batch_launches, (batch_ms, batch_bound) = phase_batch(state, cfg, dev)
+        phase_device_letterbox(state, cfg, dev)
+        map_launches = phase_cli(yaml_path, ckpt_path)
+        log(f"NMS kernel launches through the entry points: --val-det "
+            f"{val_det_launches}, --map {map_launches}")
 
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
@@ -986,6 +1335,9 @@ def main():
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
+        "batch_launches": batch_launches,
+        "batch_ms": batch_ms,
+        "batch_bound_ms": batch_bound[0],
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",

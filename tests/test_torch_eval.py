@@ -195,7 +195,8 @@ def test_cli_trains_evaluates_and_jax_reads_the_checkpoint(
                                   ["--stream-pool", "4"],
                                   ["--packed", "p3"],
                                   ["--head", "anchor_free"],
-                                  ["--device-augment"]])
+                                  ["--device-augment"], ["--int8"],
+                                  ["--device-mosaic"]])
 def test_cli_unported_flags_exit_2(args, capsys):
     assert cli.main(["data.yaml", *args]) == 2
     assert args[0] in capsys.readouterr().out

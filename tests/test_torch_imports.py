@@ -8,7 +8,8 @@ the CPU from a dataset of JPEGs (PIL decodes them) with no jax or flax.
 The conv-backward prototype benchmarks import with none of jax, flax or
 triton, and run their CPU check as a user runs them. None of these loads
 any module of the JAX package (`yolo_from_scratch_tpu`), and no source
-file of the port or `chip_smoke.py` names one in an import.
+file of the port, `chip_smoke.py` or `train_torch.py` names one in an
+import.
 """
 
 import ast
@@ -165,15 +166,16 @@ def _imported_modules(path):
     return names
 
 
-PORT_SOURCES = sorted(PORT_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+PORT_SOURCES = sorted(PORT_DIR.rglob("*.py")) + [
+    REPO_ROOT / "chip_smoke.py", REPO_ROOT / "train_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES,
                          ids=[str(p.relative_to(REPO_ROOT))
                               for p in PORT_SOURCES])
 def test_port_source_imports_nothing_of_the_jax_package(path):
-    """Static check: no import in the port's sources or in chip_smoke.py
-    names `yolo_from_scratch_tpu` or one of its submodules, at module level
+    """Static check: no import in the port's sources, chip_smoke.py or
+    train_torch.py names `yolo_from_scratch_tpu` or one of its submodules, at module level
     or inside a function."""
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib", "flax")]

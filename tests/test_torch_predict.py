@@ -275,8 +275,27 @@ def test_cli_inspect_and_unported_modes(jax_checkpoint, cfg):
     n = sum(p.numel() for p in YOLO(cfg, device="meta").parameters())
     assert f"Total parameters: {n:,}" in result.stdout
     assert "Model architecture:" in result.stdout
-    # training and evaluation are ported (tests/test_torch_eval.py); the
-    # anchor k-means is not yet
-    result = _run_port_cli(["data.yaml", "--compute-anchors"])
+    # training, evaluation and --compute-anchors are ported
+    # (tests/test_torch_eval.py, tests/test_torch_anchors.py); the
+    # on-device mosaic is not yet
+    result = _run_port_cli(["data.yaml", "--device-mosaic"])
     assert result.returncode == 2
-    assert "not ported yet" in result.stdout
+    assert "--device-mosaic is not ported yet" in result.stdout
+
+
+def test_train_torch_script_and_device_letterbox_inference(
+        jax_checkpoint, sample_image, jax_detections):
+    """`python train_torch.py` is the port's CLI: it inspects a checkpoint,
+    and serves an image with the letterbox on the device."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    result = subprocess.run(
+        [sys.executable, "train_torch.py", str(jax_checkpoint)],
+        capture_output=True, text=True, timeout=300, cwd=REPO_ROOT, env=env)
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.startswith(f"Model loaded from {jax_checkpoint}\n")
+    assert "Total parameters: " in result.stdout
+    result = _run_port_cli([sample_image, str(jax_checkpoint), "--device",
+                            "cpu", "--device-letterbox"])
+    assert result.returncode == 0, result.stderr
+    # a 128x128 image: the device letterbox is the identity up to an ulp
+    assert f"Detected {len(jax_detections)} object(s):" in result.stdout

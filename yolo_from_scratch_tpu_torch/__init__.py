@@ -11,10 +11,12 @@ package: the host-side configuration (`config.py`) and data layer
 (`data/letterbox.py`, `data/dataset.py`, `data/loader.py`) are the port's
 own copies, held bit-equal to the JAX package's by the tests.
 
-Ported so far: the single-image serving path (letterbox -> forward ->
-decode -> gate -> top-k -> class-aware greedy NMS), training and
-evaluation, and the conv-backward prototype benchmarks; every TPU kernel
-of the JAX package is a CUDA kernel written by hand (`csrc/`).
+Ported so far: single-image, pipelined and batched serving (letterbox on
+the host or the device -> forward -> decode -> gate -> top-k -> class-aware
+greedy NMS, one launch a batch), training and evaluation with mAP and
+detection P/R/F1, the k-means anchors, and the conv-backward prototype
+benchmarks; every TPU kernel of the JAX package is a CUDA kernel written by
+hand (`csrc/`).
 """
 
 from yolo_from_scratch_tpu_torch.config import (

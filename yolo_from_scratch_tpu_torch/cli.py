@@ -1,15 +1,21 @@
 """Command line of the port (counterpart of `yolo_from_scratch_tpu/cli.py`),
 dispatching on the positional files' extensions as the JAX CLI does.
 
-  Training:   python -m yolo_from_scratch_tpu_torch data.yaml [OPTIONS]
-  Evaluation: python -m yolo_from_scratch_tpu_torch data.yaml model.ckpt
-  Inference:  python -m yolo_from_scratch_tpu_torch image.jpg model.ckpt
-  Inspect:    python -m yolo_from_scratch_tpu_torch model.ckpt
+  Training:        python -m yolo_from_scratch_tpu_torch data.yaml [OPTIONS]
+  Evaluation:      python -m yolo_from_scratch_tpu_torch data.yaml model.ckpt
+  Inference:       python -m yolo_from_scratch_tpu_torch image.jpg model.ckpt
+  Inspect:         python -m yolo_from_scratch_tpu_torch model.ckpt
+  Compute Anchors: python -m yolo_from_scratch_tpu_torch data.yaml \
+                       --compute-anchors
 
-Each prints the JAX CLI's stdout lines. Training runs the anchor head with
-dense host targets; `--dtype auto` is bfloat16 on the card and float32 on
-the CPU. A JAX-CLI flag the port does not have yet exits with status 2 and
-names the flag, as does any other mode.
+(`python train_torch.py ...` is the same command line.) Each prints the
+JAX CLI's stdout lines. Training runs the anchor head with dense host
+targets; `--dtype auto` is bfloat16 on the card and float32 on the CPU.
+`--val-det` adds the detection-level P/R/F1 to each epoch, `--map` adds
+mAP to evaluation (both through `BatchPredictor`, one NMS launch a batch),
+`--device-letterbox` resizes and pads on the device for inference and
+`--map`. A JAX-CLI flag the port does not have yet exits with status 2
+and names the flag, as does any other mode.
 """
 
 from __future__ import annotations
@@ -30,11 +36,11 @@ UNPORTED_FLAGS = (
     "--resume", "--ema", "--compact-targets", "--sparse-loss",
     "--multi-scale", "--augment", "--data-parallel", "--spatial",
     "--model-parallel", "--distributed", "--coordinator", "--num-processes",
-    "--process-id", "--val-det", "--map", "--compute-anchors",
-    "--weight-decay", "--cache-dir", "--int8", "--export", "--export-batch",
-    "--export-platforms",
+    "--process-id", "--weight-decay", "--cache-dir", "--int8", "--export",
+    "--export-batch", "--export-platforms", "--device-mosaic",
+    "--device-augment",
 )
-UNPORTED_PREFIXES = ("--stream", "--device-", "--packed")
+UNPORTED_PREFIXES = ("--stream", "--packed")
 
 
 def build_parser():
@@ -74,6 +80,19 @@ def build_parser():
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--metrics-jsonl", default=None,
                         help="write per-epoch metrics to this JSONL file")
+    parser.add_argument("--compute-anchors", action="store_true",
+                        help="compute optimal anchors for the dataset with "
+                             "k-means")
+    parser.add_argument("--map", action="store_true",
+                        help="evaluation: also COCO-style mAP@0.5 and "
+                             "mAP@[.5:.95] over the NMS inference path")
+    parser.add_argument("--val-det", action="store_true",
+                        help="training: also detection-level P/R/F1 at "
+                             "conf 0.5 (NMS output vs GT) on the val split "
+                             "every epoch")
+    parser.add_argument("--device-letterbox", action="store_true",
+                        help="inference / --map: resize and pad on the "
+                             "device (the host only decodes)")
     return parser
 
 
@@ -138,7 +157,8 @@ def _infer(args, image_file, ckpt_file):
     print(f"Running inference on {image_file}")
     print(f"Model: {ckpt_file}, Classes: {cfg.num_classes}, "
           f"Image size: {cfg.img_size}")
-    detections = Predictor(state_dict, cfg, device=device)(image_file)
+    detections = Predictor(state_dict, cfg, device=device,
+                           device_letterbox=args.device_letterbox)(image_file)
     if len(detections) == 0:
         print("No objects detected.")
     else:
@@ -147,6 +167,23 @@ def _infer(args, image_file, ckpt_file):
             print(f"  {i + 1}. Box: ({x1:.1f}, {y1:.1f}, {x2:.1f}, "
                   f"{y2:.1f}), Confidence: {conf:.3f}, "
                   f"Class: {int(class_id)}")
+
+
+def _compute_anchors(args, yaml_file):
+    if not yaml_file:
+        print("ERROR: --compute-anchors requires a dataset YAML file")
+        print("Usage: python train_torch.py dataset.yaml --compute-anchors "
+              "[--img-size SIZE]")
+        return 1
+    from yolo_from_scratch_tpu_torch.utils.anchors import (
+        compute_optimal_anchors,
+    )
+
+    print(f"Computing optimal anchors for {yaml_file} at "
+          f"img_size={args.img_size}...")
+    compute_optimal_anchors(yaml_file, img_size=args.img_size,
+                            device=_device(args.device))
+    return 0
 
 
 def _loader(config, split, cfg, batch_size, shuffle=False, seed=0):
@@ -177,15 +214,63 @@ def _evaluate(args, config, ckpt_file):
     model.to(device)
     eval_step = make_eval_step(cfg, quirk_640=args.reference_quirks,
                                device=device)
+    predictor = None
+    if args.map:
+        from yolo_from_scratch_tpu_torch.infer.predict import BatchPredictor
+
+        # low threshold: mAP integrates the whole PR curve, so the
+        # low-confidence tail must not be cut
+        predictor = BatchPredictor(state_dict, cfg, conf_threshold=1e-3,
+                                   max_outputs=300,
+                                   device_letterbox=args.device_letterbox,
+                                   device=device)
     for title, split in (("Training", "train"), ("Validation", "val")):
-        loss, p, r, f1 = eval_epoch(
-            eval_step, model, _loader(config, split, cfg, args.batch_size),
-            device)
+        loader = _loader(config, split, cfg, args.batch_size)
+        loss, p, r, f1 = eval_epoch(eval_step, model, loader, device)
         print(f"\n{title} Set:")
         print(f"  Loss: {loss:.4f}")
         print(f"  Precision: {p:.2f}%")
         print(f"  Recall: {r:.2f}%")
         print(f"  F1 Score: {f1:.2f}%")
+        if predictor is not None:
+            _print_map(predictor, loader.dataset, cfg, config)
+
+
+def _print_map(predictor, dataset, cfg, config):
+    from yolo_from_scratch_tpu_torch.train.map_eval import evaluate_map
+
+    m = evaluate_map(predictor, dataset, num_classes=cfg.num_classes)
+    print(f"  mAP@0.5: {m['map50'] * 100:.2f}%")
+    print(f"  mAP@[.5:.95]: {m['map'] * 100:.2f}%")
+    print(f"  Detection P/R/F1 @conf0.5: {m['det_precision']:.2f}% / "
+          f"{m['det_recall']:.2f}% / {m['det_f1']:.2f}%")
+    if cfg.num_classes > 1 and m.get("per_class_ap50"):
+        names = config.get("names") or []
+        print("  Per-class AP@0.5:")
+        for c, ap in sorted(m["per_class_ap50"].items()):
+            label = names[c] if c < len(names) else f"class {c}"
+            print(f"    {label}: {ap * 100:.2f}%")
+
+
+def _det_eval(cfg, model, dataset, device):
+    """fit()'s `det_eval`: one BatchPredictor at conf 0.5 with a model of
+    its own, into which each epoch copies the live float32 master weights
+    (the predictor casts its convs to the compute dtype; the training
+    model's must stay float32)."""
+    from yolo_from_scratch_tpu_torch.infer.predict import BatchPredictor
+    from yolo_from_scratch_tpu_torch.train.map_eval import (
+        evaluate_det_counts,
+    )
+    from yolo_from_scratch_tpu_torch.train.metrics import prf1
+
+    predictor = BatchPredictor(model.state_dict(), cfg, conf_threshold=0.5,
+                               device=device)
+
+    def det_eval(live_model):
+        predictor.load_weights(live_model.state_dict())
+        return prf1(*evaluate_det_counts(predictor, dataset))
+
+    return det_eval
 
 
 def _train(args, config):
@@ -221,12 +306,15 @@ def _train(args, config):
     print(f"  Minimum LR: {args.min_lr}")
     print(f"  Warmup epochs: {args.warmup_epochs}")
     print(f"  Total epochs: {args.epochs}")
+    det_eval = (_det_eval(cfg, state.model, val_loader.dataset, device)
+                if args.val_det else None)
     state, save_path = fit(
         state, make_train_step(cfg, args.reference_quirks, device),
         make_eval_step(cfg, quirk_640=args.reference_quirks, device=device),
         train_loader, val_loader, cfg, device=device, epochs=args.epochs,
         initial_lr=args.lr, min_lr=args.min_lr,
-        warmup_epochs=args.warmup_epochs, metrics_path=args.metrics_jsonl)
+        warmup_epochs=args.warmup_epochs, metrics_path=args.metrics_jsonl,
+        det_eval=det_eval)
     print(f"\nTraining complete. Model saved to {save_path}")
     return 0
 
@@ -250,14 +338,17 @@ def main(argv=None):
     yaml_file = next((a for a in args.files if a.endswith(YAML_EXTS)), None)
     ckpt_file = next((a for a in args.files if a.endswith(CKPT_EXTS)), None)
     image_file = next((a for a in args.files if a.endswith(IMG_EXTS)), None)
+    if args.compute_anchors:
+        return _compute_anchors(args, yaml_file)
     others = [a for a in args.files
               if a not in (yaml_file, ckpt_file, image_file)]
 
     if others or not (yaml_file or ckpt_file):
         print("This mode is not ported yet: the PyTorch port runs training "
               "(data.yaml), evaluation (data.yaml model.ckpt), inference "
-              "(image.jpg model.ckpt) and inspect (model.ckpt). Use "
-              "`python train.py` for the other modes.")
+              "(image.jpg model.ckpt), inspect (model.ckpt) and "
+              "--compute-anchors (data.yaml). Use `python train.py` for the "
+              "other modes.")
         return 2
     if ckpt_file and not yaml_file and not image_file:
         _inspect(ckpt_file)

@@ -1,22 +1,46 @@
-"""Single-image inference with cross-scale global NMS (counterpart of
-`yolo_from_scratch_tpu/infer/predict.py`).
+"""Inference with cross-scale global NMS (counterpart of
+`yolo_from_scratch_tpu/infer/predict.py`): single-image and batched
+serving, the anchor head.
 
 letterbox -> uint8 * INV255 -> forward -> per-scale decode -> sigmoid,
 then the objectness gate -> un-letterbox -> top-k prefilter -> class-aware
 greedy NMS -> (x1, y1, x2, y2, conf, cls) tuples in original image
-coordinates. Everything after the host letterbox runs on the Predictor's
+coordinates. Everything after the host letterbox runs on the predictor's
 device with fixed shapes; only the final (K, ...) block is copied back.
 NMS goes through the CUDA kernel's wrapper (`ops/nms_cuda.py`), which
 launches the kernel for CUDA tensors and runs the plain version for CPU
 tensors.
+
+- `Predictor`: one image a call (`make_postprocess`); with
+  `device_letterbox=True` the B=1 batch program behind the device
+  letterbox.
+- `BatchPredictor`: B images a call, one forward and ONE NMS launch for
+  the whole batch (`make_batch_postprocess`); `device_letterbox=True`
+  moves resize and pad onto the device (`data/letterbox.py::
+  letterbox_device_bucketed`), the host only decodes.
+- `PipelinedPredictor`: single-image requests with up to `depth` in
+  flight; each result comes back through pinned host memory behind a CUDA
+  event.
+
+Not ported: int8 (`quantize_calib`), the TPU's `approx_topk` prefilter and
+the packed stem; none is accepted as an argument.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
 
 from yolo_from_scratch_tpu_torch.config import INV255, YoloConfig
+from yolo_from_scratch_tpu_torch.data.letterbox import (
+    bucket_shape,
+    letterbox_device_bucketed,
+    letterbox_geometry,
+    letterbox_image,
+    stage_to_bucket,
+)
 from yolo_from_scratch_tpu_torch.models.yolo import (
     YOLO,
     cast_convs_,
@@ -28,7 +52,10 @@ from yolo_from_scratch_tpu_torch.ops.nms import (
     batched_nms_fixed,
     sort_desc,
 )
-from yolo_from_scratch_tpu_torch.ops.nms_cuda import batched_nms_fixed_cuda
+from yolo_from_scratch_tpu_torch.ops.nms_cuda import (
+    batched_nms_fixed_cuda,
+    batched_nms_fixed_cuda_images,
+)
 
 
 def default_topk(img_size: int, preds_per_cell: int = 3) -> int:
@@ -36,6 +63,27 @@ def default_topk(img_size: int, preds_per_cell: int = 3) -> int:
     predictions, capped at 4096 (25,200 @640 for the 3-anchor head)."""
     total = preds_per_cell * sum((img_size // s) ** 2 for s in (8, 16, 32))
     return min(total, 4096)
+
+
+def _best_class(cls):
+    """(..., nc) class probabilities -> the best probability and its id
+    (int32); with one class, that class."""
+    if cls.shape[-1] == 1:
+        return cls[..., 0], torch.zeros(cls.shape[:-1], dtype=torch.int32,
+                                        device=cls.device)
+    return cls.amax(dim=-1), cls.argmax(dim=-1).to(torch.int32)
+
+
+def _unletterbox(boxes, img_size, scale, pad_top, pad_left):
+    """Normalized (..., 4) cx cy w h -> letterboxed pixels -> corners in
+    the original image's pixels."""
+    cx, cy = boxes[..., 0] * img_size, boxes[..., 1] * img_size
+    w, h = boxes[..., 2] * img_size, boxes[..., 3] * img_size
+    x1 = (cx - w / 2 - pad_left) / scale
+    y1 = (cy - h / 2 - pad_top) / scale
+    x2 = (cx + w / 2 - pad_left) / scale
+    y2 = (cy + h / 2 - pad_top) / scale
+    return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
 def make_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
@@ -76,23 +124,9 @@ def make_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
             cls_all.append(torch.sigmoid(flat[:, 5:]))
         boxes = torch.cat(boxes_all)  # (M, 4) normalized cx cy w h
         obj = torch.cat(obj_all)
-        cls = torch.cat(cls_all)
-        if nc == 1:
-            cls_prob = cls[:, 0]
-            cls_id = torch.zeros(cls.shape[0], dtype=torch.int32,
-                                 device=cls.device)
-        else:
-            cls_prob = cls.amax(dim=1)
-            cls_id = cls.argmax(dim=1).to(torch.int32)
-
-        # normalized -> letterboxed pixels -> corners -> original image
-        cx, cy = boxes[:, 0] * img_size, boxes[:, 1] * img_size
-        w, h = boxes[:, 2] * img_size, boxes[:, 3] * img_size
-        x1 = (cx - w / 2 - pad_left) / scale
-        y1 = (cy - h / 2 - pad_top) / scale
-        x2 = (cx + w / 2 - pad_left) / scale
-        y2 = (cy + h / 2 - pad_top) / scale
-        return torch.stack([x1, y1, x2, y2], dim=1), obj, cls_prob, cls_id
+        cls_prob, cls_id = _best_class(torch.cat(cls_all))
+        return (_unletterbox(boxes, img_size, scale, pad_top, pad_left), obj,
+                cls_prob, cls_id)
 
     def candidates(img, scale, pad_top, pad_left):
         """The NMS input: the top-k by gated score, in descending order."""
@@ -114,6 +148,143 @@ def make_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
     return postprocess
 
 
+def make_batch_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
+                           iou_threshold=0.4, topk=None, max_outputs=300,
+                           use_cuda_nms=True):
+    """Batched serving path: (imgs (B, S, S, 3) uint8 or float, scales
+    (B,), pad_tops (B,), pad_lefts (B,)) -> per-image fixed-shape
+    detections (boxes (B, K, 4), scores (B, K), classes (B, K), valid
+    (B, K)), K = `max_outputs`, all on the images' device.
+
+    One forward over the whole batch; per image the gate, un-letterbox and
+    top-k exactly as `make_postprocess`'s `candidates` (a stable
+    descending sort, then the first k), taken along dim 1; then ONE
+    class-aware NMS over (B, k): on a CUDA tensor one launch of the
+    kernel for the batch, on a CPU tensor its plain version.
+    `use_cuda_nms=False` runs the plain version on any device. The
+    returned function carries its stages, `.decode` and `.candidates`, for
+    parity checks.
+    """
+    img_size = cfg.img_size
+    nc = cfg.num_classes
+    k = topk or default_topk(img_size)
+    nms_fn = batched_nms_fixed_cuda_images if use_cuda_nms else \
+        batched_nms_fixed
+
+    @torch.inference_mode()
+    def decode(imgs, scales, pad_tops, pad_lefts):
+        """-> corners (B, M, 4) in original-image pixels, obj (B, M),
+        cls_prob (B, M), cls_id (B, M) for all M raw predictions."""
+        if imgs.dtype == torch.uint8:
+            # the shared float32 reciprocal, never a divide by 255
+            imgs = imgs.float() * float(INV255)
+        preds = model(imgs)
+        b = imgs.shape[0]
+        boxes_all, obj_all, cls_all = [], [], []
+        for pred, anc in zip(preds, cfg.anchors_array):
+            flat = decode_predictions(pred, anc, img_size).reshape(
+                b, -1, 5 + nc)
+            boxes_all.append(flat[..., 0:4])
+            obj_all.append(torch.sigmoid(flat[..., 4]))
+            cls_all.append(torch.sigmoid(flat[..., 5:]))
+        boxes = torch.cat(boxes_all, dim=1)  # (B, M, 4) normalized
+        cls_prob, cls_id = _best_class(torch.cat(cls_all, dim=1))
+        corners = _unletterbox(boxes, img_size, scales[:, None],
+                               pad_tops[:, None], pad_lefts[:, None])
+        return corners, torch.cat(obj_all, dim=1), cls_prob, cls_id
+
+    def candidates(imgs, scales, pad_tops, pad_lefts):
+        """The NMS input per image: (B, k, 4) corners, (B, k) scores in
+        descending order, (B, k) class ids."""
+        corners, obj, cls_prob, cls_id = decode(imgs, scales, pad_tops,
+                                                pad_lefts)
+        score = torch.where(obj > conf_threshold, obj * cls_prob, NEG_INF)
+        top_scores, idx = sort_desc(score, dim=1)
+        idx = idx[:, :k]
+        return (torch.gather(corners, 1, idx[..., None].expand(*idx.shape, 4)),
+                top_scores[:, :k].contiguous(), torch.gather(cls_id, 1, idx))
+
+    def postprocess(imgs, scales, pad_tops, pad_lefts):
+        boxes, scores, classes = candidates(imgs, scales, pad_tops, pad_lefts)
+        # candidates arrive sorted: the kernel skips its sort and scatter
+        return nms_fn(boxes, scores, classes, iou_threshold, max_outputs,
+                      presorted=True)
+
+    postprocess.decode = decode
+    postprocess.candidates = candidates
+    return postprocess
+
+
+def _image_array(image):
+    """A decoded HWC uint8 array of a path, PIL image or array (arrays
+    need no PIL)."""
+    if isinstance(image, np.ndarray):
+        return np.asarray(image, np.uint8)
+    from PIL import Image
+
+    if not hasattr(image, "size"):
+        image = Image.open(image)
+    return np.asarray(image.convert("RGB"), np.uint8)
+
+
+def _stage_batch(arrs, img_size):
+    """Host staging for the device-letterbox path: decoded HWC uint8
+    arrays -> (bufs (B, Hb, Wb, 3), geoms (B, 6), scales (B,)) in one shared
+    bucket (the component-wise max), so the whole batch is one call."""
+    buckets = [bucket_shape(a.shape[0], a.shape[1]) for a in arrs]
+    bucket = (max(b[0] for b in buckets), max(b[1] for b in buckets))
+    bufs = np.stack([stage_to_bucket(a, bucket) for a in arrs])
+    geoms, scales = [], []
+    for a in arrs:
+        geom, scale, _, _ = letterbox_geometry(a.shape[1], a.shape[0],
+                                               img_size)
+        geoms.append(geom)
+        scales.append(scale)
+    return bufs, np.stack(geoms), np.asarray(scales, np.float32)
+
+
+def _wrap_device_letterbox(inner_post, img_size):
+    """Device letterbox, then forward and postprocess: (bufs, geoms,
+    scales) on the device -> `inner_post`'s outputs."""
+
+    def post_lb(bufs, geoms, scales):
+        imgs = letterbox_device_bucketed(bufs, geoms, img_size)
+        return inner_post(imgs, scales, geoms[:, 4], geoms[:, 5])
+
+    return post_lb
+
+
+def _load_model(state_dict, cfg, device):
+    """The serving model on `device` from a port state dict: a copy of
+    every tensor (a caller's model is never aliased), the conv weights
+    cast once to the compute dtype, eval mode."""
+    # built on the meta device, so no weight is initialised (nor the
+    # global RNG drawn from) only to be overwritten by the load
+    model = YOLO(cfg, device="meta")
+    model.load_state_dict(
+        {k: v.to(device, torch.float32, copy=True)
+         for k, v in state_dict.items()},
+        strict=True, assign=True)
+    # the conv weights once in the compute dtype, so no request casts
+    return cast_convs_(model, compute_dtype(cfg)).eval()
+
+
+def _detections(boxes, scores, classes, valid):
+    """[(x1, y1, x2, y2, conf, cls), ...] of one image's fixed-shape
+    output on the host. One tolist() per column: per-element float()/int()
+    costs ~1.5 us a detection."""
+    return [(*b, s, c) for b, s, c in zip(boxes[valid].tolist(),
+                                          scores[valid].tolist(),
+                                          classes[valid].tolist())]
+
+
+def _detections_per_image(boxes, scores, classes, valid, n):
+    """Per-image detection lists of the first `n` rows of a batch's
+    fixed-shape output on the host."""
+    return [_detections(boxes[i], scores[i], classes[i], valid[i])
+            for i in range(n)]
+
+
 def letterbox_input(image, img_size: int):
     """Host letterbox: (HWC uint8 array, scale, pad_top, pad_left).
 
@@ -131,8 +302,6 @@ def letterbox_input(image, img_size: int):
         from PIL import Image
 
         image = Image.open(image)
-    from yolo_from_scratch_tpu_torch.data.letterbox import letterbox_image
-
     return letterbox_image(image.convert("RGB"), img_size)
 
 
@@ -140,27 +309,30 @@ class Predictor:
     """Reusable single-image predictor on an explicit device.
 
     `state_dict` is the port's (from `utils.checkpoint.load_checkpoint` or
-    `utils.convert.from_flax_variables`).
+    `utils.convert.from_flax_variables`). `device_letterbox=True` moves the
+    resize and pad onto the device: the host only decodes, and the B=1
+    batch program (`make_batch_postprocess`, one NMS launch) runs behind
+    `letterbox_device_bucketed`.
     """
 
     def __init__(self, state_dict, cfg: YoloConfig, conf_threshold=0.5,
                  iou_threshold=0.4, topk=None, max_outputs=None, *, device,
-                 use_cuda_nms=True):
+                 use_cuda_nms=True, device_letterbox=False):
         self.cfg = cfg
         self.device = torch.device(device)
-        # built on the meta device, so no weight is initialised (nor the
-        # global RNG drawn from) only to be overwritten by the load
-        self.model = YOLO(cfg, device="meta")
-        self.model.load_state_dict(
-            {k: v.to(self.device, torch.float32)
-             for k, v in state_dict.items()},
-            strict=True, assign=True)
-        # the conv weights once in the compute dtype, so no request casts
-        cast_convs_(self.model, compute_dtype(cfg)).eval()
+        self.device_letterbox = device_letterbox
+        self.model = _load_model(state_dict, cfg, self.device)
         self.postprocess = make_postprocess(
             self.model, cfg, conf_threshold, iou_threshold, topk, max_outputs,
             use_cuda_nms=use_cuda_nms,
         )
+        if device_letterbox:
+            self._post_lb = _wrap_device_letterbox(
+                make_batch_postprocess(
+                    self.model, cfg, conf_threshold, iou_threshold, topk,
+                    max_outputs or topk or default_topk(cfg.img_size),
+                    use_cuda_nms=use_cuda_nms),
+                cfg.img_size)
 
     def stage(self, image):
         """Letterbox on the host and upload as uint8 (4x fewer bytes than
@@ -175,13 +347,79 @@ class Predictor:
     def __call__(self, image):
         """image: path, PIL image or HWC uint8 array. Returns
         [(x1, y1, x2, y2, conf, cls), ...] in original image coordinates."""
-        boxes, scores, classes, valid = (
-            t.cpu() for t in self.postprocess(*self.stage(image)))
-        # one tolist() per column: per-element float()/int() costs ~1.5 us
-        # a detection, milliseconds at random-init detection counts
-        return [(*b, s, c) for b, s, c in zip(boxes[valid].tolist(),
-                                              scores[valid].tolist(),
-                                              classes[valid].tolist())]
+        if self.device_letterbox:
+            staged = _stage_batch([_image_array(image)], self.cfg.img_size)
+            out = self._post_lb(*(torch.from_numpy(a).to(self.device)
+                                  for a in staged))
+            return _detections(*(t[0].cpu() for t in out))
+        return _detections(*(t.cpu() for t in self.postprocess(
+            *self.stage(image))))
+
+
+class PipelinedPredictor:
+    """Single-image serving client that keeps up to `depth` requests in
+    flight (counterpart of the JAX `PipelinedPredictor`).
+
+    `_dispatch` letterboxes on the host, enqueues the postprocess, starts
+    non-blocking copies of its four outputs into pinned host tensors and
+    records a CUDA event; `_finalize` waits on that event only. With
+    `depth` requests in flight the card starts request k+1 while the host
+    still reads back request k: sustained throughput rises, per-request
+    latency does not fall. On the CPU every step is synchronous.
+
+    Usage: `pp(images)`, or incrementally `pp.submit(img)` / `pp.drain()`.
+    Results keep submission order.
+    """
+
+    def __init__(self, state_dict, cfg: YoloConfig, depth=4,
+                 conf_threshold=0.5, iou_threshold=0.4, topk=None,
+                 max_outputs=None, *, device):
+        self._p = Predictor(state_dict, cfg, conf_threshold, iou_threshold,
+                            topk, max_outputs, device=device)
+        self.depth = max(1, int(depth))
+        self._inflight = collections.deque()
+
+    @torch.inference_mode()
+    def _dispatch(self, image):
+        out = self._p.postprocess(*self._p.stage(image))
+        if self._p.device.type != "cuda":
+            return out, None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     .copy_(t, non_blocking=True) for t in out)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _finalize(inflight):
+        out, done = inflight
+        if done is not None:
+            done.synchronize()
+        return _detections(*(t.cpu() for t in out))
+
+    def submit(self, image):
+        """Enqueue one image; returns the results whose window slot was
+        needed (a possibly empty list of per-image detection lists)."""
+        self._inflight.append(self._dispatch(image))
+        done = []
+        while len(self._inflight) > self.depth:
+            done.append(self._finalize(self._inflight.popleft()))
+        return done
+
+    def drain(self):
+        """Collect every remaining in-flight result, in order."""
+        done = [self._finalize(o) for o in self._inflight]
+        self._inflight.clear()
+        return done
+
+    def __call__(self, images):
+        """Run a stream of images; returns one detection list per image,
+        in order, with up to `depth` requests overlapped."""
+        results = []
+        for image in images:
+            results.extend(self.submit(image))
+        results.extend(self.drain())
+        return results
 
 
 def predict(state_dict, cfg, image, conf_threshold=0.5, iou_threshold=0.4,
@@ -190,3 +428,64 @@ def predict(state_dict, cfg, image, conf_threshold=0.5, iou_threshold=0.4,
     fresh Predictor per call; construct one and reuse it when serving."""
     return Predictor(state_dict, cfg, conf_threshold, iou_threshold,
                      device=device)(image)
+
+
+class BatchPredictor:
+    """Batched serving predictor over paths, PIL images or HWC uint8
+    arrays, on an explicit device: one forward and one NMS launch a call.
+
+    `device_letterbox=True`: the host only decodes; resize, pad and
+    normalize, forward and NMS run on the device, the batch staged in one
+    bucket of 256-px multiples (`_stage_batch`). `topk`: NMS candidates
+    per image (default `default_topk`, 4096 @640).
+    """
+
+    def __init__(self, state_dict, cfg: YoloConfig, conf_threshold=0.5,
+                 iou_threshold=0.4, max_outputs=300, device_letterbox=False,
+                 topk=None, *, device, use_cuda_nms=True):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.device_letterbox = device_letterbox
+        self.model = _load_model(state_dict, cfg, self.device)
+        self.postprocess = make_batch_postprocess(
+            self.model, cfg, conf_threshold, iou_threshold, topk=topk,
+            max_outputs=max_outputs, use_cuda_nms=use_cuda_nms)
+        if device_letterbox:
+            self._post_lb = _wrap_device_letterbox(self.postprocess,
+                                                   cfg.img_size)
+
+    def load_weights(self, state_dict):
+        """Serve new weights (a training model's float32 master weights,
+        say) without rebuilding: each tensor copied into the predictor's
+        own model and cast to its dtype; the source is left as it is."""
+        own = self.model.state_dict()
+        if own.keys() != state_dict.keys():
+            raise KeyError(f"state dicts differ in keys: "
+                           f"{sorted(own.keys() ^ state_dict.keys())}")
+        with torch.no_grad():
+            for key, t in own.items():
+                t.copy_(state_dict[key])
+
+    def stage(self, images):
+        """Host letterbox of every image, uploaded as one uint8 batch.
+        Returns the postprocess args."""
+        staged = [letterbox_input(image, self.cfg.img_size)
+                  for image in images]
+        batch = torch.from_numpy(np.stack([s[0] for s in staged]))
+        params = torch.tensor([s[1:] for s in staged], dtype=torch.float32)
+        return (batch.to(self.device),
+                *params.to(self.device).unbind(1))
+
+    @torch.inference_mode()
+    def __call__(self, images):
+        """images: list of paths, PIL images or HWC uint8 arrays. Returns a
+        list (per image) of [(x1, y1, x2, y2, conf, cls), ...] in original
+        coordinates."""
+        if self.device_letterbox:
+            staged = _stage_batch([_image_array(i) for i in images],
+                                  self.cfg.img_size)
+            out = self._post_lb(*(torch.from_numpy(a).to(self.device)
+                                  for a in staged))
+        else:
+            out = self.postprocess(*self.stage(images))
+        return _detections_per_image(*(t.cpu() for t in out), len(images))

@@ -2,12 +2,12 @@
 (counterpart of `yolo_from_scratch_tpu/train/loop.py`, one device).
 
 Per-epoch LR, eval and a checkpoint every epoch, the JAX package's stdout
-line and JSONL record. Batches stream through the double-buffered
-`DeviceQueue`; per-batch metrics stay on the device until the end of the
-epoch (one host sync), never a per-batch `.item()`.
+line and JSONL record, with the detection-level P/R/F1 of `det_eval` when
+given. Batches stream through the double-buffered `DeviceQueue`; per-batch
+metrics stay on the device until the end of the epoch (one host sync),
+never a per-batch `.item()`.
 
-Not ported: EMA, the streaming and multi-scale trainers, detection-level
-eval (`det_eval`) and multi-host.
+Not ported: EMA, the streaming and multi-scale trainers and multi-host.
 """
 
 from __future__ import annotations
@@ -69,10 +69,16 @@ def eval_epoch(eval_step, model, loader, device):
 
 def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
         device, epochs=100, initial_lr=1e-2, min_lr=1e-4, warmup_epochs=3,
-        save_path=None, log=print, metrics_path=None):
+        save_path=None, log=print, metrics_path=None, det_eval=None):
     """Train + eval + checkpoint + LR step per epoch. Returns (state,
     save_path); the checkpoint goes to `yolo_<timestamp>.ckpt` in the
-    working directory unless `save_path` is given."""
+    working directory unless `save_path` is given.
+
+    `det_eval`: optional callable (model) -> (P%, R%, F1%), the
+    detection-level metrics (NMS output vs GT at a fixed confidence) on
+    the val split, appended to the epoch line and the JSONL record. It is
+    given the live training model and must not change it (serve a copy of
+    its weights: `BatchPredictor.load_weights`)."""
     if save_path is None:
         timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
         save_path = f"yolo_{timestamp}.ckpt"
@@ -84,18 +90,25 @@ def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
             train_step, state, train_loader, device)
         val_loss, val_p, val_r, val_f1 = eval_epoch(
             eval_step, state.model, val_loader, device)
+        det = det_eval(state.model) if det_eval is not None else None
+        det_str = (f" | Det: P {det[0]:.1f}%, R {det[1]:.1f}%, "
+                   f"F1 {det[2]:.1f}%" if det is not None else "")
         log(f"Epoch {epoch + 1}: "
             f"Loss: {loss:.4f} (bbox: {bbox:.4f}, obj: {obj:.4f}, "
             f"cls: {cls:.4f}) | "
             f"Val: Loss {val_loss:.4f}, P {val_p:.1f}%, R {val_r:.1f}%, "
-            f"F1 {val_f1:.1f}% | LR: {lr:.6f} | "
+            f"F1 {val_f1:.1f}%{det_str} | LR: {lr:.6f} | "
             f"{n_imgs / max(dt, 1e-9):.1f} img/s")
-        metrics_logger.log({
+        record = {
             "epoch": epoch + 1, "loss": loss, "bbox": bbox, "obj": obj,
             "cls": cls, "val_loss": val_loss, "val_precision": val_p,
             "val_recall": val_r, "val_f1": val_f1, "lr": lr,
             "images_per_sec": n_imgs / max(dt, 1e-9),
-        })
+        }
+        if det is not None:
+            (record["det_precision"], record["det_recall"],
+             record["det_f1"]) = det
+        metrics_logger.log(record)
         # Adam's state in the JAX package's optax layout, so that its
         # --resume continues the moments instead of restarting them
         save_checkpoint(save_path, to_flax_variables(state.model.state_dict()),
