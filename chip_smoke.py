@@ -75,18 +75,36 @@ and prints no result):
 15. the CLI on phase 7's dataset and checkpoint: `--map` evaluation and
    `--compute-anchors` exit 0 and print their lines, the NMS kernel's
    launches rise through `--map` (phase 7's training ran `--val-det`), and
-   `python train_torch.py ... --compute-anchors` runs in its own process.
+   `python train_torch.py ... --compute-anchors` runs in its own process;
+16. the anchor-free head ('s' @640, nc=80, seeded random weights): 20
+   requests through `Predictor` at a gate every cell passes, so all 4,096
+   candidates reach the NMS kernel (its launches counted, kernel == plain
+   bit for bit on a request's candidates and on the same boxes with
+   seeded ids of all 80 classes, the TF32-off decode against the CPU, p50
+   and the kernel's two passes beside the bound); one
+   `BatchPredictor` call at B=32 (one launch, kernel == plain on the
+   (32, 4096) candidates, image 0 against a B=1 call); the CLI trains
+   `--head anchor_free` one epoch of 2 steps at batch 8 in bf16 with
+   YOLO_FUSED_CONV_BWD=1 and `--val-det` on a synthetic nc=80 dataset (the
+   conv backward kernel's launches must match the model's gated convs,
+   6 at 40x40 and 4 at 80x80), its checkpoint's head_type is read back,
+   one request served from it and `--map` run on it (the NMS kernel's
+   launches rise); one float32 step on the card (TF32 off) against the CPU
+   once both foreground masks agree; train img/s and the device's busy
+   share beside phase 9's anchor-head numbers.
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
 the kernel, its plain version and the one-call library equivalent where
 there is one, and the H100 bound with what bounds it, all at the same
 inputs; the NMS kernel also its launches, device ms and bound on phase
-13's batch); the last line is `{"ok": true, "device": {...}}`.
+13's batch, and both kernels their launches on phase 16's anchor-free
+paths); the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import io
@@ -118,8 +136,11 @@ from yolo_from_scratch_tpu_torch.infer.predict import (
     Predictor,
     _detections_per_image,
     _stage_batch,
+    default_topk,
 )
 from yolo_from_scratch_tpu_torch.kernels.build import build, load_library
+from yolo_from_scratch_tpu_torch.models import anchor_free
+from yolo_from_scratch_tpu_torch.models.blocks import ConvBNSiLU
 from yolo_from_scratch_tpu_torch.models.yolo import YOLO
 from yolo_from_scratch_tpu_torch.ops import conv_bwd
 from yolo_from_scratch_tpu_torch.ops import nms as nms_plain
@@ -130,7 +151,10 @@ from yolo_from_scratch_tpu_torch.train.steps import (
     make_train_step,
 )
 from yolo_from_scratch_tpu_torch.utils import roofline
-from yolo_from_scratch_tpu_torch.utils.checkpoint import load_checkpoint
+from yolo_from_scratch_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    read_payload,
+)
 from yolo_from_scratch_tpu_torch.utils.convert import (
     from_flax_variables,
     random_variables,
@@ -216,6 +240,14 @@ LETTERBOX_SHAPES = ((480, 640), (720, 1280), (1080, 1920))
 LSB = 1.5 / 255.0     # device letterbox vs PIL, as the JAX test holds it
 MAP_LINES = (r"  mAP@0\.5: \d+\.\d\d%", r"  mAP@\[\.5:\.95\]: \d+\.\d\d%",
              r"  Detection P/R/F1 @conf0\.5: ")
+# phase 16: the anchor-free head at the nc=80 regime. Random weights give
+# every class bias U(+-1/8), so a cell's best class sits near sigmoid(0):
+# every cell passes this gate and the top 4,096 reach the NMS kernel
+AF_NC = 80
+AF_CONF = 0.005
+AF_GATED = {(40, 40): 6, (80, 80): 4}  # the bf16 AF step's gated convs
+AF_TRIES = 4  # batches tried until the card's and the CPU's fg masks agree
+AF_CKPT_CONF = 1e-6  # the trained checkpoint's request
 
 
 def log(msg):
@@ -764,7 +796,7 @@ def phase_throughput(dev, yaml_path):
         f"{losses[-1]:.4f}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall over 30 steps: {losses}")
-    return rates
+    return rates, busy_ms
 
 
 def _nhwc_case(b, h, w, dtype, dev, seed):
@@ -1235,7 +1267,437 @@ def phase_cli(yaml_path, ckpt_path):
     return map_launches
 
 
+def _af_cfg(**kw):
+    return YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE,
+                                head_type="anchor_free", **kw)
+
+
+def _gated_convs(cfg):
+    """{(H, W): number of convs} that `ConvBNSiLU`'s gate sends to the
+    fused backward in one train step of cfg's model at batch 1, from a
+    forward on the meta device (shapes only)."""
+    model = YOLO(cfg, device="meta")
+    counts = collections.Counter()
+
+    def pre_hook(mod, args):
+        x, conv = args[0], mod.conv
+        if conv.bias is None and conv_bwd.fused_bwd_fits(
+                conv.kernel_size[0], conv.stride[0], x.shape[1],
+                conv.out_channels, x.shape[2], x.shape[3], mod.dtype):
+            counts[(x.shape[2], x.shape[3])] += 1
+
+    for module in model.modules():
+        if isinstance(module, ConvBNSiLU):
+            module.register_forward_pre_hook(pre_hook)
+    with torch.no_grad():
+        model(torch.empty((1, cfg.img_size, cfg.img_size, 3), device="meta"),
+              train=True)
+    return dict(counts)
+
+
+def _af_decode_check(what, got, want, gap):
+    """Hold an anchor-free decode (corners, obj, cls_prob, cls_id) against
+    another's: corners within CORNER_TOL_PX, probabilities within
+    PROB_TOL, class ids equal except where the reference's two best class
+    probabilities lie within 2 PROB_TOL (a near tie at nc=80 that either
+    side may break). Returns (errors, ids that differ)."""
+    errs = [(g.double() - w.double()).abs().max().item()
+            for g, w in zip(got[:3], want[:3])]
+    differ = got[3] != want[3]
+    tied = gap <= 2 * PROB_TOL
+    untied = int((differ & ~tied).sum())
+    if errs[0] > CORNER_TOL_PX or max(errs[1:]) > PROB_TOL or untied:
+        raise AssertionError(f"{what}: corners {errs[0]} px, obj {errs[1]}, "
+                             f"cls {errs[2]}, class ids differing "
+                             f"{int(differ.sum())} ({untied} not at a near "
+                             f"tie)")
+    return errs, int(differ.sum())
+
+
+def _top2_gap(model, imgs_u8):
+    """(B, M) gap between each cell's two best class probabilities."""
+    with torch.inference_mode():
+        preds = model(imgs_u8.float() * float(INV255))
+        cls = torch.cat([p[..., 4 * anchor_free.REG_MAX:].reshape(
+            p.shape[0], -1, AF_NC) for p in preds], dim=1).sigmoid()
+        top = cls.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def _hold_nms(what, boxes, scores, classes, max_keep):
+    """Raise unless the kernel's keep mask and class-aware outputs equal
+    the plain version's on the card, bit for bit, for (B, N) candidates.
+    Returns (kept, largest class-offset coordinate)."""
+    off = nms_plain._class_offset_boxes(boxes, classes)
+    keep_k = nms_cuda.nms_keep_mask_batched(off, scores, IOU,
+                                            max_keep=max_keep, presorted=True)
+    keep_p = nms_plain.nms_keep_mask(off, scores, IOU, max_keep=max_keep,
+                                     presorted=True)
+    fixed_k = nms_cuda.batched_nms_fixed_cuda_images(
+        boxes, scores, classes, IOU, max_keep, presorted=True)
+    fixed_p = nms_plain.batched_nms_fixed(boxes, scores, classes, IOU,
+                                          max_keep, presorted=True)
+    if not (torch.equal(keep_k, keep_p)
+            and all(torch.equal(a, b) for a, b in zip(fixed_k, fixed_p))):
+        raise AssertionError(f"anchor-free: kernel and plain NMS differ on "
+                             f"{what}")
+    return int(keep_k.sum()), float(off.max())
+
+
+def _spread_classes(shape, dev):
+    """Seeded class ids over all AF_NC classes: random weights give every
+    cell the same best class (the largest class bias wins), so the
+    offsets of an nc=80 model's candidates, up to 79 (max coord + 1), are
+    reached only with ids drawn afresh."""
+    ids = np.random.default_rng(SEED + 7).integers(0, AF_NC, shape)
+    return torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+
+def phase_af_serving(dev):
+    """Single-image and B=32 serving with the anchor-free head at nc=80:
+    launches, kernel == plain NMS on the card, the card against the CPU
+    and a B=1 call (TF32 off), times."""
+    cfg = _af_cfg()
+    meta = YOLO(cfg, device="meta")
+    state = from_flax_variables(random_variables(meta, SEED), meta)
+    predictor = Predictor(state, cfg, conf_threshold=AF_CONF,
+                          iou_threshold=IOU, device=dev)
+    rng = np.random.default_rng(SEED + 5)
+    requests = [rng.integers(0, 256, (IMG_SIZE, IMG_SIZE, 3), dtype=np.uint8)
+                for _ in range(N_REQUESTS)]
+    k = default_topk(IMG_SIZE, 1)
+    log(f"anchor-free: 's' @{IMG_SIZE} nc={AF_NC} float32, conf_threshold="
+        f"{AF_CONF}, iou_threshold={IOU}, {k} NMS candidates, "
+        f"{sum(p.numel() for p in predictor.model.parameters()):,} params")
+
+    predictor(requests[0])  # warm-up
+    torch.cuda.synchronize()
+    nms_cuda.launches = 0
+    latencies, results = [], []
+    for img in requests:
+        t0 = time.perf_counter()
+        results.append(predictor(img))
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    launches = nms_cuda.launches
+    if launches != N_REQUESTS:
+        raise AssertionError(f"anchor-free: NMS kernel launched {launches} "
+                             f"times for {N_REQUESTS} requests")
+    _finite_nonempty(results, "anchor-free request")
+    p50 = statistics.median(latencies)
+
+    args = predictor.stage(requests[1])
+    dec = predictor.postprocess.decode(*args)
+    passed = int((dec[2] > AF_CONF).sum())
+    boxes, scores, classes = predictor.postprocess.candidates(*args)
+    n_valid = int((scores > nms_plain.NEG_INF / 2).sum())
+    if n_valid != k:
+        raise AssertionError(f"anchor-free: {n_valid} of {k} candidates "
+                             f"passed the gate")
+    log(f"served {N_REQUESTS} anchor-free requests, NMS kernel launches "
+        f"{launches}; {passed} of {dec[2].numel()} cells pass the gate, "
+        f"the top {k} reach the kernel; detections per request "
+        f"{[len(d) for d in results]}; p50 {p50:.3f} ms (min "
+        f"{min(latencies):.3f}, max {max(latencies):.3f}; host clock)")
+
+    kept, top = _hold_nms("a request's candidates", boxes[None],
+                          scores[None], classes[None], k)
+    spread = _spread_classes((1, k), dev)
+    kept80, top80 = _hold_nms("a request's boxes with 80 classes' ids",
+                              boxes[None], scores[None], spread, k)
+    off = nms_plain._class_offset_boxes(boxes, classes)[None]
+
+    def kernel():
+        nms_cuda.nms_keep_mask_batched(off, scores[None], IOU, presorted=True)
+
+    mask_ms, scan_ms = nms_split_ms(kernel)
+    p_ms = median_ms(lambda: nms_plain.nms_keep_mask(
+        off, scores[None], IOU, presorted=True), runs=3, warmup=1)
+    keep = nms_cuda.nms_keep_mask_batched(off, scores[None], IOU,
+                                          presorted=True)[0]
+    n_iou = roofline.nms_iou_count(keep, scores > nms_plain.NEG_INF / 2)
+    bound = roofline.bound_ms(*roofline.nms_work(k, n_iou), "float32")
+    k_ms = mask_ms + scan_ms
+    log(f"anchor-free request's NMS: kernel == plain bit for bit on its {k} "
+        f"candidates ({int(classes.unique().numel())} class(es), offsets up "
+        f"to {top:.0f} px, {kept} kept) and on the same boxes with seeded "
+        f"ids of all {int(spread.unique().numel())} classes (offsets up to "
+        f"{top80:.0f} px, {kept80} kept); kernel {k_ms:.4f} ms device (mask "
+        f"pass {mask_ms:.4f} + scan {scan_ms:.4f}; profiler, {TIMING_RUNS} "
+        f"calls), plain {p_ms:.4f} ms (CUDA events, median of 3); H100 bound "
+        f"{bound[0]:.6f} ms ({bound[1]}, the walk's {n_iou} IoU tests)")
+
+    cpu_pred = Predictor(state, cfg, conf_threshold=AF_CONF,
+                         iou_threshold=IOU, device=torch.device("cpu"))
+    cpu_args = cpu_pred.stage(requests[1])
+    with tf32_disabled():
+        gpu_dec = [t.cpu() for t in predictor.postprocess.decode(*args)]
+    cpu_dec = cpu_pred.postprocess.decode(*cpu_args)
+    gap = _top2_gap(cpu_pred.model, cpu_args[0])[0]
+    errs, n_diff = _af_decode_check("anchor-free TF32-off decode vs CPU",
+                                    gpu_dec, cpu_dec, gap)
+    log(f"anchor-free, TF32 off, card vs CPU on all {gpu_dec[2].numel()} "
+        f"cells: max |corner| err {errs[0]:.3e} px (tol {CORNER_TOL_PX}), "
+        f"max |cls| err {errs[2]:.3e} (tol {PROB_TOL}); class ids equal but "
+        f"{n_diff} near ties (best two within {2 * PROB_TOL})")
+    return state, cfg, launches, (k_ms, p_ms, bound), p50
+
+
+def phase_af_batch(state, cfg, dev):
+    """One BatchPredictor call at B=32 with the anchor-free head: one NMS
+    launch, kernel == plain on the (32, 4096) candidates, image 0 against a
+    B=1 call (TF32 off)."""
+    predictor = BatchPredictor(state, cfg, conf_threshold=AF_CONF,
+                               iou_threshold=IOU, max_outputs=MAX_OUTPUTS,
+                               device=dev)
+    rng = np.random.default_rng(SEED + 6)
+    images = [rng.integers(0, 256, (IMG_SIZE, IMG_SIZE, 3), dtype=np.uint8)
+              for _ in range(BATCH)]
+    predictor(images)  # warm-up
+    torch.cuda.synchronize()
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    results = predictor(images)
+    batch_s = time.perf_counter() - t0
+    launches = nms_cuda.launches
+    if launches != 1:
+        raise AssertionError(f"anchor-free batch: {launches} NMS launches")
+    _finite_nonempty(results, "anchor-free batch image")
+
+    args = predictor.stage(images)
+    boxes, scores, classes = predictor.postprocess.candidates(*args)
+    kept, _ = _hold_nms("the batch's candidates", boxes, scores, classes,
+                        MAX_OUTPUTS)
+    kept80, top80 = _hold_nms("the batch's boxes with 80 classes' ids",
+                              boxes, scores,
+                              _spread_classes(tuple(scores.shape), dev),
+                              MAX_OUTPUTS)
+    off = nms_plain._class_offset_boxes(boxes, classes)
+    keep_k = nms_cuda.nms_keep_mask_batched(off, scores, IOU,
+                                            max_keep=MAX_OUTPUTS,
+                                            presorted=True)
+
+    def kernel():
+        nms_cuda.nms_keep_mask_batched(off, scores, IOU, max_keep=MAX_OUTPUTS,
+                                       presorted=True)
+
+    mask_ms, scan_ms = nms_split_ms(kernel)
+    valid = scores > nms_plain.NEG_INF / 2
+    bound = roofline.bound_ms(*roofline.nms_work(
+        scores.numel(), roofline.nms_iou_count(keep_k, valid)), "float32")
+    log(f"anchor-free BatchPredictor B={BATCH}: 1 NMS launch, "
+        f"{BATCH / batch_s:.1f} img/s (host clock, one call), detections "
+        f"per image {[len(d) for d in results]}; kernel == plain bit for bit "
+        f"on the batch's {tuple(scores.shape)} candidates "
+        f"({int(valid.sum())} above the gate, {kept} kept) and with seeded "
+        f"ids of {AF_NC} classes (offsets up to {top80:.0f} px, {kept80} "
+        f"kept); "
+        f"kernel {mask_ms + scan_ms:.4f} ms device (mask pass {mask_ms:.4f} "
+        f"+ scan {scan_ms:.4f}), H100 bound {bound[0]:.6f} ms ({bound[1]})")
+
+    single = Predictor(state, cfg, conf_threshold=AF_CONF, iou_threshold=IOU,
+                       device=dev)
+    one = single.stage(images[0])
+    with tf32_disabled():
+        batch_dec = [t[0].cpu() for t in predictor.postprocess.decode(*args)]
+        batch_top = predictor.postprocess.candidates(*args)[1][0].cpu()
+        one_dec = [t.cpu() for t in single.postprocess.decode(*one)]
+        one_top = single.postprocess.candidates(*one)[1].cpu()
+        gap = _top2_gap(single.model, one[0])[0].cpu()
+    errs, n_diff = _af_decode_check("anchor-free image 0 of the batch vs B=1",
+                                    batch_dec, one_dec, gap)
+    top_err = (batch_top.double() - one_top.double()).abs().max().item()
+    if top_err > PROB_TOL:
+        raise AssertionError(f"anchor-free image 0 vs B=1: sorted candidate "
+                             f"scores {top_err}")
+    log(f"anchor-free, TF32 off, image 0 of B={BATCH} vs a B=1 call: max "
+        f"|corner| err {errs[0]:.3e} px, max |cls| err {errs[2]:.3e}, sorted "
+        f"candidate scores {top_err:.3e} (tol {PROB_TOL}), {n_diff} class "
+        f"ids at near ties")
+    return launches, (mask_ms + scan_ms, bound)
+
+
+def phase_af_train(dev, workdir):
+    """The CLI trains --head anchor_free one epoch (2 steps of 8, bf16,
+    fused backward on, --val-det) on a synthetic nc=80 dataset; its
+    checkpoint serves one request and runs --map."""
+    t0 = time.perf_counter()
+    yaml_path = make_dataset(workdir / "af", n_train=8 * TRAIN_STEPS, n_val=8,
+                             img_size=IMG_SIZE, seed=SEED, num_classes=AF_NC)
+    log(f"synthetic nc={AF_NC} dataset: {8 * TRAIN_STEPS} train + 8 val "
+        f"images at {IMG_SIZE} in {time.perf_counter() - t0:.2f} s")
+    gated = _gated_convs(_af_cfg(compute_dtype="bfloat16"))
+    want = sum(gated.values()) * TRAIN_STEPS * conv_bwd.LAUNCHES_PER_CALL
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        conv_bwd.launches = 0
+        nms_cuda.launches = 0
+        rc, out = _cli([str(yaml_path), "--head", "anchor_free", "--epochs",
+                        "1", "--batch-size", "8", "--size", "s", "--img-size",
+                        str(IMG_SIZE), "--val-det"])
+        k2_launches = conv_bwd.launches
+        val_det_launches = nms_cuda.launches
+    finally:
+        os.chdir(cwd)
+    epoch = EPOCH_LINE.search(out)
+    saved = re.search(r"Training complete\. Model saved to (\S+)", out)
+    if (rc != 0 or not epoch or not saved or "obj: 0.0000" not in out
+            or " | Det: P " not in epoch.group(0)):
+        raise AssertionError(f"anchor-free training CLI: rc {rc}, output:\n"
+                             f"{out}")
+    if gated != AF_GATED or k2_launches != want:
+        raise AssertionError(f"anchor-free step: gated convs {gated} (want "
+                             f"{AF_GATED}), conv backward kernel launches "
+                             f"{k2_launches} (want {want})")
+    if val_det_launches < 1:
+        raise AssertionError("anchor-free --val-det launched the NMS kernel "
+                             "no time")
+    log(f"anchor-free training slice: gated convs "
+        + ", ".join(f"{n} at {h}x{w}" for (h, w), n in sorted(gated.items()))
+        + f" a step; conv backward kernel launches {k2_launches} (= "
+        f"{sum(gated.values())} x {TRAIN_STEPS} steps x "
+        f"{conv_bwd.LAUNCHES_PER_CALL}); epoch img/s {epoch.group(1)}; "
+        f"--val-det: {val_det_launches} NMS kernel launch(es)")
+
+    ckpt = workdir / saved.group(1)
+    head = read_payload(ckpt)["head_type"]
+    state, cfg, _ = load_checkpoint(ckpt)
+    image = sorted((workdir / "af" / "val" / "images").glob("*.jpg"))[0]
+    nms_cuda.launches = 0
+    # two steps barely move the class scores off the v8 prior (~1e-5 at
+    # P3): a gate below it serves detections
+    dets = Predictor(state, cfg, conf_threshold=AF_CKPT_CONF,
+                     iou_threshold=IOU, device=dev)(str(image))
+    if (head != "anchor_free" or cfg.head_type != "anchor_free"
+            or nms_cuda.launches != 1
+            or not np.isfinite(np.asarray(dets, np.float64)).all()):
+        raise AssertionError(f"anchor-free checkpoint: head_type {head}, "
+                             f"{nms_cuda.launches} NMS launches, {len(dets)} "
+                             f"detections")
+    nms_cuda.launches = 0
+    rc, out = _cli([str(yaml_path), str(ckpt), "--map", "--batch-size", "8"])
+    map_launches = nms_cuda.launches
+    missing = [p for p in MAP_LINES if len(re.findall(p, out)) != 2]
+    if rc != 0 or missing or map_launches < 2:
+        raise AssertionError(f"anchor-free --map: rc {rc}, missing {missing}, "
+                             f"{map_launches} NMS launches, output:\n{out}")
+    log(f"anchor-free checkpoint {saved.group(1)}: head_type {head}; one "
+        f"request, 1 NMS launch, {len(dets)} detections; --map: exit 0, "
+        f"{map_launches} NMS kernel launches")
+    return k2_launches, val_det_launches, map_launches, yaml_path
+
+
+def _af_batch(yaml_path, split, start, batch_size, dev):
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    ds = YoloDataset(load_dataset_yaml(yaml_path)[split], AF_NC,
+                     img_size=IMG_SIZE, head_type="anchor_free")
+    images, targets = ds.load_batch(range(start, start + batch_size))
+    return (torch.from_numpy(images).to(dev),
+            [torch.from_numpy(t).to(dev) for t in targets])
+
+
+def _af_fg(model, cfg, images, targets):
+    """TAL's foreground mask of a train-mode forward (on a copy: the
+    running statistics stay)."""
+    with torch.no_grad(), tf32_disabled():
+        preds = copy.deepcopy(model)(images, train=True)
+        _, cls, _, xyxy, pts, _ = anchor_free._flatten_af_preds(
+            preds, cfg.num_classes, cfg.img_size)
+        gt = anchor_free._gather_gt(targets, cfg.num_classes)
+        return anchor_free.tal_assign(torch.sigmoid(cls), xyxy, pts,
+                                      *gt)["fg"].cpu()
+
+
+def phase_af_parity(dev, yaml_path):
+    """One float32 anchor-free train step's loss and gradients, card (TF32
+    off) vs CPU, on a batch whose foreground masks agree."""
+    cfg = _af_cfg()
+    cpu = torch.device("cpu")
+    models = {cpu: YOLO(cfg).reset_parameters(
+        torch.Generator().manual_seed(SEED))}
+    models[dev] = copy.deepcopy(models[cpu]).to(dev)
+    for start in range(0, 2 * AF_TRIES, 2):
+        batches = {d: _af_batch(yaml_path, "train", start, 2, d)
+                   for d in models}
+        fgs = {d: _af_fg(models[d], cfg, *batches[d]) for d in models}
+        n_diff = int((fgs[dev] != fgs[cpu]).sum())
+        log(f"anchor-free fg masks, card vs CPU, images {start}-{start + 1}: "
+            f"{int(fgs[cpu].sum())} fg cells, {n_diff} differ")
+        if n_diff == 0:
+            break
+    else:
+        raise AssertionError(f"anchor-free fg masks differ on all "
+                             f"{AF_TRIES} batches")
+    totals = {}
+    for device, model in models.items():
+        with tf32_disabled():
+            total, _ = make_loss_fn(cfg, device=device)(model,
+                                                        *batches[device])
+            total.backward()
+        totals[device] = total.item()
+    rel_loss = abs(totals[dev] - totals[cpu]) / abs(totals[cpu])
+    worst = 0.0, ""
+    cpu_params = dict(models[cpu].named_parameters())
+    for name, p in models[dev].named_parameters():
+        if name in PRE_BN_BIASES:
+            continue
+        want = cpu_params[name].grad
+        err = ((p.grad.cpu() - want).abs().max()
+               / want.abs().max().clamp(min=1e-30)).item()
+        worst = max(worst, (err, name))
+    log(f"anchor-free float32 step, card (TF32 off, fused conv backward "
+        f"kernel) vs CPU, 's' @{IMG_SIZE} nc={AF_NC} b2: loss "
+        f"{totals[dev]:.6f} vs {totals[cpu]:.6f} ({rel_loss:.2e} relative, "
+        f"tol {PARITY_LOSS_TOL}); worst gradient {worst[0]:.2e} of its "
+        f"tensor's max ({worst[1]}; tol {PARITY_GRAD_TOL})")
+    if rel_loss > PARITY_LOSS_TOL or worst[0] > PARITY_GRAD_TOL:
+        raise AssertionError("anchor-free float32 step on the card differs "
+                             "from the CPU")
+
+
+def phase_af_throughput(dev, yaml_path, anchor):
+    """Anchor-free train img/s at batch 8, bf16, the fused backward on, and
+    the device's busy share, beside phase 9's anchor-head numbers."""
+    cfg = _af_cfg(compute_dtype="bfloat16")
+    images, targets = _af_batch(yaml_path, "train", 0, 8, dev)
+    state = create_train_state(cfg, 1e-3, seed=SEED, device=dev)
+    step = make_train_step(cfg, device=dev)
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    rates = []
+    for _ in range(2):
+        for _ in range(WARMUP_STEPS):
+            step(state, images, targets)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            step(state, images, targets)
+        torch.cuda.synchronize()
+        rates.append(8 * TIMED_STEPS / (time.perf_counter() - t0))
+    per_kernel = kernel_ms(lambda: step(state, images, targets), 3)
+    busy = sum(per_kernel.values()) / 3
+    k2 = sum(v for k, v in per_kernel.items() if "conv3x3_bwd" in k) / 3
+    wall = 8e3 / statistics.mean(rates)
+    (a_rates, (a_busy, a_k2)) = anchor
+    a_wall = 8e3 / statistics.mean(a_rates)
+    log(f"train 's' @{IMG_SIZE} b8 bf16, fused conv backward on: anchor-free "
+        f"nc={AF_NC} {rates[0]:.1f} / {rates[1]:.1f} img/s ({TIMED_STEPS} "
+        f"steps each after {WARMUP_STEPS} warm-up; host clock, synchronized), "
+        f"{wall:.2f} ms a step, device busy {busy:.2f} ms a step (profiler, 3 "
+        f"steps; the kernel {k2:.3f} ms), idle {max(0.0, 1 - busy / wall):.0%}"
+        f"; phase 9's anchor head nc=1 {a_rates[0]:.1f} / {a_rates[1]:.1f} "
+        f"img/s, {a_wall:.2f} ms a step, busy {a_busy:.2f} ms (the kernel "
+        f"{a_k2:.3f} ms), idle {max(0.0, 1 - a_busy / a_wall):.0%}")
+    return rates, busy
+
+
 def main():
+    t_main = time.perf_counter()
+
+    def done(phases):
+        log(f"[{time.perf_counter() - t_main:.1f} s] phase {phases} done")
+
     # 1. device
     dev = cuda_device()
     smi = subprocess.run(
@@ -1289,15 +1751,20 @@ def main():
         if floats * 4 > limit:
             raise AssertionError(f"{kernel}: dW workspace over the limit")
 
+    done("1-2")
+
     # 3. kernel vs plain version
     max_abs_err = phase_kernel_vs_plain(dev)
+    done(3)
 
     # 4. the serving slice, 5. bfloat16
     state, cfg, requests, launches, (k_ms, p_ms, k1_bound) = phase_slice(dev)
     phase_bf16(state, cfg, requests, dev)
+    done("4-5")
 
     # 6. conv backward kernel vs plain version
     k2_err, (k2_ms, k2_plain_ms, k2_lib_ms, k2_bound) = phase_conv_bwd(dev)
+    done(6)
 
     with tempfile.TemporaryDirectory() as tmp:
         # 7. the training slice (with --val-det), 8. parity with the CPU,
@@ -1305,7 +1772,8 @@ def main():
         k2_launches, yaml_path, ckpt_path, val_det_launches = \
             phase_train_slice(dev, Path(tmp))
         phase_parity(dev, yaml_path)
-        phase_throughput(dev, yaml_path)
+        rates, busy_ms = phase_throughput(dev, yaml_path)
+        done("7-9")
 
         # 10. K3 and K4, 11. K5 against their plain versions; 12. the
         # slice: both prototype entry points
@@ -1314,6 +1782,7 @@ def main():
         proto_launches = phase_entry_points()
         log(f"prototype kernel launches through the entry points: "
             f"{proto_launches}")
+        done("10-12")
 
         # 13. batched serving, 14. the device letterbox, 15. the CLI's
         # --map and --compute-anchors
@@ -1322,6 +1791,22 @@ def main():
         map_launches = phase_cli(yaml_path, ckpt_path)
         log(f"NMS kernel launches through the entry points: --val-det "
             f"{val_det_launches}, --map {map_launches}")
+        done("13-15")
+
+        # 16. the anchor-free head: serving, B=32, the CLI's training,
+        # checkpoint and --map, parity with the CPU, throughput
+        af_state, af_cfg, af_launches, (af_k_ms, af_p_ms, af_bound), _ = \
+            phase_af_serving(dev)
+        af_batch_launches, (af_batch_ms, af_batch_bound) = phase_af_batch(
+            af_state, af_cfg, dev)
+        af_k2_launches, af_val_det, af_map, af_yaml = phase_af_train(
+            dev, Path(tmp))
+        phase_af_parity(dev, af_yaml)
+        phase_af_throughput(dev, af_yaml, (rates["1"], busy_ms["1"]))
+        log(f"anchor-free path's kernel launches: NMS {af_launches} "
+            f"(requests) + {af_batch_launches} (B={BATCH}) + {af_val_det} "
+            f"(--val-det) + {af_map} (--map); conv backward {af_k2_launches}")
+        done(16)
 
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
@@ -1338,6 +1823,15 @@ def main():
         "batch_launches": batch_launches,
         "batch_ms": batch_ms,
         "batch_bound_ms": batch_bound[0],
+        "af_launches": af_launches,
+        "af_ms": af_k_ms,
+        "af_plain_ms": af_p_ms,
+        "af_bound_ms": af_bound[0],
+        "af_batch_launches": af_batch_launches,
+        "af_batch_ms": af_batch_ms,
+        "af_batch_bound_ms": af_batch_bound[0],
+        "af_val_det_launches": af_val_det,
+        "af_map_launches": af_map,
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
@@ -1350,6 +1844,7 @@ def main():
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
         "library_ms": k2_lib_ms,
+        "af_launches": af_k2_launches,
     }, *({
         "name": name,
         "route": "cuda",

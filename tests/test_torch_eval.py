@@ -194,7 +194,7 @@ def test_cli_trains_evaluates_and_jax_reads_the_checkpoint(
 @pytest.mark.parametrize("args", [["--ema"], ["--resume", "x.ckpt"],
                                   ["--stream-pool", "4"],
                                   ["--packed", "p3"],
-                                  ["--head", "anchor_free"],
+                                  ["--weight-decay", "0.05"],
                                   ["--device-augment"], ["--int8"],
                                   ["--device-mosaic"]])
 def test_cli_unported_flags_exit_2(args, capsys):

@@ -3,8 +3,9 @@
 The card's machine has no flax, and the port must need none of jax: in a
 fresh interpreter the port must import, build a Predictor and serve an
 S x S uint8 array (whose letterbox is the identity and needs no PIL) on the
-CPU with none of jax, flax or PIL in `sys.modules`; and train one step on
-the CPU from a dataset of JPEGs (PIL decodes them) with no jax or flax.
+CPU with either head and none of jax, flax or PIL in `sys.modules`; and
+train one step of either head on the CPU from a dataset of JPEGs (PIL
+decodes them) with no jax or flax.
 The conv-backward prototype benchmarks import with none of jax, flax or
 triton, and run their CPU check as a user runs them. None of these loads
 any module of the JAX package (`yolo_from_scratch_tpu`), and no source
@@ -39,6 +40,7 @@ import torch
 import yolo_from_scratch_tpu_torch
 from yolo_from_scratch_tpu_torch import YoloConfig
 from yolo_from_scratch_tpu_torch.infer.predict import Predictor
+from yolo_from_scratch_tpu_torch.models import anchor_free
 from yolo_from_scratch_tpu_torch.models.yolo import YOLO
 from yolo_from_scratch_tpu_torch.ops import nms_cuda
 from yolo_from_scratch_tpu_torch.utils.convert import (
@@ -53,6 +55,12 @@ state = from_flax_variables(random_variables(YOLO(cfg, device="meta"), 1),
                             YOLO(cfg, device="meta"))
 img = np.random.default_rng(0).integers(0, 256, (64, 64, 3), dtype=np.uint8)
 dets = Predictor(state, cfg, conf_threshold=0.005,
+                 device=torch.device("cpu"))(img)
+assert dets and all(np.isfinite(d[:5]).all() for d in dets), dets
+af = cfg.with_(head_type="anchor_free")
+af_state = from_flax_variables(random_variables(YOLO(af, device="meta"), 2),
+                               YOLO(af, device="meta"))
+dets = Predictor(af_state, af, conf_threshold=0.3,
                  device=torch.device("cpu"))(img)
 assert dets and all(np.isfinite(d[:5]).all() for d in dets), dets
 assert nms_cuda.launches == 0
@@ -88,13 +96,16 @@ config = load_dataset_yaml(sys.argv[1])
 cfg = YoloConfig(num_classes=config["nc"], img_size=128, width_mult=0.25,
                  depth_mult=0.33)
 cpu = torch.device("cpu")
-loader = DataLoader(YoloDataset(config["train"], cfg.num_classes,
-                                cfg.anchors_array, cfg.img_size,
-                                backend="pil"), batch_size=2)
-state = create_train_state(cfg, 1e-3, seed=0, device=cpu)
-images, targets, _ = next(iter(DeviceQueue(loader, cpu)))
-state, metrics = make_train_step(cfg)(state, images, targets)
-assert state.step == 1 and torch.isfinite(metrics["loss"]), metrics
+for head in ("anchor", "anchor_free"):
+    cfg = cfg.with_(head_type=head)
+    loader = DataLoader(YoloDataset(config["train"], cfg.num_classes,
+                                    cfg.anchors_array, cfg.img_size,
+                                    backend="pil", head_type=head),
+                        batch_size=2)
+    state = create_train_state(cfg, 1e-3, seed=0, device=cpu)
+    images, targets, _ = next(iter(DeviceQueue(loader, cpu)))
+    state, metrics = make_train_step(cfg)(state, images, targets)
+    assert state.step == 1 and torch.isfinite(metrics["loss"]), metrics
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax"))
 print("LOADED", loaded)

@@ -189,7 +189,8 @@ def test_pool_and_upsample_match_jax():
                                   np.asarray(jax_upsample(jnp.asarray(x))))
 
 
-@pytest.mark.parametrize("kw", [{"head_type": "anchor_free"},
+@pytest.mark.parametrize("kw", [{"packed_stem": True, "packed_interior": True,
+                                 "packed_p3": True},
                                 {"packed_stem": True}])
 def test_unported_variants_raise(cfg, kw):
     with pytest.raises(NotImplementedError):

@@ -41,6 +41,7 @@ def _fake_profiler(monkeypatch, traces):
 
     monkeypatch.setattr(torch.profiler, "profile", Profile)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(timing, "RETRY_PAUSE_S", 0.0)
     return calls
 
 

@@ -9,8 +9,10 @@ dispatching on the positional files' extensions as the JAX CLI does.
                        --compute-anchors
 
 (`python train_torch.py ...` is the same command line.) Each prints the
-JAX CLI's stdout lines. Training runs the anchor head with dense host
-targets; `--dtype auto` is bfloat16 on the card and float32 on the CPU.
+JAX CLI's stdout lines. Training runs either head (`--head anchor` or
+`anchor_free`) with dense host targets; evaluation, inference and inspect
+take the head from the checkpoint; `--dtype auto` is bfloat16 on the card
+and float32 on the CPU.
 `--val-det` adds the detection-level P/R/F1 to each epoch, `--map` adds
 mAP to evaluation (both through `BatchPredictor`, one NMS launch a batch),
 `--device-letterbox` resizes and pads on the device for inference and
@@ -31,7 +33,7 @@ CKPT_EXTS = (".ckpt", ".msgpack")
 IMG_EXTS = (".jpg", ".png", ".jpeg")
 YAML_EXTS = (".yaml", ".yml")
 
-# JAX-CLI flags with no port yet (`--head anchor_free` is checked apart)
+# JAX-CLI flags with no port yet
 UNPORTED_FLAGS = (
     "--resume", "--ema", "--compact-targets", "--sparse-loss",
     "--multi-scale", "--augment", "--data-parallel", "--spatial",
@@ -73,7 +75,9 @@ def build_parser():
                              "checkpoint's")
     parser.add_argument("--head", default="anchor",
                         choices=["anchor", "anchor_free"],
-                        help="detection head (only 'anchor' is ported)")
+                        help="detection head family: 'anchor' (the "
+                             "reference's 3-anchor heads) or 'anchor_free' "
+                             "(the YOLOv8-style decoupled head)")
     parser.add_argument("--reference-quirks", action="store_true",
                         help="replicate the reference's 640-denominator "
                              "decode in loss/eval at non-640 resolutions")
@@ -89,7 +93,9 @@ def build_parser():
     parser.add_argument("--val-det", action="store_true",
                         help="training: also detection-level P/R/F1 at "
                              "conf 0.5 (NMS output vs GT) on the val split "
-                             "every epoch")
+                             "every epoch; the honest per-epoch metric for "
+                             "--head anchor_free, whose cell-aligned grid "
+                             "P/R/F1 understates TAL-trained models")
     parser.add_argument("--device-letterbox", action="store_true",
                         help="inference / --map: resize and pad on the "
                              "device (the host only decodes)")
@@ -190,7 +196,8 @@ def _loader(config, split, cfg, batch_size, shuffle=False, seed=0):
     from yolo_from_scratch_tpu_torch.data import DataLoader, YoloDataset
 
     return DataLoader(YoloDataset(config[split], cfg.num_classes,
-                                  cfg.anchors_array, cfg.img_size),
+                                  cfg.anchors_array, cfg.img_size,
+                                  head_type=cfg.head_type),
                       batch_size=batch_size, shuffle=shuffle, seed=seed)
 
 
@@ -287,7 +294,8 @@ def _train(args, config):
         dtype = "bfloat16" if device.type == "cuda" else "float32"
     cfg = YoloConfig.from_size(args.size,
                                num_classes=config.get("nc", 1),
-                               img_size=args.img_size, compute_dtype=dtype)
+                               img_size=args.img_size, compute_dtype=dtype,
+                               head_type=args.head)
     state = create_train_state(cfg, args.lr, seed=args.seed, device=device)
     train_loader = _loader(config, "train", cfg, args.batch_size,
                            shuffle=True, seed=args.seed)
@@ -327,10 +335,6 @@ def main(argv=None):
               f"for it")
         return 2
     args = build_parser().parse_args(argv)
-    if args.head != "anchor":
-        print(f"ERROR: --head {args.head} is not ported yet; use "
-              f"`python train.py` for it")
-        return 2
     if args.img_size % 32 != 0:
         print(f"ERROR: --img-size must be divisible by 32, got "
               f"{args.img_size}")

@@ -7,7 +7,9 @@ Behavior parity with the reference dataset (reference: train.py:60-207):
 - images globbed as sorted(*.jpg + *.png) (train.py:62);
 - label path derived as .../images/x.jpg -> .../labels/x.txt via the
   grandparent directory (train.py:65-68);
-- per image, three dense target tensors (gs, gs, A, 5+nc);
+- per image, three dense target tensors (gs, gs, A, 5+nc), or with
+  `head_type="anchor_free"` the anchor-free head's transport maps
+  (gs, gs, 5+nc) (`models/anchor_free.py::assign_targets_anchor_free`);
 - each GT box is assigned to the single best (scale, anchor) by shape-only
   IoU across all 9 anchors (train.py:169-180), grid cell = floor(center*gs)
   clamped (train.py:184-189), first GT wins an occupied slot (train.py:193),
@@ -17,8 +19,8 @@ Behavior parity with the reference dataset (reference: train.py:60-207):
 Not ported yet, and an error that names them when asked for: the native
 C++ JPEG loader (`backend="native"`, `yolo_from_scratch_tpu/native/`) and
 compact targets for on-device assignment (`load_batch_compact`,
-`data/assign_device.py::pack_labels`). The anchor-free head's targets and
-load-time augmentation are not copied.
+`data/assign_device.py::pack_labels`). Load-time augmentation is not
+copied.
 """
 
 from __future__ import annotations
@@ -135,10 +137,11 @@ def assign_targets(
 class YoloDataset:
     """Filesystem YOLO dataset: images dir + sibling labels dir, decoded
     with PIL (`backend` 'pil', or 'auto', which is 'pil' here since the
-    native loader is not ported). Anchor head only, no augmentation."""
+    native loader is not ported). `head_type` picks the target assignment
+    ('anchor' or 'anchor_free'); no augmentation."""
 
     def __init__(self, img_dir, num_classes=1, anchors=None, img_size=640,
-                 backend="auto"):
+                 backend="auto", head_type="anchor"):
         if backend == "native":
             raise NotImplementedError(NATIVE_NOT_PORTED)
         if backend not in ("auto", "pil"):
@@ -161,6 +164,20 @@ class YoloDataset:
         self.num_anchors_per_scale = NUM_ANCHORS_PER_SCALE
         self.output_dim = 5 + num_classes
         self.backend = "pil"
+        self.head_type = head_type
+
+    def _assign(self, boxes, class_ids):
+        if self.head_type == "anchor_free":
+            from yolo_from_scratch_tpu_torch.models.anchor_free import (
+                assign_targets_anchor_free,
+            )
+
+            return assign_targets_anchor_free(
+                boxes, class_ids, self.img_size, self.num_classes
+            )
+        return assign_targets(
+            boxes, class_ids, self.anchors, self.img_size, self.num_classes
+        )
 
     def __len__(self):
         return len(self.imgs)
@@ -181,11 +198,10 @@ class YoloDataset:
         return img, boxes, rows[:, 0].astype(np.int64)
 
     def __getitem__(self, idx):
-        """Returns (img (S, S, 3) float32 in [0,1] NHWC, [t_p3, t_p4, t_p5])."""
+        """Returns (img (S, S, 3) float32 in [0,1] NHWC, [t_p3, t_p4, t_p5]),
+        the targets as `head_type` lays them out."""
         img, boxes, classes = self._load_raw(idx)
-        targets = assign_targets(boxes, classes, self.anchors, self.img_size,
-                                 self.num_classes)
-        return img, targets
+        return img, self._assign(boxes, classes)
 
     def load_batch_compact(self, indices, capacity=64):
         raise NotImplementedError(COMPACT_NOT_PORTED)

@@ -21,7 +21,8 @@ class DataLoader:
     """Minimal shuffling/batching loader over a YoloDataset-like object.
 
     Yields (images (B, S, S, 3) float32, [t_p3, t_p4, t_p5]) per batch,
-    each target stacked to (B, gs, gs, A, 5+nc). The final partial batch is
+    each target stacked to (B, gs, gs, A, 5+nc), or (B, gs, gs, 5+nc) for
+    the anchor-free head's dataset. The final partial batch is
     kept (reference DataLoader default drop_last=False).
     """
 

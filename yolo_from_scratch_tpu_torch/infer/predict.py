@@ -1,12 +1,15 @@
 """Inference with cross-scale global NMS (counterpart of
 `yolo_from_scratch_tpu/infer/predict.py`): single-image and batched
-serving, the anchor head.
+serving, both heads.
 
 letterbox -> uint8 * INV255 -> forward -> per-scale decode -> sigmoid,
-then the objectness gate -> un-letterbox -> top-k prefilter -> class-aware
-greedy NMS -> (x1, y1, x2, y2, conf, cls) tuples in original image
-coordinates. Everything after the host letterbox runs on the predictor's
-device with fixed shapes; only the final (K, ...) block is copied back.
+then the gate -> un-letterbox -> top-k prefilter -> class-aware greedy
+NMS -> (x1, y1, x2, y2, conf, cls) tuples in original image coordinates.
+The anchor head gates on objectness and scores obj * cls; the anchor-free
+head (objectness folded into its classes) gates on and scores its best
+class probability, one prediction a cell. Everything after the host
+letterbox runs on the predictor's device with fixed shapes; only the
+final (K, ...) block is copied back.
 NMS goes through the CUDA kernel's wrapper (`ops/nms_cuda.py`), which
 launches the kernel for CUDA tensors and runs the plain version for CPU
 tensors.
@@ -33,7 +36,7 @@ import collections
 import numpy as np
 import torch
 
-from yolo_from_scratch_tpu_torch.config import INV255, YoloConfig
+from yolo_from_scratch_tpu_torch.config import INV255, STRIDES, YoloConfig
 from yolo_from_scratch_tpu_torch.data.letterbox import (
     bucket_shape,
     letterbox_device_bucketed,
@@ -41,6 +44,7 @@ from yolo_from_scratch_tpu_torch.data.letterbox import (
     letterbox_image,
     stage_to_bucket,
 )
+from yolo_from_scratch_tpu_torch.models.anchor_free import decode_anchor_free
 from yolo_from_scratch_tpu_torch.models.yolo import (
     YOLO,
     cast_convs_,
@@ -60,18 +64,59 @@ from yolo_from_scratch_tpu_torch.ops.nms_cuda import (
 
 def default_topk(img_size: int, preds_per_cell: int = 3) -> int:
     """NMS candidate capacity per resolution: all A * sum((S/s)^2)
-    predictions, capped at 4096 (25,200 @640 for the 3-anchor head)."""
+    predictions, capped at 4096 (25,200 @640 for the 3-anchor head, 8,400
+    for the anchor-free head's one a cell)."""
     total = preds_per_cell * sum((img_size // s) ** 2 for s in (8, 16, 32))
     return min(total, 4096)
 
 
+def preds_per_cell(cfg: YoloConfig) -> int:
+    """Predictions a grid cell: 1 for the anchor-free head, else 3."""
+    return 1 if cfg.head_type == "anchor_free" else 3
+
+
+def _flat_predictions(preds, cfg: YoloConfig, b: int):
+    """Per-scale raw outputs -> (boxes (B, M, 4) normalised cx cy w h,
+    obj (B, M), cls (B, M, nc) probabilities) over all M predictions. The
+    anchor-free head has no objectness: obj is 1."""
+    nc = cfg.num_classes
+    boxes_all, obj_all, cls_all = [], [], []
+    if cfg.head_type == "anchor_free":
+        for pred, stride in zip(preds, STRIDES):
+            flat = decode_anchor_free(pred, stride, cfg.img_size).reshape(
+                b, -1, 4 + nc)
+            boxes_all.append(flat[..., 0:4])
+            obj_all.append(torch.ones_like(flat[..., 0]))
+            cls_all.append(torch.sigmoid(flat[..., 4:]))
+    else:
+        for pred, anc in zip(preds, cfg.anchors_array):
+            flat = decode_predictions(pred, anc, cfg.img_size).reshape(
+                b, -1, 5 + nc)
+            boxes_all.append(flat[..., 0:4])
+            obj_all.append(torch.sigmoid(flat[..., 4]))
+            cls_all.append(torch.sigmoid(flat[..., 5:]))
+    return (torch.cat(boxes_all, dim=1), torch.cat(obj_all, dim=1),
+            torch.cat(cls_all, dim=1))
+
+
+def _gated_score(cfg: YoloConfig, obj, cls_prob, conf_threshold):
+    """The NMS score, NEG_INF below the gate: the anchor head gates on
+    objectness and scores obj * cls; the anchor-free head gates on and
+    scores its class probability."""
+    if cfg.head_type == "anchor_free":
+        return torch.where(cls_prob > conf_threshold, cls_prob, NEG_INF)
+    return torch.where(obj > conf_threshold, obj * cls_prob, NEG_INF)
+
+
 def _best_class(cls):
     """(..., nc) class probabilities -> the best probability and its id
-    (int32); with one class, that class."""
+    (int32); with one class, that class. On a tie `torch.argmax` takes
+    the first index, as `jnp.argmax` does (`max(dim).indices` promises
+    no such order)."""
     if cls.shape[-1] == 1:
         return cls[..., 0], torch.zeros(cls.shape[:-1], dtype=torch.int32,
                                         device=cls.device)
-    return cls.amax(dim=-1), cls.argmax(dim=-1).to(torch.int32)
+    return cls.amax(dim=-1), torch.argmax(cls, dim=-1).to(torch.int32)
 
 
 def _unletterbox(boxes, img_size, scale, pad_top, pad_left):
@@ -100,10 +145,8 @@ def make_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
     against. The returned function also carries its stages, `.decode` and
     `.candidates`, for parity checks.
     """
-    anchors = cfg.anchors_array
     img_size = cfg.img_size
-    nc = cfg.num_classes
-    k = topk or default_topk(img_size)
+    k = topk or default_topk(img_size, preds_per_cell(cfg))
     max_out = max_outputs or k
     nms_fn = batched_nms_fixed_cuda if use_cuda_nms else batched_nms_fixed
 
@@ -115,24 +158,16 @@ def make_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
             # multiply by the shared float32 reciprocal, never divide by
             # 255: bit-identical to the host loader (config.INV255)
             img = img.float() * float(INV255)
-        preds = model(img)
-        boxes_all, obj_all, cls_all = [], [], []
-        for pred, anc in zip(preds, anchors):
-            flat = decode_predictions(pred, anc, img_size).reshape(-1, 5 + nc)
-            boxes_all.append(flat[:, 0:4])
-            obj_all.append(torch.sigmoid(flat[:, 4]))
-            cls_all.append(torch.sigmoid(flat[:, 5:]))
-        boxes = torch.cat(boxes_all)  # (M, 4) normalized cx cy w h
-        obj = torch.cat(obj_all)
-        cls_prob, cls_id = _best_class(torch.cat(cls_all))
+        boxes, obj, cls = (t[0] for t in _flat_predictions(model(img), cfg,
+                                                             1))
+        cls_prob, cls_id = _best_class(cls)
         return (_unletterbox(boxes, img_size, scale, pad_top, pad_left), obj,
                 cls_prob, cls_id)
 
     def candidates(img, scale, pad_top, pad_left):
         """The NMS input: the top-k by gated score, in descending order."""
         corners, obj, cls_prob, cls_id = decode(img, scale, pad_top, pad_left)
-        # objectness gate, then combined confidence obj * cls
-        score = torch.where(obj > conf_threshold, obj * cls_prob, NEG_INF)
+        score = _gated_score(cfg, obj, cls_prob, conf_threshold)
         top_scores, idx = sort_desc(score)
         idx = idx[:k]
         return corners[idx], top_scores[:k], cls_id[idx]
@@ -166,8 +201,7 @@ def make_batch_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
     parity checks.
     """
     img_size = cfg.img_size
-    nc = cfg.num_classes
-    k = topk or default_topk(img_size)
+    k = topk or default_topk(img_size, preds_per_cell(cfg))
     nms_fn = batched_nms_fixed_cuda_images if use_cuda_nms else \
         batched_nms_fixed
 
@@ -178,27 +212,18 @@ def make_batch_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
         if imgs.dtype == torch.uint8:
             # the shared float32 reciprocal, never a divide by 255
             imgs = imgs.float() * float(INV255)
-        preds = model(imgs)
-        b = imgs.shape[0]
-        boxes_all, obj_all, cls_all = [], [], []
-        for pred, anc in zip(preds, cfg.anchors_array):
-            flat = decode_predictions(pred, anc, img_size).reshape(
-                b, -1, 5 + nc)
-            boxes_all.append(flat[..., 0:4])
-            obj_all.append(torch.sigmoid(flat[..., 4]))
-            cls_all.append(torch.sigmoid(flat[..., 5:]))
-        boxes = torch.cat(boxes_all, dim=1)  # (B, M, 4) normalized
-        cls_prob, cls_id = _best_class(torch.cat(cls_all, dim=1))
+        boxes, obj, cls = _flat_predictions(model(imgs), cfg, imgs.shape[0])
+        cls_prob, cls_id = _best_class(cls)
         corners = _unletterbox(boxes, img_size, scales[:, None],
                                pad_tops[:, None], pad_lefts[:, None])
-        return corners, torch.cat(obj_all, dim=1), cls_prob, cls_id
+        return corners, obj, cls_prob, cls_id
 
     def candidates(imgs, scales, pad_tops, pad_lefts):
         """The NMS input per image: (B, k, 4) corners, (B, k) scores in
         descending order, (B, k) class ids."""
         corners, obj, cls_prob, cls_id = decode(imgs, scales, pad_tops,
                                                 pad_lefts)
-        score = torch.where(obj > conf_threshold, obj * cls_prob, NEG_INF)
+        score = _gated_score(cfg, obj, cls_prob, conf_threshold)
         top_scores, idx = sort_desc(score, dim=1)
         idx = idx[:, :k]
         return (torch.gather(corners, 1, idx[..., None].expand(*idx.shape, 4)),
@@ -330,7 +355,8 @@ class Predictor:
             self._post_lb = _wrap_device_letterbox(
                 make_batch_postprocess(
                     self.model, cfg, conf_threshold, iou_threshold, topk,
-                    max_outputs or topk or default_topk(cfg.img_size),
+                    max_outputs or topk or default_topk(
+                        cfg.img_size, preds_per_cell(cfg)),
                     use_cuda_nms=use_cuda_nms),
                 cfg.img_size)
 
@@ -437,7 +463,7 @@ class BatchPredictor:
     `device_letterbox=True`: the host only decodes; resize, pad and
     normalize, forward and NMS run on the device, the batch staged in one
     bucket of 256-px multiples (`_stage_batch`). `topk`: NMS candidates
-    per image (default `default_topk`, 4096 @640).
+    per image (default `default_topk`, 4096 @640 for either head).
     """
 
     def __init__(self, state_dict, cfg: YoloConfig, conf_threshold=0.5,

@@ -3,16 +3,18 @@
 
 stem (2 stride-2 convs) -> backbone P3/P4/P5 -> SPPF -> FPN top-down with
 laterals -> PANet bottom-up -> three heads (2 ConvBNSiLU + 1x1 conv with
-bias). The public layouts are the JAX package's: images in NHWC
-(B, S, S, 3), head outputs (B, H, W, A, 5+nc) in float32. Inside, tensors
-are NCHW (the NHWC input permuted, which is channels-last in memory).
+bias, or with `head_type="anchor_free"` the decoupled DFL head of
+`models/anchor_free.py`). The public layouts are the JAX package's: images
+in NHWC (B, S, S, 3), head outputs (B, H, W, A, 5+nc) in float32, or
+(B, H, W, 4*REG_MAX + nc) for the anchor-free head. Inside, tensors are
+NCHW (the NHWC input permuted, which is channels-last in memory).
 
 Parameters are float32 master weights, cast to the compute dtype at use
 (`models/blocks.py`); `reset_parameters(generator)` draws them from the JAX
 package's initial distributions.
 
-Not ported: the anchor-free head (a later PR) and the space-to-depth
-packed layouts (`packed_*`), which exist for TPU lane fill; both raise.
+Not ported: the space-to-depth packed layouts (`packed_*`), which exist
+for TPU lane fill; they raise.
 """
 
 from __future__ import annotations
@@ -24,7 +26,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolo_from_scratch_tpu_torch.config import NUM_ANCHORS_PER_SCALE, YoloConfig
+from yolo_from_scratch_tpu_torch.config import (
+    NUM_ANCHORS_PER_SCALE,
+    STRIDES,
+    YoloConfig,
+)
+from yolo_from_scratch_tpu_torch.models.anchor_free import (
+    DecoupledHead,
+    v8_cls_prior,
+)
 from yolo_from_scratch_tpu_torch.models.blocks import (
     C3,
     SPPF,
@@ -109,9 +119,6 @@ class YOLO(nn.Module):
 
     def __init__(self, cfg: YoloConfig, device=None):
         super().__init__()
-        if cfg.head_type != "anchor":
-            raise NotImplementedError(
-                f"head_type={cfg.head_type!r} is not ported yet")
         if cfg.packed_stem or cfg.packed_interior or cfg.packed_p3:
             raise NotImplementedError(
                 "packed_* layouts are TPU lane-fill layouts and are not "
@@ -146,19 +153,26 @@ class YOLO(nn.Module):
         self.panet_merge_p4 = C3(c3 + c4, c4, r1, **kw)
         self.downsample_p4_to_p5 = ConvBNSiLU(c4, c4, 3, 2, **kw)
         self.panet_merge_p5 = C3(c4 + c5, c5, r1, **kw)
-        # heads
+        # heads, fed from p3_fpn, p4_panet and p5_panet
         na, nc = cfg.num_anchors, cfg.num_classes
-        self.head_p3 = DetectHead(c3, na, nc, **kw)
-        self.head_p4 = DetectHead(c4, na, nc, **kw)
-        self.head_p5 = DetectHead(c5, na, nc, **kw)
+        for name, c, stride in zip(("head_p3", "head_p4", "head_p5"),
+                                   (c3, c4, c5), STRIDES):
+            if cfg.head_type == "anchor_free":
+                # the v8 class prior of each scale (see DecoupledHead)
+                head = DecoupledHead(c, nc, v8_cls_prior(nc, cfg.img_size,
+                                                         stride), **kw)
+            else:
+                head = DetectHead(c, na, nc, **kw)
+            self.add_module(name, head)
 
     def reset_parameters(self, generator: torch.Generator):
         """Fresh weights from the JAX package's initial distributions, drawn
         on the CPU from `generator` in module order: every conv kernel and
         bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)), BatchNorm scale 1, bias 0,
-        mean 0, var 1, the heads' pred bias as `DetectHead` sets it."""
+        mean 0, var 1, the heads' pred biases as `DetectHead` or
+        `DecoupledHead` sets them."""
         for module in self.modules():
-            if isinstance(module, (ConvBNSiLU, DetectHead)):
+            if isinstance(module, (ConvBNSiLU, DetectHead, DecoupledHead)):
                 module.reset_parameters(generator)
         return self
 

@@ -1,5 +1,5 @@
 """Grid-aligned detection metrics (counterpart of
-`yolo_from_scratch_tpu/train/metrics.py`, the anchor head).
+`yolo_from_scratch_tpu/train/metrics.py`), for both heads.
 
     pred_obj = sigmoid(raw obj); both thresholds default 0.5
     pred>thr & tgt>thr & IoU>thr  -> TP
@@ -8,13 +8,18 @@
     pred<=thr & tgt>thr           -> FN
 
 Precision / recall / F1 come from the summed counts. These are the
-reference's grid-aligned metrics, not NMS-based mAP.
+reference's grid-aligned metrics, not NMS-based mAP. The anchor-free head
+takes its best class probability for pred_obj.
 """
 
 from __future__ import annotations
 
 import torch
 
+from yolo_from_scratch_tpu_torch.models.anchor_free import (
+    REG_MAX,
+    decode_anchor_free,
+)
 from yolo_from_scratch_tpu_torch.ops.boxes import box_iou_center
 from yolo_from_scratch_tpu_torch.ops.decode import decode_predictions
 
@@ -37,6 +42,33 @@ def grid_metric_counts(pred, target, anchors, img_size, conf_threshold=0.5,
         m = m.to(torch.int32)
         return (m.sum(dim=(1, 2, 3)) if per_image else m.sum()).to(
             torch.int32)
+
+    return count(tp), count(fp), count(fn)
+
+
+def grid_metric_counts_anchor_free(pred, target, stride, img_size,
+                                   conf_threshold=0.5, iou_threshold=0.5,
+                                   per_image=False):
+    """`grid_metric_counts` for the anchor-free head: pred (B, H, W,
+    4*REG_MAX + nc) raw, target (B, H, W, 5+nc) the transport maps (flag
+    at channel 4). The confidence is the best class probability; the class
+    logits start after the 4*REG_MAX DFL logits, at channel 4*REG_MAX,
+    not 4. This cell-aligned count understates a TAL-trained model (TAL
+    often picks a neighbouring cell); `--map` / `--val-det` score the
+    detections."""
+    decoded = decode_anchor_free(pred, stride, img_size)
+    pm = torch.sigmoid(pred[..., 4 * REG_MAX:]).amax(dim=-1) > conf_threshold
+    tm = target[..., 4] > conf_threshold
+    iou = box_iou_center(decoded[..., 0:4], target[..., 0:4], eps=1e-6)
+    hit = iou > iou_threshold
+
+    tp = pm & tm & hit
+    fp = (pm & tm & ~hit) | (pm & ~tm)
+    fn = ~pm & tm
+
+    def count(m):
+        m = m.to(torch.int32)
+        return (m.sum(dim=(1, 2)) if per_image else m.sum()).to(torch.int32)
 
     return count(tp), count(fp), count(fn)
 

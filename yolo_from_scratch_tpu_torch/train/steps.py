@@ -1,5 +1,5 @@
 """Training and evaluation steps (counterpart of
-`yolo_from_scratch_tpu/train/steps.py`, the anchor head with dense host
+`yolo_from_scratch_tpu/train/steps.py`, both heads with dense host
 targets).
 
 A train step is forward in train mode (batch statistics, running-stat
@@ -7,7 +7,9 @@ update), the multi-scale loss, backward, clip by global norm 10 and an Adam
 update. Clipping is optax's `clip_by_global_norm`: the norm is taken over
 every parameter's gradient, and when it is >= 10 each gradient becomes
 `g / norm * 10` (not `clip_grad_norm_`, which divides by `norm + 1e-6`);
-the choice is made on the device, with no host sync. Adam is optax's
+the choice is made on the device, with no host sync. The anchor-free head
+takes the TAL loss (`models/anchor_free.py`) and reports obj = 0, its
+objectness being folded into the classes. Adam is optax's
 (b1 0.9, b2 0.999, eps 1e-8, bias-corrected `mu_hat / (sqrt(nu_hat) +
 eps)`), which `torch.optim.Adam` computes. The learning rate is set per
 epoch (`set_learning_rate`). The step's metrics stay on the device.
@@ -20,10 +22,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from yolo_from_scratch_tpu_torch.config import INV255, YoloConfig
+from yolo_from_scratch_tpu_torch.config import INV255, STRIDES, YoloConfig
+from yolo_from_scratch_tpu_torch.models.anchor_free import (
+    yolo_loss_anchor_free,
+)
 from yolo_from_scratch_tpu_torch.models.yolo import YOLO
 from yolo_from_scratch_tpu_torch.ops.losses import yolo_loss_multiscale
-from yolo_from_scratch_tpu_torch.train.metrics import grid_metric_counts
+from yolo_from_scratch_tpu_torch.train.metrics import (
+    grid_metric_counts,
+    grid_metric_counts_anchor_free,
+)
 from yolo_from_scratch_tpu_torch.utils.convert import to_flax_variables
 
 GRAD_CLIP_NORM = 10.0
@@ -131,6 +139,16 @@ def _normalize(images):
 def make_loss_fn(cfg: YoloConfig, quirk_640: bool = False, device=None):
     """loss_fn(model, images, targets) -> (total, (bbox, obj, cls)), the
     model in train mode (its running statistics move)."""
+    if cfg.head_type == "anchor_free":
+
+        def loss_fn_af(model, images, targets):
+            preds = model(_normalize(images), train=True)
+            total, bbox, cls = yolo_loss_anchor_free(
+                preds, targets, cfg.num_classes, cfg.img_size)
+            return total, (bbox, torch.zeros_like(total), cls)
+
+        return loss_fn_af
+
     anchors = torch.as_tensor(cfg.anchors_array, device=device)
 
     def loss_fn(model, images, targets):
@@ -166,6 +184,23 @@ def make_eval_step(cfg: YoloConfig, conf_threshold=0.5, iou_threshold=0.5,
     """eval_step(model, images, targets) -> (loss, tp, fp, fn): the eval-mode
     loss and per-image (B,) int32 counts summed over the scales, all on the
     device."""
+    if cfg.head_type == "anchor_free":
+
+        @torch.no_grad()
+        def eval_step_af(model, images, targets):
+            preds = model(_normalize(images), train=False)
+            loss, _, _ = yolo_loss_anchor_free(preds, targets,
+                                               cfg.num_classes, cfg.img_size)
+            tp = fp = fn = 0
+            for pred, tgt, stride in zip(preds, targets, STRIDES):
+                t, f, n = grid_metric_counts_anchor_free(
+                    pred, tgt, stride, cfg.img_size, conf_threshold,
+                    iou_threshold, per_image=True)
+                tp, fp, fn = tp + t, fp + f, fn + n
+            return loss, tp, fp, fn
+
+        return eval_step_af
+
     anchors = torch.as_tensor(cfg.anchors_array, device=device)
 
     @torch.no_grad()

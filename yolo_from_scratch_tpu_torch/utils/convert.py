@@ -109,9 +109,12 @@ def random_variables(model: nn.Module, seed: int) -> dict:
 
     Conv kernels and biases are U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (the
     PyTorch and JAX-package default), BN statistics and affine terms are
-    non-trivial (so the parity checks exercise them), and the head's
+    non-trivial (so the parity checks exercise them), and the anchor head's
     objectness bias gets the p=0.01 prior, as a freshly initialised model
-    has (obj ~ sigmoid(-4.6) ~ 0.01).
+    has (obj ~ sigmoid(-4.6) ~ 0.01). The anchor-free head's `box_pred` and
+    `cls_pred` biases stay uniform like any conv bias: its class bias gets
+    no prior, so the class scores sit near sigmoid(0) = 0.5 (a fresh model
+    would start at `v8_cls_prior`).
     """
     rng = np.random.default_rng(seed)
     shapes = {k: tuple(t.shape) for k, t in model.state_dict().items()}

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import statistics
 import sys
+import time
 
 import torch
 
@@ -58,18 +59,25 @@ def time_per_iter(fn, n1, n2, reps=3):
 
 
 # traces taken of one timing before it raises: now and then the profiler
-# returns a trace without device events, which would read as 0 ms
-TRACE_ATTEMPTS = 3
+# returns a trace without device events, which would read as 0 ms (once,
+# on an H100, three such traces in a row), so it waits RETRY_PAUSE_S and
+# takes another
+TRACE_ATTEMPTS = 6
+RETRY_PAUSE_S = 0.5
 
 
 def kernel_ms(fn, runs):
     """{CUDA kernel name: device ms} over `runs` calls of fn, from the
     profiler's self times. Host launch overhead is not in it, unlike
-    `median_ms`. A trace with no device time is taken again, up to
-    TRACE_ATTEMPTS traces; then it raises RuntimeError."""
+    `median_ms`. A trace with no device time is taken again after a pause,
+    up to TRACE_ATTEMPTS traces; then it raises RuntimeError."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(TRACE_ATTEMPTS):
+    for attempt in range(TRACE_ATTEMPTS):
+        if attempt:
+            log(f"kernel_ms: trace {attempt} held no device time; taking "
+                f"another")
+            time.sleep(RETRY_PAUSE_S)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
