@@ -6,7 +6,8 @@ Drives the port's paths on the card: with the 's' model (width 0.50,
 depth 0.33) at 640x640, nc=1, anchor head, random weights from a seed,
 single-image and batched serving through `Predictor` and `BatchPredictor`
 (host and device letterbox), training, evaluation with mAP and the anchor
-k-means through the CLI;
+k-means through the CLI; the anchor-free head at nc=80; the compact-label
+training path of both heads;
 then the conv-backward prototype entry points (`benchmarks/bwdproto.py`,
 `benchmarks/blockbwd.py`) at the training path's 64-channel shapes. It
 checks each hand-written CUDA kernel (NMS; the fused 3x3 conv backward
@@ -91,15 +92,35 @@ and prints no result):
    one request served from it and `--map` run on it (the NMS kernel's
    launches rise); one float32 step on the card (TF32 off) against the CPU
    once both foreground masks agree; train img/s and the device's busy
-   share beside phase 9's anchor-head numbers.
+   share beside phase 9's anchor-head numbers;
+17. compact labels, on phase 16's nc=80 data at K=64 and four images of
+   label rows that stress the assignment (duplicate slots, centres on and
+   off the edges, ids out of range, a full K, an empty image): the anchor
+   and anchor-free assignments on the card bit-equal to the host's (to
+   the CPU's device function where ids are out of range); the sparse loss
+   on the card against the dense one (total and gradients on the head
+   outputs within 1e-5); the mosaic and the augmentation on the card
+   against the CPU with the same draws (labels, masks, targets equal,
+   images within 1e-6); the CLI trains the anchor head with
+   `--compact-targets --sparse-loss --device-mosaic --device-augment` and
+   the anchor-free head with `--compact-targets --device-mosaic
+   --device-augment flip --weight-decay 0.05`, each one epoch of 2 steps
+   at b8 bf16 with YOLO_FUSED_CONV_BWD=1 and `--val-det` (the conv
+   backward kernel's launches held to the gated convs, 8 and 10 a step,
+   the NMS kernel's rising); the anchor-free checkpoint carries the
+   optax.adamw chain and runs `--map`, the anchor checkpoint's compact
+   evaluation prints the dense evaluation's P/R/F1 lines; train img/s
+   through the loader, dense against compact and compact + sparse, in
+   turns, with the bytes uploaded a batch and the device's busy share.
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
 the kernel, its plain version and the one-call library equivalent where
 there is one, and the H100 bound with what bounds it, all at the same
 inputs; the NMS kernel also its launches, device ms and bound on phase
-13's batch, and both kernels their launches on phase 16's anchor-free
-paths); the last line is `{"ok": true, "device": {...}}`.
+13's batch, both kernels their launches on phase 16's anchor-free paths
+and on phase 17's compact paths); the last line is `{"ok": true,
+"device": {...}}`.
 """
 
 from __future__ import annotations
@@ -123,7 +144,12 @@ import torch
 
 from yolo_from_scratch_tpu_torch import INV255, YoloConfig, cli
 from yolo_from_scratch_tpu_torch.benchmarks import blockbwd, bwdproto
-from yolo_from_scratch_tpu_torch.data import DataLoader, YoloDataset
+from yolo_from_scratch_tpu_torch.data import (
+    DataLoader,
+    YoloDataset,
+    assign_device,
+)
+from yolo_from_scratch_tpu_torch.data.dataset import assign_targets
 from yolo_from_scratch_tpu_torch.data.letterbox import (
     letterbox_device_bucketed,
     letterbox_image,
@@ -145,7 +171,22 @@ from yolo_from_scratch_tpu_torch.models.yolo import YOLO
 from yolo_from_scratch_tpu_torch.ops import conv_bwd
 from yolo_from_scratch_tpu_torch.ops import nms as nms_plain
 from yolo_from_scratch_tpu_torch.ops import nms_cuda
+from yolo_from_scratch_tpu_torch.ops.augment import (
+    augment_batch,
+    augment_compact_batch,
+    augment_draws,
+    step_generator,
+)
+from yolo_from_scratch_tpu_torch.ops.losses import yolo_loss_multiscale
+from yolo_from_scratch_tpu_torch.ops.losses_sparse import (
+    yolo_loss_multiscale_sparse,
+)
+from yolo_from_scratch_tpu_torch.ops.mosaic_device import (
+    mosaic_compact_batch,
+    mosaic_draws,
+)
 from yolo_from_scratch_tpu_torch.train.steps import (
+    MOSAIC_SALT,
     create_train_state,
     make_loss_fn,
     make_train_step,
@@ -248,6 +289,13 @@ AF_CONF = 0.005
 AF_GATED = {(40, 40): 6, (80, 80): 4}  # the bf16 AF step's gated convs
 AF_TRIES = 4  # batches tried until the card's and the CPU's fg masks agree
 AF_CKPT_CONF = 1e-6  # the trained checkpoint's request
+# phase 17: the compact-label path on phase 16's nc=80 data
+COMPACT_K = 64        # --compact-targets' default capacity
+# sparse vs dense loss on the card: the same float32 terms summed in
+# another order; total relative, gradients against their largest magnitude
+SPARSE_TOL = 1e-5
+AUG_IMAGE_TOL = 1e-6  # mosaic / jitter, card vs CPU: sums of 4, multiply-add
+COMPACT_EPOCHS = 3    # timed epochs a turn, two turns a path
 
 
 def log(msg):
@@ -1692,6 +1740,300 @@ def phase_af_throughput(dev, yaml_path, anchor):
     return rates, busy
 
 
+def _compact_labels(yaml_path):
+    """Phase 16's nc=80 train split at K=COMPACT_K (uint8 images, labels,
+    counts), and four more label rows that stress the assignment: a full
+    K with duplicated boxes (the same box twice, the same box with another
+    class), centres on 0, 1, a cell edge and off the image, ids out of
+    range, and an empty image with garbage padding. Returns (images,
+    labels, counts, in_range): in_range[i] whether image i's ids are all in
+    [0, nc), the images a host assignment can take."""
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    ds = YoloDataset(load_dataset_yaml(yaml_path)["train"], AF_NC,
+                     img_size=IMG_SIZE)
+    images, labels, counts = ds.load_batch_compact(range(len(ds)), COMPACT_K)
+    rng = np.random.default_rng(SEED + 9)
+    k = COMPACT_K
+    extra = rng.uniform(-2.0, 2.0, (4, k, 5)).astype(np.float32)
+    extra[:3, :, 0] = rng.integers(0, AF_NC, (3, k))
+    extra[:3, :, 1:3] = rng.uniform(0.0, 1.0, (3, k, 2))
+    extra[:3, :, 3:5] = rng.uniform(0.01, 0.6, (3, k, 2))
+    extra[0, 1::4] = extra[0, 0::4]                       # the same box
+    extra[0, 2::4, 1:] = extra[0, 0::4, 1:]               # other class
+    extra[1, :8, 1:3] = [(0, 0), (1, 1), (0, 1), (0.5, 0.25), (0.125, 0.75),
+                         (-0.1, 0.5), (1.2, -3.0), (0.999, 1e-4)]
+    extra[2, ::3, 0] = rng.choice([-1.0, -7.0, AF_NC, 200.0], (k + 2) // 3)
+    extra_counts = np.asarray([k, 16, k, 0], np.int32)
+    labels = np.concatenate([labels, extra])
+    counts = np.concatenate([counts, extra_counts])
+    in_range = [True] * len(images) + [True, True, False, True]
+    return images, labels, counts, in_range
+
+
+def phase_compact_assign(dev, labels, counts, in_range):
+    """The anchor and anchor-free assignments on the card, bit-equal to the
+    host's (the CPU's device function where ids are out of range)."""
+    cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE)
+    anchors = torch.as_tensor(cfg.anchors_array, device=dev)
+    lab, cnt = torch.from_numpy(labels).to(dev), torch.from_numpy(counts).to(
+        dev)
+    cpu_args = (torch.from_numpy(labels), torch.from_numpy(counts),
+                cfg.anchors_array)
+
+    def anchor_device(lab, cnt, anc):
+        return assign_device.assign_targets_device_batch(lab, cnt, anc,
+                                                         IMG_SIZE, AF_NC)
+
+    def af_device(lab, cnt, _):
+        return anchor_free.assign_targets_anchor_free_device_batch(
+            lab, cnt, IMG_SIZE, AF_NC)
+
+    cases = (("anchor", anchor_device, lambda boxes, ids: assign_targets(
+                 boxes, ids, cfg.anchors_array, IMG_SIZE, AF_NC)),
+             ("anchor-free", af_device, lambda boxes, ids: anchor_free.
+              assign_targets_anchor_free(boxes, ids, IMG_SIZE, AF_NC)))
+    for name, device_fn, host_fn in cases:
+        card = [t.cpu() for t in device_fn(lab, cnt, anchors)]
+        cpu = device_fn(*cpu_args)
+        for i, n in enumerate(counts):
+            want = ([torch.from_numpy(t) for t in host_fn(
+                labels[i, :n, 1:5], labels[i, :n, 0].astype(np.int64))]
+                if in_range[i] else [t[i] for t in cpu])
+            for s, (c, w) in enumerate(zip(card, want)):
+                if not torch.equal(c[i], w):
+                    raise AssertionError(f"{name} assignment on the card "
+                                         f"differs, image {i}, scale {s}")
+        written = [int(c[..., 4].sum()) for c in card]
+        card_ms = median_ms(lambda: device_fn(lab, cnt, anchors), runs=5)
+        log(f"{name} assignment on the card, {len(counts)} images at K="
+            f"{COMPACT_K} ({int(counts.sum())} boxes): bit-equal to the host "
+            f"on {sum(in_range)} images and to the CPU on the one with ids "
+            f"out of range; "
+            f"cells written per scale {written}; {card_ms:.3f} ms (CUDA "
+            f"events, median of 5)")
+
+
+def phase_sparse_loss(dev, labels, counts):
+    """The sparse loss against the dense loss on the card, on the same
+    labels and seeded head outputs: total and gradients."""
+    cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE)
+    anchors = torch.as_tensor(cfg.anchors_array, device=dev)
+    pick = list(range(4)) + list(range(len(counts) - 4, len(counts)))
+    lab = torch.from_numpy(labels[pick]).to(dev)
+    valid = assign_device.prefix_valid(torch.from_numpy(counts[pick]).to(dev),
+                                       COMPACT_K)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    preds = [torch.randn((8, g, g, 3, 5 + AF_NC), generator=gen, device=dev)
+             for g in cfg.grid_sizes]
+
+    def dense(p):
+        targets = assign_device.assign_targets_device_masked_batch(
+            lab, valid, anchors, IMG_SIZE, AF_NC)
+        return yolo_loss_multiscale(p, targets, anchors, AF_NC, IMG_SIZE)
+
+    def sparse(p):
+        return yolo_loss_multiscale_sparse(p, lab, valid, anchors, AF_NC,
+                                           IMG_SIZE)
+
+    out = {}
+    for name, fn in (("dense", dense), ("sparse", sparse)):
+        leaves = [p.clone().requires_grad_(True) for p in preds]
+        total = fn(leaves)[0]
+        out[name] = (total.item(), torch.autograd.grad(total, leaves))
+        out[name] += (median_ms(lambda: torch.autograd.grad(
+            fn(leaves)[0], leaves), runs=5),)
+    rel = abs(out["sparse"][0] - out["dense"][0]) / abs(out["dense"][0])
+    grad_err = max(((gs - gd).abs().max() / gd.abs().max()).item()
+                   for gs, gd in zip(out["sparse"][1], out["dense"][1]))
+    log(f"sparse vs dense loss on the card, 's' @{IMG_SIZE} nc={AF_NC} b8, "
+        f"K={COMPACT_K}: total {out['sparse'][0]:.7f} vs "
+        f"{out['dense'][0]:.7f} ({rel:.2e} relative, tol {SPARSE_TOL}); "
+        f"gradients on the head outputs within {grad_err:.2e} of their "
+        f"largest magnitude (tol {SPARSE_TOL}); loss + backward "
+        f"{out['sparse'][2]:.3f} ms sparse vs {out['dense'][2]:.3f} ms dense "
+        f"(CUDA events, median of 5)")
+    if rel > SPARSE_TOL or grad_err > SPARSE_TOL:
+        raise AssertionError("sparse loss on the card differs from the dense")
+
+
+def phase_augment_parity(dev, images, labels, counts):
+    """The mosaic and the augmentation on the card against the same
+    functions on the CPU with the same explicit draws."""
+    b = 8
+    imgs = torch.from_numpy(images[:b]).float() * float(INV255)
+    lab, cnt = torch.from_numpy(labels[:b]), torch.from_numpy(counts[:b])
+    m_draws = mosaic_draws(step_generator(SEED ^ MOSAIC_SALT, 0), b)
+    a_draws = augment_draws(step_generator(SEED, 0), b)
+    anchors = YoloConfig().anchors_array
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        def on(*ts):
+            return [None if t is None else t.to(device) for t in ts]
+
+        m_img, m_lab, m_valid = mosaic_compact_batch(
+            *on(imgs, lab, cnt), 2.0 / IMG_SIZE, *on(*m_draws))
+        c_img, c_lab = augment_compact_batch(m_img, m_lab, m_valid,
+                                             *on(*a_draws))
+        dense = assign_device.assign_targets_device_masked_batch(
+            m_lab, m_valid, anchors, IMG_SIZE, AF_NC)
+        d_img, d_targets = augment_batch(m_img, dense, *on(*a_draws))
+        outs.append(([t.cpu() for t in (m_img, c_img, d_img)],
+                     [t.cpu() for t in (m_lab, m_valid, c_lab, *d_targets)]))
+    (card_images, card_exact), (cpu_images, cpu_exact) = outs
+    image_err = max((g - w).abs().max().item()
+                    for g, w in zip(card_images, cpu_images))
+    exact = all(torch.equal(g, w) for g, w in zip(card_exact, cpu_exact))
+    log(f"mosaic ({int(m_draws[0].sum())} of {b} images) and augment "
+        f"({int(a_draws[0].sum())} flipped, jitter on), card vs CPU with the "
+        f"same draws: labels, masks and dense targets "
+        f"{'equal' if exact else 'DIFFER'}, images within {image_err:.2e} "
+        f"(tol {AUG_IMAGE_TOL})")
+    if not exact or image_err > AUG_IMAGE_TOL:
+        raise AssertionError("device mosaic / augment on the card differs "
+                             "from the CPU")
+
+
+def _eval_lines(out):
+    return [line for line in out.splitlines()
+            if re.match(r"  (Precision|Recall|F1 Score): ", line)]
+
+
+def phase_compact_train(dev, workdir, yaml_path):
+    """The CLI trains the anchor head (--sparse-loss) and the anchor-free
+    head (the weight-decay recipe) on the compact path with the mosaic and
+    augmentation, K2 and --val-det; compact evaluation equals dense
+    evaluation; --map on the anchor-free checkpoint. Returns K1's and K2's
+    launches."""
+    gated = _gated_convs(YoloConfig.from_size(
+        "s", num_classes=AF_NC, img_size=IMG_SIZE, compute_dtype="bfloat16"))
+    per_step = conv_bwd.LAUNCHES_PER_CALL * TRAIN_STEPS
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    base = [str(yaml_path), "--epochs", "1", "--batch-size", "8", "--size",
+            "s", "--img-size", str(IMG_SIZE), "--compact-targets",
+            "--device-mosaic", "--val-det"]
+    runs = (("anchor", ["--sparse-loss", "--device-augment"],
+             sum(gated.values()), GATED_CONVS_BF16),
+            ("anchor_free", ["--head", "anchor_free", "--device-augment",
+                             "flip", "--weight-decay", "0.05"],
+             sum(AF_GATED.values()), sum(AF_GATED.values())))
+    k1 = k2 = 0
+    ckpts = {}
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        for head, extra, n_gated, want_gated in runs:
+            conv_bwd.launches = 0
+            nms_cuda.launches = 0
+            t0 = time.perf_counter()
+            rc, out = _cli(base + extra)
+            wall = time.perf_counter() - t0
+            launches = (conv_bwd.launches, nms_cuda.launches)
+            epoch = EPOCH_LINE.search(out)
+            saved = re.search(r"Training complete\. Model saved to (\S+)", out)
+            if (rc != 0 or not epoch or not saved
+                    or " | Det: P " not in epoch.group(0)):
+                raise AssertionError(f"compact {head} training CLI: rc {rc}, "
+                                     f"output:\n{out}")
+            if n_gated != want_gated or launches[0] != n_gated * per_step:
+                raise AssertionError(f"compact {head} step: {n_gated} gated "
+                                     f"convs (want {want_gated}), conv "
+                                     f"backward kernel launches {launches[0]}"
+                                     f" (want {n_gated * per_step})")
+            if launches[1] < 1:
+                raise AssertionError(f"compact {head} --val-det launched the "
+                                     f"NMS kernel no time")
+            k2 += launches[0]
+            k1 += launches[1]
+            ckpts[head] = workdir / saved.group(1)
+            log(f"compact {head} training through the CLI ({' '.join(extra)}"
+                f"): {wall:.1f} s wall for 1 epoch of {TRAIN_STEPS} steps + "
+                f"eval + --val-det; conv backward kernel launches "
+                f"{launches[0]} (= {n_gated} x {TRAIN_STEPS} steps x "
+                f"{conv_bwd.LAUNCHES_PER_CALL}); epoch img/s {epoch.group(1)}"
+                f"; --val-det: {launches[1]} NMS kernel launch(es)")
+    finally:
+        os.chdir(cwd)
+
+    meta = load_checkpoint(ckpts["anchor_free"])[2]
+    chain = (meta["opt_state"] or {}).get("inner_state", {}).get("1", {})
+    if sorted(chain) != ["0", "1", "2"] or int(chain["0"]["count"]) != \
+            TRAIN_STEPS:
+        raise AssertionError(f"anchor-free checkpoint: optimizer chain "
+                             f"{sorted(chain)}, not optax.adamw's")
+    t0 = time.perf_counter()
+    compact = _cli([str(yaml_path), str(ckpts["anchor"]), "--batch-size", "8",
+                    "--compact-targets"])
+    compact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = _cli([str(yaml_path), str(ckpts["anchor"]), "--batch-size", "8"])
+    dense_s = time.perf_counter() - t0
+    if compact[0] or dense[0] or not _eval_lines(compact[1]) or \
+            _eval_lines(compact[1]) != _eval_lines(dense[1]):
+        raise AssertionError(f"compact evaluation:\n{compact[1]}\ndense:\n"
+                             f"{dense[1]}")
+    nms_cuda.launches = 0
+    rc, out = _cli([str(yaml_path), str(ckpts["anchor_free"]), "--map",
+                    "--batch-size", "8"])
+    map_launches = nms_cuda.launches
+    missing = [p for p in MAP_LINES if len(re.findall(p, out)) != 2]
+    if rc != 0 or missing or map_launches < 2:
+        raise AssertionError(f"--map on the compact anchor-free checkpoint: "
+                             f"rc {rc}, missing {missing}, {map_launches} NMS "
+                             f"launches, output:\n{out}")
+    k1 += map_launches
+    log(f"anchor-free checkpoint: optax.adamw chain (counts {TRAIN_STEPS}); "
+        f"eval of the anchor checkpoint with --compact-targets "
+        f"({compact_s:.1f} s) prints the dense eval's ({dense_s:.1f} s) "
+        f"P/R/F1 lines {_eval_lines(dense[1])}; --map on the anchor-free "
+        f"checkpoint: {map_launches} NMS kernel launches")
+    return k1, k2
+
+
+def phase_compact_throughput(dev, yaml_path):
+    """Train img/s at b8 bf16 through the loader and the DeviceQueue,
+    dense against compact and compact + sparse (the anchor head, nc=80,
+    K2 on), in turns; bytes uploaded a batch; the device's busy share."""
+    from yolo_from_scratch_tpu_torch.train.loop import train_epoch
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE,
+                               compute_dtype="bfloat16")
+    config = load_dataset_yaml(yaml_path)
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    modes = {"dense": (0, False), "compact": (COMPACT_K, False),
+             "compact+sparse": (COMPACT_K, True)}
+    runs = {}
+    for name, (k, sparse) in modes.items():
+        loader = cli._loader(config, "train", cfg, 8, shuffle=True, seed=SEED,
+                             compact=k)
+        images, targets = next(iter(loader))
+        nbytes = images.nbytes + sum(t.nbytes for t in targets)
+        state = create_train_state(cfg, 1e-3, seed=SEED, device=dev)
+        step = make_train_step(cfg, device=dev, compact_targets=bool(k),
+                               sparse_loss=sparse)
+        train_epoch(step, state, loader, dev)  # warm-up
+        runs[name] = [loader, state, step, nbytes, 0, 0.0]
+    for name in list(modes) + list(modes)[::-1]:
+        loader, state, step, *_ = runs[name]
+        for _ in range(COMPACT_EPOCHS):
+            state, *_, n, dt = train_epoch(step, state, loader, dev)
+            runs[name][4] += n
+            runs[name][5] += dt
+    rates = {}
+    for name, (loader, state, step, nbytes, n, dt) in runs.items():
+        busy = sum(kernel_ms(lambda: train_epoch(step, state, loader, dev),
+                             1).values())
+        wall = dt / (2 * COMPACT_EPOCHS) * 1e3
+        rates[name] = n / dt
+        log(f"train through the loader, {name}: {rates[name]:.1f} img/s "
+            f"({n} images in {2 * COMPACT_EPOCHS} epochs of {len(loader)} "
+            f"steps, in turns; host clock), {nbytes:,} bytes uploaded a "
+            f"batch, device busy {busy:.1f} ms of a {wall:.1f} ms epoch "
+            f"({busy / wall:.0%}; profiler, 1 epoch)")
+    return rates
+
+
 def main():
     t_main = time.perf_counter()
 
@@ -1808,6 +2150,19 @@ def main():
             f"(--val-det) + {af_map} (--map); conv backward {af_k2_launches}")
         done(16)
 
+        # 17. compact labels: the device assignment, the sparse loss, the
+        # mosaic and augmentation against their references, both heads'
+        # compact training through the CLI, throughput through the loader
+        images, labels, counts, in_range = _compact_labels(af_yaml)
+        phase_compact_assign(dev, labels, counts, in_range)
+        phase_sparse_loss(dev, labels, counts)
+        phase_augment_parity(dev, images, labels, counts)
+        compact_k1, compact_k2 = phase_compact_train(dev, Path(tmp), af_yaml)
+        phase_compact_throughput(dev, af_yaml)
+        log(f"compact path's kernel launches: NMS {compact_k1} (--val-det "
+            f"both heads + --map), conv backward {compact_k2}")
+        done(17)
+
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
         "route": "cuda",
@@ -1832,6 +2187,7 @@ def main():
         "af_batch_bound_ms": af_batch_bound[0],
         "af_val_det_launches": af_val_det,
         "af_map_launches": af_map,
+        "compact_launches": compact_k1,
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
@@ -1845,6 +2201,7 @@ def main():
         "bound_by": k2_bound[1],
         "library_ms": k2_lib_ms,
         "af_launches": af_k2_launches,
+        "compact_launches": compact_k2,
     }, *({
         "name": name,
         "route": "cuda",

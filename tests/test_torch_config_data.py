@@ -156,9 +156,12 @@ def test_unported_paths_raise(cfg, temp_dataset_dir):
         port_dataset.YoloDataset(split, backend="native")
     ds = port_dataset.YoloDataset(split, backend="auto")
     assert ds.backend == "pil"
-    with pytest.raises(NotImplementedError, match="compact targets"):
-        ds.load_batch_compact([0, 1])
-    with pytest.raises(NotImplementedError, match="compact targets"):
-        port_loader.DataLoader(ds, compact=16)
+    # compact targets are ported: (uint8 images, labels, counts)
+    images, labels, counts = ds.load_batch_compact([0, 1])
+    assert images.dtype == np.uint8 and labels.shape == (2, 64, 5)
+    assert counts.tolist() == [len(port_dataset.parse_label_file(
+        ds.labels[i])) for i in (0, 1)]
+    _, (labels, counts) = next(iter(port_loader.DataLoader(ds, compact=16)))
+    assert labels.shape[1:] == (16, 5) and counts.dtype == np.int32
     with pytest.raises(ValueError, match="unknown backend"):
         port_dataset.YoloDataset(split, backend="turbo")

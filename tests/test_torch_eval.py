@@ -194,9 +194,9 @@ def test_cli_trains_evaluates_and_jax_reads_the_checkpoint(
 @pytest.mark.parametrize("args", [["--ema"], ["--resume", "x.ckpt"],
                                   ["--stream-pool", "4"],
                                   ["--packed", "p3"],
-                                  ["--weight-decay", "0.05"],
-                                  ["--device-augment"], ["--int8"],
-                                  ["--device-mosaic"]])
+                                  ["--multi-scale"],
+                                  ["--augment"], ["--int8"],
+                                  ["--data-parallel"]])
 def test_cli_unported_flags_exit_2(args, capsys):
     assert cli.main(["data.yaml", *args]) == 2
     assert args[0] in capsys.readouterr().out

@@ -5,7 +5,8 @@ fresh interpreter the port must import, build a Predictor and serve an
 S x S uint8 array (whose letterbox is the identity and needs no PIL) on the
 CPU with either head and none of jax, flax or PIL in `sys.modules`; and
 train one step of either head on the CPU from a dataset of JPEGs (PIL
-decodes them) with no jax or flax.
+decodes them), with dense targets and on the compact path (mosaic,
+augmentation, the sparse loss, AdamW), with no jax or flax.
 The conv-backward prototype benchmarks import with none of jax, flax or
 triton, and run their CPU check as a user runs them. None of these loads
 any module of the JAX package (`yolo_from_scratch_tpu`), and no source
@@ -105,6 +106,15 @@ for head in ("anchor", "anchor_free"):
     state = create_train_state(cfg, 1e-3, seed=0, device=cpu)
     images, targets, _ = next(iter(DeviceQueue(loader, cpu)))
     state, metrics = make_train_step(cfg)(state, images, targets)
+    assert state.step == 1 and torch.isfinite(metrics["loss"]), metrics
+    # the compact path: labels expanded in the step, mosaic, augment, AdamW
+    loader = DataLoader(loader.dataset, batch_size=2, compact=8)
+    state = create_train_state(cfg, 1e-3, seed=0, device=cpu,
+                               weight_decay=0.05)
+    images, targets, _ = next(iter(DeviceQueue(loader, cpu)))
+    step = make_train_step(cfg, compact_targets=True, device_mosaic=True,
+                           device_augment="full", sparse_loss=True)
+    state, metrics = step(state, images, targets)
     assert state.step == 1 and torch.isfinite(metrics["loss"]), metrics
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax"))

@@ -10,9 +10,12 @@ dispatching on the positional files' extensions as the JAX CLI does.
 
 (`python train_torch.py ...` is the same command line.) Each prints the
 JAX CLI's stdout lines. Training runs either head (`--head anchor` or
-`anchor_free`) with dense host targets; evaluation, inference and inspect
-take the head from the checkpoint; `--dtype auto` is bfloat16 on the card
-and float32 on the CPU.
+`anchor_free`) with dense host targets, or with `--compact-targets [K]`
+from compact labels expanded on the device (`--sparse-loss`,
+`--device-mosaic`, `--device-augment [full|flip]`); `--weight-decay W`
+makes the optimizer AdamW. Evaluation, inference and inspect take the
+head from the checkpoint; `--dtype auto` is bfloat16 on the card and
+float32 on the CPU.
 `--val-det` adds the detection-level P/R/F1 to each epoch, `--map` adds
 mAP to evaluation (both through `BatchPredictor`, one NMS launch a batch),
 `--device-letterbox` resizes and pads on the device for inference and
@@ -35,12 +38,10 @@ YAML_EXTS = (".yaml", ".yml")
 
 # JAX-CLI flags with no port yet
 UNPORTED_FLAGS = (
-    "--resume", "--ema", "--compact-targets", "--sparse-loss",
-    "--multi-scale", "--augment", "--data-parallel", "--spatial",
-    "--model-parallel", "--distributed", "--coordinator", "--num-processes",
-    "--process-id", "--weight-decay", "--cache-dir", "--int8", "--export",
-    "--export-batch", "--export-platforms", "--device-mosaic",
-    "--device-augment",
+    "--resume", "--ema", "--multi-scale", "--augment", "--data-parallel",
+    "--spatial", "--model-parallel", "--distributed", "--coordinator",
+    "--num-processes", "--process-id", "--cache-dir", "--int8", "--export",
+    "--export-batch", "--export-platforms",
 )
 UNPORTED_PREFIXES = ("--stream", "--packed")
 
@@ -78,6 +79,38 @@ def build_parser():
                         help="detection head family: 'anchor' (the "
                              "reference's 3-anchor heads) or 'anchor_free' "
                              "(the YOLOv8-style decoupled head)")
+    parser.add_argument("--compact-targets", nargs="?", const=64, type=int,
+                        default=0, metavar="K",
+                        help="stream compact labels (up to K boxes an "
+                             "image, default 64) and build the targets on "
+                             "the device inside the step "
+                             "(data/assign_device.py): ~1.3 KB an image "
+                             "over the host link instead of ~8.6 MB at "
+                             "nc=80 @640. Evaluation: anchor head only")
+    parser.add_argument("--sparse-loss", action="store_true",
+                        help="with --compact-targets (anchor head): no "
+                             "dense target maps at all; the gather-based "
+                             "loss (ops/losses_sparse.py) reads only the "
+                             "<=K winner cells an image plus one "
+                             "objectness reduction. Same loss to "
+                             "summation order; augmentation moves to "
+                             "label level")
+    parser.add_argument("--device-mosaic", action="store_true",
+                        help="with --compact-targets: 4-image mosaic "
+                             "composed on the device inside the step "
+                             "(fixed-centre 2x2, partners from the batch, "
+                             "p=0.5; ops/mosaic_device.py)")
+    parser.add_argument("--device-augment", nargs="?", const="full",
+                        default=False, choices=["full", "flip"],
+                        help="augmentation on the device inside the train "
+                             "step. Bare/'full' = hflip + colour jitter; "
+                             "'flip' = hflip only (use when class identity "
+                             "is colour-coded)")
+    parser.add_argument("--weight-decay", type=float, default=0.0,
+                        metavar="W",
+                        help="AdamW decoupled weight decay (default 0 = "
+                             "plain Adam, the reference optimizer); every "
+                             "parameter is decayed")
     parser.add_argument("--reference-quirks", action="store_true",
                         help="replicate the reference's 640-denominator "
                              "decode in loss/eval at non-640 resolutions")
@@ -192,13 +225,15 @@ def _compute_anchors(args, yaml_file):
     return 0
 
 
-def _loader(config, split, cfg, batch_size, shuffle=False, seed=0):
+def _loader(config, split, cfg, batch_size, shuffle=False, seed=0,
+            compact=0):
     from yolo_from_scratch_tpu_torch.data import DataLoader, YoloDataset
 
     return DataLoader(YoloDataset(config[split], cfg.num_classes,
                                   cfg.anchors_array, cfg.img_size,
                                   head_type=cfg.head_type),
-                      batch_size=batch_size, shuffle=shuffle, seed=seed)
+                      batch_size=batch_size, shuffle=shuffle, seed=seed,
+                      compact=compact)
 
 
 def _evaluate(args, config, ckpt_file):
@@ -219,8 +254,11 @@ def _evaluate(args, config, ckpt_file):
     model = YOLO(cfg)
     model.load_state_dict(state_dict)
     model.to(device)
+    compact = args.compact_targets if cfg.head_type == "anchor" else 0
+    if args.compact_targets and not compact:
+        print("NOTE: --compact-targets ignored (anchor head only)")
     eval_step = make_eval_step(cfg, quirk_640=args.reference_quirks,
-                               device=device)
+                               device=device, compact_targets=bool(compact))
     predictor = None
     if args.map:
         from yolo_from_scratch_tpu_torch.infer.predict import BatchPredictor
@@ -232,7 +270,8 @@ def _evaluate(args, config, ckpt_file):
                                    device_letterbox=args.device_letterbox,
                                    device=device)
     for title, split in (("Training", "train"), ("Validation", "val")):
-        loader = _loader(config, split, cfg, args.batch_size)
+        loader = _loader(config, split, cfg, args.batch_size,
+                         compact=compact)
         loss, p, r, f1 = eval_epoch(eval_step, model, loader, device)
         print(f"\n{title} Set:")
         print(f"  Loss: {loss:.4f}")
@@ -296,10 +335,27 @@ def _train(args, config):
                                num_classes=config.get("nc", 1),
                                img_size=args.img_size, compute_dtype=dtype,
                                head_type=args.head)
-    state = create_train_state(cfg, args.lr, seed=args.seed, device=device)
+    if args.device_mosaic and not args.compact_targets:
+        print("ERROR: --device-mosaic requires --compact-targets "
+              "(it transforms raw labels, not dense maps)")
+        return 1
+    if args.sparse_loss and not args.compact_targets:
+        print("ERROR: --sparse-loss requires --compact-targets "
+              "(it gathers from raw labels, not dense maps)")
+        return 1
+    if args.sparse_loss and cfg.head_type == "anchor_free":
+        print("NOTE: --sparse-loss ignored (anchor-free TAL is "
+              "already dense-transport-free)")
+    state = create_train_state(cfg, args.lr, seed=args.seed, device=device,
+                               weight_decay=args.weight_decay)
+    # both heads build their eval targets on the device from compact
+    # labels (anchor: data/assign_device.py; anchor-free:
+    # models/anchor_free.py::assign_targets_anchor_free_device_batch)
     train_loader = _loader(config, "train", cfg, args.batch_size,
-                           shuffle=True, seed=args.seed)
-    val_loader = _loader(config, "val", cfg, args.batch_size)
+                           shuffle=True, seed=args.seed,
+                           compact=args.compact_targets)
+    val_loader = _loader(config, "val", cfg, args.batch_size,
+                         compact=args.compact_targets)
     if len(train_loader.dataset) == 0:
         print(f"ERROR: no images found in {config['train']} "
               f"(expected *.jpg / *.jpeg / *.png)")
@@ -316,9 +372,16 @@ def _train(args, config):
     print(f"  Total epochs: {args.epochs}")
     det_eval = (_det_eval(cfg, state.model, val_loader.dataset, device)
                 if args.val_det else None)
+    train_step = make_train_step(
+        cfg, args.reference_quirks, device,
+        device_augment=args.device_augment, augment_seed=args.seed,
+        compact_targets=bool(args.compact_targets),
+        device_mosaic=args.device_mosaic, sparse_loss=args.sparse_loss)
+    eval_step = make_eval_step(cfg, quirk_640=args.reference_quirks,
+                               device=device,
+                               compact_targets=bool(args.compact_targets))
     state, save_path = fit(
-        state, make_train_step(cfg, args.reference_quirks, device),
-        make_eval_step(cfg, quirk_640=args.reference_quirks, device=device),
+        state, train_step, eval_step,
         train_loader, val_loader, cfg, device=device, epochs=args.epochs,
         initial_lr=args.lr, min_lr=args.min_lr,
         warmup_epochs=args.warmup_epochs, metrics_path=args.metrics_jsonl,

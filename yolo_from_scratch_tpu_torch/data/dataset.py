@@ -1,7 +1,8 @@
 """YOLO-format dataset with dense multi-scale target assignment: the port's
-copy of `yolo_from_scratch_tpu/data/dataset.py`, the PIL backend and the
-dense host targets, bit-equal to the JAX package's
-(`tests/test_torch_config_data.py`).
+copy of `yolo_from_scratch_tpu/data/dataset.py`, the PIL backend, the
+dense host targets and the compact labels of the on-device assignment
+(`load_batch_compact`), bit-equal to the JAX package's
+(`tests/test_torch_config_data.py`, `tests/test_torch_assign_device.py`).
 
 Behavior parity with the reference dataset (reference: train.py:60-207):
 - images globbed as sorted(*.jpg + *.png) (train.py:62);
@@ -16,16 +17,15 @@ Behavior parity with the reference dataset (reference: train.py:60-207):
   class one-hot at 5+class_id for nc>1 and index 5 for nc==1
   (train.py:201-205).
 
-Not ported yet, and an error that names them when asked for: the native
-C++ JPEG loader (`backend="native"`, `yolo_from_scratch_tpu/native/`) and
-compact targets for on-device assignment (`load_batch_compact`,
-`data/assign_device.py::pack_labels`). Load-time augmentation is not
-copied.
+Not ported yet, and an error that names it when asked for: the native
+C++ JPEG loader (`backend="native"`, `yolo_from_scratch_tpu/native/`).
+Load-time augmentation is not copied.
 """
 
 from __future__ import annotations
 
 import glob
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -44,8 +44,6 @@ from yolo_from_scratch_tpu_torch.data.letterbox import (
 NATIVE_NOT_PORTED = ("the native JPEG loader (backend='native', "
                      "yolo_from_scratch_tpu/native) is not ported yet; use "
                      "backend='pil'")
-COMPACT_NOT_PORTED = ("compact targets (load_batch_compact, "
-                      "assign_device.pack_labels) are not ported yet")
 
 
 def parse_label_file(path) -> np.ndarray:
@@ -165,6 +163,7 @@ class YoloDataset:
         self.output_dim = 5 + num_classes
         self.backend = "pil"
         self.head_type = head_type
+        self._warned_capacity = False
 
     def _assign(self, boxes, class_ids):
         if self.head_type == "anchor_free":
@@ -204,7 +203,41 @@ class YoloDataset:
         return img, self._assign(boxes, classes)
 
     def load_batch_compact(self, indices, capacity=64):
-        raise NotImplementedError(COMPACT_NOT_PORTED)
+        """The compact path's batch (`data/assign_device.py`): images and
+        padded raw labels, no dense maps (the step builds them on the
+        device).
+
+        Returns (images (B, S, S, 3) uint8, labels (B, K, 5) f32 [class,
+        cx, cy, w, h], counts (B,) int32). An image with more than K =
+        `capacity` boxes keeps its first K (file order), with one warning
+        on stderr for the dataset.
+        """
+        from PIL import Image
+
+        from yolo_from_scratch_tpu_torch.data.assign_device import pack_labels
+
+        imgs_u8, boxes_list, class_list = [], [], []
+        for i in (int(i) for i in indices):
+            pil = Image.open(self.imgs[i]).convert("RGB")
+            orig_w, orig_h = pil.size
+            img_u8, scale, pad_top, pad_left = letterbox_image(
+                pil, self.img_size)
+            imgs_u8.append(img_u8)
+            rows = parse_label_file(self.labels[i])
+            boxes_list.append(adjust_boxes_for_letterbox(
+                rows[:, 1:5], orig_w, orig_h, scale, pad_top, pad_left,
+                self.img_size))
+            class_list.append(rows[:, 0].astype(np.int64))
+        images = np.stack(imgs_u8)
+        over = max((len(b) for b in boxes_list), default=0)
+        if over > capacity and not self._warned_capacity:
+            print(f"WARNING: image with {over} boxes exceeds the "
+                  f"compact-label capacity K={capacity}; keeping the first "
+                  f"{capacity} (file order). Raise --compact-targets K to "
+                  f"keep all boxes.", file=sys.stderr, flush=True)
+            self._warned_capacity = True
+        labels, counts = pack_labels(boxes_list, class_list, capacity)
+        return images, labels, counts
 
     def load_batch(self, indices):
         """(images (B,S,S,3) f32, [t_p3,t_p4,t_p5]) for `indices`, item by

@@ -12,20 +12,20 @@ from __future__ import annotations
 
 import torch
 
+from yolo_from_scratch_tpu_torch.device import upload
+
 
 class DeviceQueue:
-    """Iterate (images, [t_p3, t_p4, t_p5], valid_count) on `device`, one
-    batch ahead of the consumer."""
+    """Iterate (images, targets, valid_count) on `device`, one batch ahead
+    of the consumer: targets [t_p3, t_p4, t_p5] dense, or [labels, counts]
+    for a compact loader (`DataLoader(compact=K)`)."""
 
     def __init__(self, loader, device):
         self.loader = loader
         self.device = torch.device(device)
 
     def _put(self, array):
-        t = torch.from_numpy(array)
-        if self.device.type == "cpu":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return upload(torch.from_numpy(array), self.device)
 
     def _place(self, images, targets):
         return (self._put(images), [self._put(t) for t in targets],

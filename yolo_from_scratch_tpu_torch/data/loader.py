@@ -2,9 +2,9 @@
 `yolo_from_scratch_tpu/data/loader.py` (`DataLoader`), single-process.
 
 A background thread prepares the next batch (decode, letterbox, dense
-target assignment, stacking) while the card runs the current step.
-Batches are numpy; `data/device_queue.py` moves them to the device.
-Compact targets (`compact > 0`) are not ported yet and raise.
+target assignment or compact labels, stacking) while the card runs the
+current step. Batches are numpy; `data/device_queue.py` moves them to the
+device.
 """
 
 from __future__ import annotations
@@ -14,22 +14,22 @@ import threading
 
 import numpy as np
 
-from yolo_from_scratch_tpu_torch.data.dataset import COMPACT_NOT_PORTED
-
 
 class DataLoader:
     """Minimal shuffling/batching loader over a YoloDataset-like object.
 
     Yields (images (B, S, S, 3) float32, [t_p3, t_p4, t_p5]) per batch,
     each target stacked to (B, gs, gs, A, 5+nc), or (B, gs, gs, 5+nc) for
-    the anchor-free head's dataset. The final partial batch is
-    kept (reference DataLoader default drop_last=False).
+    the anchor-free head's dataset; with `compact` = K > 0, (images uint8,
+    (labels (B, K, 5), counts (B,))) from `load_batch_compact`, the
+    on-device assignment path (~1.3 KB of labels an image at K=64 instead
+    of the dense maps). The final partial batch is kept (reference
+    DataLoader default drop_last=False).
     """
 
     def __init__(self, dataset, batch_size=8, shuffle=False, seed=0,
                  prefetch=2, compact=0):
-        if compact:
-            raise NotImplementedError(COMPACT_NOT_PORTED)
+        self.compact = compact
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -47,6 +47,10 @@ class DataLoader:
             yield idx[i : i + self.batch_size]
 
     def _make_batch(self, indices):
+        if self.compact:
+            images, labels, counts = self.dataset.load_batch_compact(
+                indices, capacity=self.compact)
+            return images, (labels, counts)
         # dataset-provided batch fast path when present
         load_batch = getattr(self.dataset, "load_batch", None)
         if load_batch is not None:

@@ -22,6 +22,15 @@ def cuda_device() -> torch.device:
     return torch.device("cuda")
 
 
+def upload(t, device):
+    """A CPU tensor on `device`, copied through pinned memory without
+    waiting for the card (a copy from pageable memory may wait for it); on
+    the CPU t itself. None stays None."""
+    if t is None or torch.device(device).type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 @contextlib.contextmanager
 def tf32_disabled():
     """Run float32 convolutions and matmuls in full float32.

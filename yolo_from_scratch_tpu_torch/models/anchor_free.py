@@ -13,15 +13,15 @@
   scores; box and DFL losses are weighted by them;
 - the dense per-scale maps of `assign_targets_anchor_free` are transport
   only: `_gather_gt` pulls a padded (M, 4 + nc) GT set back out of them.
+  The compact-label path feeds the GT set directly and builds the maps on
+  the device for the grid metric only
+  (`assign_targets_anchor_free_device_batch`).
 
 Every shape is static: the assignment is a dense (B, M, A) tensor program
 (M = MAX_GT padded GT slots, A = all cells across scales). TAL, DFL and the
 losses are autograd on plain tensors, as in the JAX package; the head's
 3x3 convs take the fused conv backward where `ConvBNSiLU`'s gate selects
 them.
-
-Not ported: `assign_targets_anchor_free_device(_batch)`, which only the
-compact-target path uses.
 """
 
 from __future__ import annotations
@@ -35,6 +35,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolo_from_scratch_tpu_torch.config import INV255, STRIDES
+from yolo_from_scratch_tpu_torch.data.assign_device import (
+    cell_index,
+    first_wins,
+    onehot_in_range,
+    prefix_valid,
+    scatter_rows,
+)
 from yolo_from_scratch_tpu_torch.device import tf32_disabled
 from yolo_from_scratch_tpu_torch.models.blocks import (
     ConvBNSiLU,
@@ -172,6 +179,37 @@ def assign_targets_anchor_free(boxes: np.ndarray, class_ids: np.ndarray,
             t[gy, gx, 0:4] = boxes[n]
             t[gy, gx, 4] = 1.0
             t[gy, gx, 5 + int(class_ids[n])] = 1.0
+    return targets
+
+
+def assign_targets_anchor_free_device_batch(labels, counts, img_size: int,
+                                            num_classes: int):
+    """`assign_targets_anchor_free` of a batch on the labels' device, from
+    compact labels (B, K, 5) [class, cx, cy, w, h] and (B,) valid counts.
+
+    Returns [(B, gs, gs, 4+1+nc)] x3, bit-equal to the host assignment of
+    each image's valid rows: the same size-routed scale, truncating cell
+    index and first-GT-wins rule in row order, by the anchor head's
+    machinery (`data/assign_device.py`); out-of-range class ids write a
+    zero class row, where the host would index out of bounds. The compact
+    val loader's grid metric reads these maps (the TAL loss never needs
+    them: `yolo_loss_anchor_free_from_gt`)."""
+    b, k = labels.shape[:2]
+    boxes = labels[..., 1:5]
+    valid = prefix_valid(counts, k)
+    size = torch.maximum(boxes[..., 2], boxes[..., 3])
+    scale = torch.where(size <= AF_SCALE_THRESHOLDS[0], 0,
+                        torch.where(size <= AF_SCALE_THRESHOLDS[1], 1, 2))
+    onehot = onehot_in_range(labels[..., 0].to(torch.int32), num_classes)
+    rows = torch.cat([boxes, torch.ones_like(boxes[..., :1]), onehot], dim=-1)
+    targets = []
+    for s, stride in enumerate(STRIDES):
+        gs = img_size // stride
+        mine = valid & (scale == s)
+        slot = torch.where(mine, cell_index(boxes[..., 1], gs) * gs
+                           + cell_index(boxes[..., 0], gs), gs * gs)
+        flat = scatter_rows(rows, first_wins(mine, slot), slot, gs * gs)
+        targets.append(flat.reshape(b, gs, gs, 5 + num_classes))
     return targets
 
 
