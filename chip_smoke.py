@@ -111,16 +111,35 @@ and prints no result):
    optax.adamw chain and runs `--map`, the anchor checkpoint's compact
    evaluation prints the dense evaluation's P/R/F1 lines; train img/s
    through the loader, dense against compact and compact + sparse, in
-   turns, with the bytes uploaded a batch and the device's busy share.
+   turns, with the bytes uploaded a batch and the device's busy share;
+18. `--stream` on phase 16's nc=80 data at 64 train and 8 val images and
+   its on-disk cache, b8 bf16, K=64, YOLO_FUSED_CONV_BWD=1: (a) a chunk
+   of 4 steps replayed as one CUDA graph equals 4 eager steps of the same
+   capturable optimizer bit for bit (weights, BatchNorm statistics, Adam's
+   moments, metrics; cudnn.deterministic and torch's deterministic mode,
+   whose warnings name any op without a deterministic kernel), for the
+   anchor head (`--sparse-loss --device-mosaic --device-augment`) and the
+   anchor-free head (`--device-mosaic --device-augment flip
+   --weight-decay 0.05`); two replays from one state are bit-equal; the
+   pool trainer equals the compact trainer on the gathered batches; (b)
+   one capturable clip + Adam update within 2.5e-7 + 3 ulps of the
+   non-capturable one on the same gradients; (c) img/s and the device's
+   busy share of the eager step, the graphed chunk at N=4 and N=16 on a
+   resident chunk and `ChunkStream` from the cache; (d) K2's launches in
+   one replay, from the profiler (a captured launch is counted by the
+   wrapper once, at capture); (e) `train_torch.py`'s command line trains
+   `--stream --stream-chunk 4 ... --val-det` two epochs, then with
+   `--stream-pool 32`: the NMS kernel's launches rise through --val-det,
+   the pool run prints its ingest rate, the checkpoint's step is 16.
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
 the kernel, its plain version and the one-call library equivalent where
 there is one, and the H100 bound with what bounds it, all at the same
 inputs; the NMS kernel also its launches, device ms and bound on phase
-13's batch, both kernels their launches on phase 16's anchor-free paths
-and on phase 17's compact paths); the last line is `{"ok": true,
-"device": {...}}`.
+13's batch, both kernels their launches on phase 16's anchor-free paths,
+on phase 17's compact paths and on phase 18's stream paths); the last
+line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -137,6 +156,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -206,6 +226,10 @@ from yolo_from_scratch_tpu_torch.utils.timing import (
     kernel_ms,
     median_ms,
 )
+
+# torch's deterministic mode (phase 18) needs cuBLAS's fixed workspace,
+# set before the first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 SEED = 0
 CONF = 0.005  # random weights give obj ~ sigmoid(-4.6) ~ 0.01
@@ -296,6 +320,24 @@ COMPACT_K = 64        # --compact-targets' default capacity
 SPARSE_TOL = 1e-5
 AUG_IMAGE_TOL = 1e-6  # mosaic / jitter, card vs CPU: sums of 4, multiply-add
 COMPACT_EPOCHS = 3    # timed epochs a turn, two turns a path
+# phase 18: --stream on phase 16's nc=80 data, enlarged
+STREAM_TRAIN, STREAM_VAL = 64, 8
+STREAM_N = 4          # steps a graphed chunk in (a), (d), (e)
+STREAM_N_LONG = 16    # the longer chunk of (c)
+STREAM_POOL = 32      # pool images in (a) and (e)
+STREAM_REPEATS = 3    # timed chunks (eager: steps x N) or epochs in (c)
+STREAM_FLAGS = {"anchor": ("--sparse-loss", "--device-mosaic",
+                           "--device-augment"),
+                "anchor_free": ("--device-mosaic", "--device-augment flip",
+                                "--weight-decay 0.05")}
+# (head, trainer flags, weight decay, gated convs a step)
+STREAM_RECIPES = (
+    ("anchor", dict(sparse_loss=True, device_mosaic=True,
+                    device_augment=True), 0.0, GATED_CONVS_BF16),
+    ("anchor_free", dict(device_mosaic=True, device_augment="flip"), 0.05,
+     sum(AF_GATED.values())),
+)
+TRACE_ATTEMPTS = 6
 
 
 def log(msg):
@@ -2034,6 +2076,391 @@ def phase_compact_throughput(dev, yaml_path):
     return rates
 
 
+def _stream_cfg(head):
+    return YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE,
+                                compute_dtype="bfloat16", head_type=head)
+
+
+def _state_tensors(state):
+    """Clones of the weights, BatchNorm statistics and Adam's state."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for name, p in state.model.named_parameters():
+        for k, v in state.optimizer.state[p].items():
+            out[f"adam.{name}.{k}"] = v.detach().clone()
+    return out
+
+
+def _differ(what, got, want):
+    """{name: max |difference|} of the tensors that are not bit-equal."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: different state keys")
+    return {k: (got[k].double() - want[k].double()).abs().max().item()
+            for k in want if not torch.equal(got[k], want[k])}
+
+
+def _chunk(cache, n, start, dev):
+    """N steps x 8 images of the cache from row `start`, wrapping, on the
+    card."""
+    rows = np.arange(start, start + 8 * n) % len(cache)
+    return [torch.from_numpy(np.ascontiguousarray(a[rows])).reshape(
+        n, 8, *a.shape[1:]).to(dev) for a in (cache.images, cache.labels,
+                                               cache.counts)]
+
+
+def _launch_counts(fn):
+    """{kernel name: (launches, device ms)} in one call of fn, from the
+    profiler; a trace without device events is taken again (as
+    utils/timing.py's kernel_ms does)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(TRACE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {e.key: (e.count, getattr(
+            e, "self_device_time_total",
+            getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+        if counts:
+            return counts
+        time.sleep(0.5)
+    raise RuntimeError("the profiler saw no kernel in a replay")
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms, torch's deterministic mode (warn
+    only: the warnings name the ops without a deterministic kernel) and
+    no autotuning, restored on exit."""
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            prev[:2]
+        torch.use_deterministic_algorithms(prev[2], warn_only=prev[3])
+
+
+def phase_stream_setup(workdir):
+    """Phase 16's nc=80 synthetic data at 64 train and 8 val images, and
+    its training cache."""
+    from yolo_from_scratch_tpu_torch.data.cache import ensure_cache
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    t0 = time.perf_counter()
+    yaml_path = make_dataset(workdir / "stream", n_train=STREAM_TRAIN,
+                             n_val=STREAM_VAL, img_size=IMG_SIZE, seed=SEED,
+                             num_classes=AF_NC)
+    t1 = time.perf_counter()
+    ds = YoloDataset(load_dataset_yaml(yaml_path)["train"], AF_NC,
+                     img_size=IMG_SIZE)
+    cache = ensure_cache(ds, capacity=COMPACT_K, log=None)
+    log(f"phase 18 data: {STREAM_TRAIN} train + {STREAM_VAL} val nc={AF_NC} "
+        f"images at {IMG_SIZE} in {t1 - t0:.2f} s; cache of {len(cache)} "
+        f"images ({len(cache) * cache.image_nbytes / 1e6:.1f} MB) built in "
+        f"{time.perf_counter() - t1:.2f} s")
+    return yaml_path, cache
+
+
+def phase_stream_graph(dev, cache):
+    """(a) a graphed chunk of N against N eager steps of the same
+    capturable optimizer, for both recipes; two replays from one state;
+    the pool trainer against the compact trainer on the gathered batches;
+    (d) K2's launches in one replay, from the profiler. Returns {head: K2
+    launches in a replay}."""
+    from yolo_from_scratch_tpu_torch.train import graphs
+    from yolo_from_scratch_tpu_torch.train.steps import (
+        make_train_step_multi_compact,
+        make_train_step_multi_pool,
+    )
+
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    chunk = _chunk(cache, STREAM_N, 0, dev)
+    replay_k2 = {}
+    for head, flags, wd, n_gated in STREAM_RECIPES:
+        cfg = _stream_cfg(head)
+        t0 = time.perf_counter()
+        with _deterministic() as caught:
+            eager = create_train_state(cfg, 1e-3, seed=SEED, device=dev,
+                                       weight_decay=wd)
+            step = make_train_step(cfg, device=dev, compact_targets=True,
+                                   augment_seed=SEED, **flags)
+            per = []
+            for i in range(STREAM_N):
+                eager, m = step(eager, chunk[0][i], (chunk[1][i],
+                                                     chunk[2][i]))
+                per.append(torch.stack([m[k] for k in sorted(m)]))
+            want = _state_tensors(eager)
+            want_m = torch.stack(per).mean(0)
+            del eager, step
+            state = create_train_state(cfg, 1e-3, seed=SEED, device=dev,
+                                       weight_decay=wd)
+            snap = graphs.Snapshot(state.model, state.optimizer)
+            trainer = make_train_step_multi_compact(
+                cfg, device=dev, augment_seed=SEED, **flags)
+            state, m = trainer(state, *chunk)
+            got = _state_tensors(state)
+            got_m = torch.stack([m[k] for k in sorted(m)])
+            snap.restore()
+            state.step = 0
+            state, m2 = trainer(state, *chunk)
+            again = _state_tensors(state)
+            again_m = torch.stack([m2[k] for k in sorted(m2)])
+        torch.cuda.synchronize()
+        ops = sorted({str(w.message).split(" does not have")[0]
+                      for w in caught if "deterministic" in str(w.message)})
+        vs_eager = _differ(f"{head} graph vs eager", got, want)
+        replays = _differ(f"{head} replay vs replay", again, got)
+        worst = max(vs_eager.items(), key=lambda kv: kv[1],
+                    default=("", 0.0))
+        log(f"phase 18 {head} ({' '.join(STREAM_FLAGS[head])}): a graphed "
+            f"chunk of {STREAM_N} vs {STREAM_N} eager steps of the same "
+            f"capturable {'AdamW' if wd else 'Adam'} (cudnn.deterministic, "
+            f"torch deterministic mode): {len(got) - len(vs_eager)} / "
+            f"{len(got)} state tensors bit-equal, worst {worst[1]:.3e} "
+            f"({worst[0] or '-'}); metrics {got_m.tolist()} vs "
+            f"{want_m.tolist()}; two replays from one state: "
+            f"{len(got) - len(replays)} / {len(got)} bit-equal, metrics "
+            f"equal {torch.equal(got_m, again_m)}; ops without a "
+            f"deterministic kernel: {ops or 'none'}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if vs_eager or not torch.equal(got_m, want_m):
+            raise AssertionError(f"{head}: graphed chunk differs from the "
+                                 f"eager steps: "
+                                 f"{sorted(vs_eager.items())[:8]}")
+        if replays or not torch.equal(got_m, again_m):
+            raise AssertionError(f"{head}: two replays differ: "
+                                 f"{sorted(replays.items())[:8]}")
+
+        # (d) K2 in one replay
+        snap.restore()
+        state.step = 0
+        counts = _launch_counts(lambda: trainer(state, *chunk))
+        k2 = sum(n for k, (n, _) in counts.items() if "conv3x3_bwd" in k)
+        k2_ms = sum(ms for k, (_, ms) in counts.items() if "conv3x3_bwd" in k)
+        busy = sum(ms for _, ms in counts.values())
+        want_k2 = n_gated * STREAM_N * conv_bwd.LAUNCHES_PER_CALL
+        log(f"phase 18 {head}: one replay launches "
+            f"{sum(n for n, _ in counts.values())} kernels in {busy:.2f} ms "
+            f"of device time, K2 {k2} of them (= {n_gated} gated convs x "
+            f"{STREAM_N} steps x {conv_bwd.LAUNCHES_PER_CALL}) in "
+            f"{k2_ms:.3f} ms; profiler")
+        if k2 != want_k2:
+            raise AssertionError(f"{head}: {k2} K2 launches in a replay, "
+                                 f"want {want_k2}")
+        replay_k2[head] = k2
+
+        if head == "anchor":
+            # the pool trainer == the compact trainer on the gathered batches
+            rng = np.random.default_rng(SEED)
+            pool = _chunk(cache, STREAM_POOL // 8, 0, dev)
+            pool = [t.reshape(STREAM_POOL, *t.shape[2:]) for t in pool]
+            idx = torch.from_numpy(rng.integers(
+                0, STREAM_POOL, (STREAM_N, 8), np.int32)).to(dev)
+            with _deterministic():
+                snap.restore()
+                state.step = 0
+                state, m = trainer(state, *(t[idx.long()] for t in pool))
+                gathered = _state_tensors(state)
+                del trainer, state, snap
+                pstate = create_train_state(cfg, 1e-3, seed=SEED, device=dev,
+                                            weight_decay=wd)
+                pstate, pm = make_train_step_multi_pool(
+                    cfg, device=dev, augment_seed=SEED, **flags)(
+                    pstate, *pool, idx)
+                pooled = _state_tensors(pstate)
+            diff = _differ("pool vs gathered", pooled, gathered)
+            log(f"phase 18 pool trainer (P={STREAM_POOL}) vs the compact "
+                f"trainer on the gathered batches: {len(pooled) - len(diff)}"
+                f" / {len(pooled)} state tensors bit-equal, loss "
+                f"{pm['loss'].item():.6f} vs {m['loss'].item():.6f}")
+            if diff or not torch.equal(pm["loss"], m["loss"]):
+                raise AssertionError(f"pool trainer differs: "
+                                     f"{sorted(diff.items())[:8]}")
+            del pstate
+        else:
+            del trainer, state, snap
+        torch.cuda.empty_cache()
+    return replay_k2
+
+
+def phase_stream_capturable(dev, cache):
+    """(b) one clip + capturable Adam update against the non-capturable
+    one on the same gradients: within 2.5e-7 + 3 ulps of the parameter
+    (tests/test_torch_train.py's bound for clip + Adam against optax)."""
+    from yolo_from_scratch_tpu_torch.train.steps import (
+        TrainState,
+        _make_expand,
+        clip_by_global_norm_,
+        make_optimizer,
+    )
+
+    cfg = _stream_cfg("anchor")
+    chunk = _chunk(cache, 1, 0, dev)
+    states = [create_train_state(cfg, 1e-3, seed=SEED, device=dev)]
+    model = copy.deepcopy(states[0].model)
+    states.append(TrainState(model, make_optimizer(model.parameters(), 1e-3,
+                                                   capturable=False)))
+    images, targets = _make_expand(cfg, True, dev)(
+        0, chunk[0][0], (chunk[1][0], chunk[2][0]))
+    total, _ = make_loss_fn(cfg, device=dev)(states[0].model, images, targets)
+    total.backward()
+    for p, q in zip(states[0].model.parameters(), model.parameters()):
+        q.grad = p.grad.clone()
+    for s in states:
+        clip_by_global_norm_([p.grad for p in s.model.parameters()])
+        s.optimizer.step()
+    worst = (0.0, "")
+    for (name, p), q in zip(states[0].model.named_parameters(),
+                            model.parameters()):
+        w = q.detach().double()
+        err = (p.detach().double() - w).abs()
+        tol = 2.5e-7 + 3 * torch.from_numpy(np.spacing(
+            np.abs(q.detach().float().cpu().numpy()))).to(dev).double()
+        worst = max(worst, ((err / tol).max().item(), name))
+    log(f"phase 18 (b): one clip + Adam update, capturable vs not, on the "
+        f"same gradients: worst error {worst[0]:.3f} of 2.5e-7 + 3 ulps "
+        f"({worst[1]})")
+    if worst[0] > 1.0:
+        raise AssertionError("capturable Adam differs from Adam")
+
+
+def _busy_ms(fn):
+    return sum(kernel_ms(fn, 1).values())
+
+
+def phase_stream_throughput(dev, cache):
+    """(c) img/s and the card's busy share at b8 bf16 (the anchor recipe):
+    the eager step, the graphed chunk at N=4 and N=16 on a resident
+    chunk, and ChunkStream from the cache at N=4."""
+    from yolo_from_scratch_tpu_torch.data.stream import ChunkStream
+    from yolo_from_scratch_tpu_torch.train.steps import (
+        make_train_step_multi_compact,
+    )
+
+    head, flags, _, _ = STREAM_RECIPES[0]
+    cfg = _stream_cfg(head)
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    state = create_train_state(cfg, 1e-3, seed=SEED, device=dev)
+    rows = {}
+
+    step = make_train_step(cfg, device=dev, compact_targets=True,
+                           augment_seed=SEED, **flags)
+    chunk = _chunk(cache, STREAM_N, 0, dev)
+
+    def eager():
+        for i in range(STREAM_N):
+            step(state, chunk[0][i], (chunk[1][i], chunk[2][i]))
+
+    eager()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STREAM_REPEATS):
+        eager()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / (STREAM_REPEATS * STREAM_N)
+    rows["eager step"] = (wall, _busy_ms(eager) / STREAM_N)
+
+    for n in (STREAM_N, STREAM_N_LONG):
+        trainer = make_train_step_multi_compact(cfg, device=dev,
+                                                augment_seed=SEED, **flags)
+        chunk = _chunk(cache, n, 0, dev)
+        t0 = time.perf_counter()
+        trainer(state, *chunk)  # capture + one replay
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(STREAM_REPEATS):
+            trainer(state, *chunk)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / (STREAM_REPEATS * n)
+        rows[f"graph N={n}"] = (wall, _busy_ms(lambda: trainer(
+            state, *chunk)) / n)
+        log(f"phase 18 graph N={n}: capture + first replay "
+            f"{capture_s:.2f} s")
+        if n == STREAM_N:
+            stream = ChunkStream(cache, batch_size=8, steps_per_chunk=n,
+                                 seed=SEED, device=dev)
+            stream.run_epoch(trainer, state)
+            dt = 0.0
+            for _ in range(STREAM_REPEATS):
+                dt += stream.run_epoch(trainer, state)[3]
+            steps = STREAM_REPEATS * stream.steps_per_epoch
+            busy = _busy_ms(lambda: stream.run_epoch(trainer, state))
+            rows[f"ChunkStream N={n}"] = (dt / steps,
+                                          busy / stream.steps_per_epoch)
+        del trainer, chunk
+        torch.cuda.empty_cache()
+    smi = _smi("name,power.limit")
+    for name, (wall, busy) in rows.items():
+        log(f"phase 18 (c) {name}: {8 / wall:.1f} img/s, {wall * 1e3:.2f} ms "
+            f"a step (host clock, {STREAM_REPEATS} repeats), device busy "
+            f"{busy:.2f} ms a step ({busy / (wall * 1e3):.0%}; profiler); "
+            f"{smi}")
+    return {k: 8 / v[0] for k, v in rows.items()}
+
+
+def phase_stream_cli(workdir, yaml_path):
+    """(e) the CLI trains --stream and --stream --stream-pool 32 two epochs
+    with K2 and --val-det; K1's launches rise through --val-det, the pool
+    run prints its ingest rate, the checkpoints' step is the steps taken.
+    Returns (K1 launches, K2 launches counted by the wrapper)."""
+    base = [str(yaml_path), "--epochs", "2", "--batch-size", "8", "--size",
+            "s", "--img-size", str(IMG_SIZE), "--stream", "--stream-chunk",
+            str(STREAM_N), "--compact-targets", "--device-mosaic",
+            "--device-augment", "--sparse-loss", "--val-det"]
+    steps = 2 * -(-STREAM_TRAIN // (8 * STREAM_N)) * STREAM_N
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    k1 = k2 = 0
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        for extra, banner in (([], "double-buffered chunks of "
+                                   f"{STREAM_N} steps"),
+                              (["--stream-pool", str(STREAM_POOL)],
+                               f"via a {STREAM_POOL}-image HBM pool")):
+            conv_bwd.launches = 0
+            nms_cuda.launches = 0
+            t0 = time.perf_counter()
+            rc, out = _cli(base + extra)
+            wall = time.perf_counter() - t0
+            launches = (nms_cuda.launches, conv_bwd.launches)
+            epochs = re.findall(r"^Epoch \d: .*$", out, re.M)
+            saved = re.search(r"Training complete\. Model saved to (\S+)", out)
+            pool = bool(extra)
+            if (rc != 0 or len(epochs) != 2 or not saved or banner not in out
+                    or any(" | Det: P " not in e
+                           or (" | ingest " in e) != pool for e in epochs)):
+                raise AssertionError(f"--stream {' '.join(extra)} CLI: rc "
+                                     f"{rc}, output:\n{out}")
+            step = read_payload(workdir / saved.group(1))["extra"]["step"]
+            if step != steps or launches[0] < 2 or launches[1] < 1:
+                raise AssertionError(f"--stream {' '.join(extra)}: step "
+                                     f"{step} (want {steps}), K1 launches "
+                                     f"{launches[0]}, K2 {launches[1]}")
+            k1 += launches[0]
+            k2 += launches[1]
+            log(f"phase 18 (e) CLI --stream {' '.join(extra)}: {wall:.1f} s "
+                f"for 2 epochs + eval + --val-det, checkpoint step {step}; "
+                f"K1 launches {launches[0]} (--val-det), K2 wrapper calls "
+                f"{launches[1]} (counted at warm-up and capture, not at "
+                f"replays); {epochs[-1].split(' | LR: ')[-1]}")
+    finally:
+        os.chdir(cwd)
+    return k1, k2
+
+
 def main():
     t_main = time.perf_counter()
 
@@ -2163,6 +2590,19 @@ def main():
             f"both heads + --map), conv backward {compact_k2}")
         done(17)
 
+        # 18. --stream: the cache, graphed chunks against eager steps,
+        # capturable Adam, throughput, K2 in a replay, the CLI
+        stream_yaml, cache = phase_stream_setup(Path(tmp))
+        stream_k2 = phase_stream_graph(dev, cache)
+        phase_stream_capturable(dev, cache)
+        phase_stream_throughput(dev, cache)
+        stream_k1, stream_k2_calls = phase_stream_cli(Path(tmp), stream_yaml)
+        log(f"stream path's kernel launches: NMS {stream_k1} (--val-det, "
+            f"both CLI runs); conv backward in one replay of {STREAM_N} "
+            f"steps {stream_k2} (profiler), {stream_k2_calls} wrapper calls "
+            f"at the CLI's warm-ups and captures")
+        done(18)
+
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
         "route": "cuda",
@@ -2188,6 +2628,7 @@ def main():
         "af_val_det_launches": af_val_det,
         "af_map_launches": af_map,
         "compact_launches": compact_k1,
+        "stream_launches": stream_k1,
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
@@ -2202,6 +2643,8 @@ def main():
         "library_ms": k2_lib_ms,
         "af_launches": af_k2_launches,
         "compact_launches": compact_k2,
+        "stream_launches": stream_k2["anchor"],
+        "stream_af_launches": stream_k2["anchor_free"],
     }, *({
         "name": name,
         "route": "cuda",

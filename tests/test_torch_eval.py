@@ -192,7 +192,7 @@ def test_cli_trains_evaluates_and_jax_reads_the_checkpoint(
 
 
 @pytest.mark.parametrize("args", [["--ema"], ["--resume", "x.ckpt"],
-                                  ["--stream-pool", "4"],
+                                  ["--export", "m.yexp"],
                                   ["--packed", "p3"],
                                   ["--multi-scale"],
                                   ["--augment"], ["--int8"],

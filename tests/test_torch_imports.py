@@ -5,8 +5,9 @@ fresh interpreter the port must import, build a Predictor and serve an
 S x S uint8 array (whose letterbox is the identity and needs no PIL) on the
 CPU with either head and none of jax, flax or PIL in `sys.modules`; and
 train one step of either head on the CPU from a dataset of JPEGs (PIL
-decodes them), with dense targets and on the compact path (mosaic,
-augmentation, the sparse loss, AdamW), with no jax or flax.
+decodes them), with dense targets, on the compact path (mosaic,
+augmentation, the sparse loss, AdamW) and through the scanned compact
+trainer that `--stream` drives, with no jax or flax.
 The conv-backward prototype benchmarks import with none of jax, flax or
 triton, and run their CPU check as a user runs them. None of these loads
 any module of the JAX package (`yolo_from_scratch_tpu`), and no source
@@ -91,7 +92,12 @@ from yolo_from_scratch_tpu_torch.train.steps import (
     create_train_state, make_train_step)
 from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
 import yolo_from_scratch_tpu_torch.cli
+import yolo_from_scratch_tpu_torch.data.cache
+import yolo_from_scratch_tpu_torch.data.stream
+import yolo_from_scratch_tpu_torch.train.graphs
 import yolo_from_scratch_tpu_torch.train.loop
+from yolo_from_scratch_tpu_torch.train.steps import (
+    make_train_step_multi_compact)
 
 config = load_dataset_yaml(sys.argv[1])
 cfg = YoloConfig(num_classes=config["nc"], img_size=128, width_mult=0.25,
@@ -116,6 +122,11 @@ for head in ("anchor", "anchor_free"):
                            device_augment="full", sparse_loss=True)
     state, metrics = step(state, images, targets)
     assert state.step == 1 and torch.isfinite(metrics["loss"]), metrics
+    # the scanned trainer (--stream): a chunk of two steps
+    chunk = [torch.stack([t, t]) for t in (images, *targets)]
+    state, metrics = make_train_step_multi_compact(
+        cfg, device_mosaic=True, device_augment="full")(state, *chunk)
+    assert state.step == 3 and torch.isfinite(metrics["loss"]), metrics
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax"))
 print("LOADED", loaded)
@@ -207,5 +218,7 @@ def test_static_check_sees_the_port():
     """The static check above parses the whole port, including lazy
     imports inside functions (a guard against an empty glob)."""
     assert len(PORT_SOURCES) > 30
+    for module in ("data/cache.py", "data/stream.py", "train/graphs.py"):
+        assert PORT_DIR / module in PORT_SOURCES, module
     names = _imported_modules(PORT_DIR / "infer" / "predict.py")
     assert "yolo_from_scratch_tpu_torch.data.letterbox" in names

@@ -13,7 +13,10 @@ JAX CLI's stdout lines. Training runs either head (`--head anchor` or
 `anchor_free`) with dense host targets, or with `--compact-targets [K]`
 from compact labels expanded on the device (`--sparse-loss`,
 `--device-mosaic`, `--device-augment [full|flip]`); `--weight-decay W`
-makes the optimizer AdamW. Evaluation, inference and inspect take the
+makes the optimizer AdamW; `--stream` trains from a one-time on-disk cache
+through the scanned trainers, N steps (`--stream-chunk`) a CUDA graph
+replay, from double-buffered chunks or a device-resident pool
+(`--stream-pool P`). Evaluation, inference and inspect take the
 head from the checkpoint; `--dtype auto` is bfloat16 on the card and
 float32 on the CPU.
 `--val-det` adds the detection-level P/R/F1 to each epoch, `--map` adds
@@ -40,10 +43,13 @@ YAML_EXTS = (".yaml", ".yml")
 UNPORTED_FLAGS = (
     "--resume", "--ema", "--multi-scale", "--augment", "--data-parallel",
     "--spatial", "--model-parallel", "--distributed", "--coordinator",
-    "--num-processes", "--process-id", "--cache-dir", "--int8", "--export",
+    "--num-processes", "--process-id", "--int8", "--export",
     "--export-batch", "--export-platforms",
 )
-UNPORTED_PREFIXES = ("--stream", "--packed")
+UNPORTED_PREFIXES = ("--packed",)
+# the JAX CLI's flags that --stream refuses (exit 1, before "not ported")
+STREAM_EXCLUSIVE = ("--augment", "--ema", "--multi-scale", "--distributed",
+                    "--spatial", "--model-parallel")
 
 
 def build_parser():
@@ -106,6 +112,26 @@ def build_parser():
                              "step. Bare/'full' = hflip + colour jitter; "
                              "'flip' = hflip only (use when class identity "
                              "is colour-coded)")
+    parser.add_argument("--stream", action="store_true",
+                        help="train from a one-time on-disk cache "
+                             "(pre-letterboxed uint8 + compact labels, "
+                             "data/cache.py): epochs stream through a "
+                             "double-buffered chunk ring into the scanned "
+                             "trainer, N steps a CUDA graph replay; no "
+                             "per-epoch decode, O(chunk) device memory for "
+                             "any dataset size. Implies compact targets")
+    parser.add_argument("--stream-pool", type=int, default=0, metavar="P",
+                        help="with --stream: keep a P-image sample pool "
+                             "resident on the card, refreshed from disk in "
+                             "the background (shuffle buffer with data "
+                             "echoing); the fresh-data ingest rate is "
+                             "reported each epoch beside img/s")
+    parser.add_argument("--stream-chunk", type=int, default=16, metavar="N",
+                        help="with --stream: optimizer steps a dispatch "
+                             "(one CUDA graph replay; default 16)")
+    parser.add_argument("--cache-dir", type=str, default=None,
+                        help="with --stream: cache location (default: a "
+                             ".yolo_tpu_cache_* dir next to the images)")
     parser.add_argument("--weight-decay", type=float, default=0.0,
                         metavar="W",
                         help="AdamW decoupled weight decay (default 0 = "
@@ -325,6 +351,8 @@ def _train(args, config):
         create_train_state,
         make_eval_step,
         make_train_step,
+        make_train_step_multi_compact,
+        make_train_step_multi_pool,
     )
 
     device = _device(args.device)
@@ -335,6 +363,9 @@ def _train(args, config):
                                num_classes=config.get("nc", 1),
                                img_size=args.img_size, compute_dtype=dtype,
                                head_type=args.head)
+    if not args.stream and (args.stream_pool or args.cache_dir):
+        print("ERROR: --stream-pool/--cache-dir require --stream")
+        return 1
     if args.device_mosaic and not args.compact_targets:
         print("ERROR: --device-mosaic requires --compact-targets "
               "(it transforms raw labels, not dense maps)")
@@ -380,12 +411,45 @@ def _train(args, config):
     eval_step = make_eval_step(cfg, quirk_640=args.reference_quirks,
                                device=device,
                                compact_targets=bool(args.compact_targets))
+    stream = None
+    if args.stream:
+        from yolo_from_scratch_tpu_torch.data.cache import ensure_cache
+        from yolo_from_scratch_tpu_torch.data.stream import (
+            ChunkStream,
+            PoolStream,
+        )
+
+        # without --compact-targets: K=64 for the cache, a dense val loader
+        cache = ensure_cache(train_loader.dataset,
+                             capacity=args.compact_targets or 64,
+                             cache_dir=args.cache_dir)
+        multi = dict(device_augment=args.device_augment,
+                     augment_seed=args.seed, device_mosaic=args.device_mosaic,
+                     sparse_loss=args.sparse_loss)
+        if args.stream_pool:
+            stream = PoolStream(cache, pool_size=args.stream_pool,
+                                batch_size=args.batch_size,
+                                steps_per_chunk=args.stream_chunk,
+                                seed=args.seed, device=device)
+            train_step = make_train_step_multi_pool(
+                cfg, args.reference_quirks, device, **multi)
+            print(f"Streaming from cache ({len(cache)} images) via a "
+                  f"{stream.pool_size}-image HBM pool, {args.stream_chunk} "
+                  f"steps/dispatch")
+        else:
+            stream = ChunkStream(cache, batch_size=args.batch_size,
+                                 steps_per_chunk=args.stream_chunk,
+                                 shuffle=True, seed=args.seed, device=device)
+            train_step = make_train_step_multi_compact(
+                cfg, args.reference_quirks, device, **multi)
+            print(f"Streaming from cache ({len(cache)} images), "
+                  f"double-buffered chunks of {args.stream_chunk} steps")
     state, save_path = fit(
         state, train_step, eval_step,
         train_loader, val_loader, cfg, device=device, epochs=args.epochs,
         initial_lr=args.lr, min_lr=args.min_lr,
         warmup_epochs=args.warmup_epochs, metrics_path=args.metrics_jsonl,
-        det_eval=det_eval)
+        det_eval=det_eval, stream=stream)
     print(f"\nTraining complete. Model saved to {save_path}")
     return 0
 
@@ -393,6 +457,11 @@ def _train(args, config):
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     flag = _unported_flag(argv)
+    if flag in STREAM_EXCLUSIVE and "--stream" in argv:
+        print(f"ERROR: --stream does not compose with {flag}; use "
+              f"--device-augment/--device-mosaic for augmentation on the "
+              f"stream path")
+        return 1
     if flag:
         print(f"ERROR: {flag} is not ported yet; use `python train.py` "
               f"for it")

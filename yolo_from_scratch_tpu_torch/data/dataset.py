@@ -202,12 +202,13 @@ class YoloDataset:
         img, boxes, classes = self._load_raw(idx)
         return img, self._assign(boxes, classes)
 
-    def load_batch_compact(self, indices, capacity=64):
+    def load_batch_compact(self, indices, capacity=64, image_dtype="uint8"):
         """The compact path's batch (`data/assign_device.py`): images and
         padded raw labels, no dense maps (the step builds them on the
         device).
 
-        Returns (images (B, S, S, 3) uint8, labels (B, K, 5) f32 [class,
+        Returns (images (B, S, S, 3) uint8, or float32 in [0, 1] (x
+        INV255) for `image_dtype` "float32", labels (B, K, 5) f32 [class,
         cx, cy, w, h], counts (B,) int32). An image with more than K =
         `capacity` boxes keeps its first K (file order), with one warning
         on stderr for the dataset.
@@ -229,6 +230,8 @@ class YoloDataset:
                 self.img_size))
             class_list.append(rows[:, 0].astype(np.int64))
         images = np.stack(imgs_u8)
+        if image_dtype != "uint8":
+            images = images.astype(np.float32) * INV255
         over = max((len(b) for b in boxes_list), default=0)
         if over > capacity and not self._warned_capacity:
             print(f"WARNING: image with {over} boxes exceeds the "

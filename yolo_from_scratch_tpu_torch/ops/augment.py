@@ -118,18 +118,21 @@ def augment_compact_batch(images, labels, valid, do_flip, gain=None,
 
 def make_device_augment(cfg, seed: int = 0, jitter: bool = True):
     """Step-indexed augmentation hook for the dense train steps:
-    aug(step, images, targets) -> (images, targets), its draws from
-    `step_generator(seed, step)` on the images' device.
+    aug(step, images, targets, draws=None) -> (images, targets), its draws
+    from `step_generator(seed, step)` uploaded to the images' device, or
+    `draws` (do_flip, gain, bias) already on it: a CUDA graph replays
+    draws from a static device buffer (`train/steps.py::ChunkDraws`), never
+    an upload it captured once.
 
     `jitter=False` is the flip alone: photometric jitter is label noise
     where the class is carried by colour."""
     anchor_free = cfg.head_type == "anchor_free"
 
-    def aug(step, images, targets):
-        draws = augment_draws(step_generator(seed, step), images.shape[0],
-                              jitter=jitter)
-        return augment_batch(images, targets,
-                             *(upload(t, images.device) for t in draws),
+    def aug(step, images, targets, draws=None):
+        if draws is None:
+            draws = [upload(t, images.device) for t in augment_draws(
+                step_generator(seed, step), images.shape[0], jitter=jitter)]
+        return augment_batch(images, targets, *draws,
                              anchor_free=anchor_free)
 
     return aug

@@ -16,6 +16,10 @@ tensor the backward launches the hand-written kernel `csrc/conv_bwd.cu`
 CPU tensor it runs `fused_bwd_plain`, the patch math in torch, which is also
 what the kernel is checked against. There is no fallback from the kernel to
 the plain version. `launches` counts kernel launches and nothing else.
+It counts Python calls: inside a CUDA graph (the scanned trainers of
+`train/steps.py`) a launch is counted once, at capture, and never at a
+replay; the kernel launches on the current stream, the capture stream
+there, with its workspace from `torch.empty`, the graph's memory pool.
 
 The bf16 kernels of this module and of `benchmarks/bwdproto.py` (K3, K4)
 and `benchmarks/blockbwd.py` (K5) load their tiles by TMA and run in

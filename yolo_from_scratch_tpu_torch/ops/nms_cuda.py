@@ -13,7 +13,9 @@ Dispatch is by the tensors' device: CPU tensors go to the plain version
 (`ops/nms.py`), CUDA tensors launch the kernel or raise, anything else
 raises. There is no fallback from the kernel to the plain version.
 `launches` counts the wrapper's launches of the kernel (both passes
-each time) and nothing else.
+each time) and nothing else. It counts Python calls: a launch captured in
+a CUDA graph is counted once, at capture, and never at a replay (count
+a replay's launches with the profiler).
 """
 
 from __future__ import annotations
