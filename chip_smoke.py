@@ -130,7 +130,30 @@ and prints no result):
    wrapper once, at capture); (e) `train_torch.py`'s command line trains
    `--stream --stream-chunk 4 ... --val-det` two epochs, then with
    `--stream-pool 32`: the NMS kernel's launches rise through --val-det,
-   the pool run prints its ingest rate, the checkpoint's step is 16.
+   the pool run prints its ingest rate, the checkpoint's step is 16;
+19. the trainer's recipe on phase 16's nc=80 data, 's' @640 b8 bf16,
+   YOLO_FUSED_CONV_BWD=1: (a) the CLI trains `--ema --val-det` 2 epochs and
+   then `--resume` from its checkpoint with `--ema` to epoch 3 (the JAX
+   CLI's resume line, the checkpoint's step 3 epochs of steps, its model
+   the EMA and apart from extra.raw_params, K2 launched for every step's
+   gated convs, the NMS kernel through --val-det and one request served
+   from the checkpoint); (b) 2 epochs straight equal 1 epoch +
+   `restore_train_state` + 1 epoch bit for bit with an EMA (weights,
+   BatchNorm statistics, Adam's moments and steps, the EMA, the
+   checkpoints), deterministic as in phase 18; (c) the anchor-free recipe
+   with `af_hp`, a `make_step_lr` schedule and `ema_decay` through
+   `make_train_step_multi_compact`: a graphed chunk of 4 equals 4 eager
+   steps bit for bit (the EMA and the learning rate each step saw
+   included), two replays bit-equal, K2's launches in one replay from the
+   profiler; (d) `--multi-scale` trains 3 epochs, one in each bucket (480,
+   640, 800), K2's launches in each held to the gated convs at that size,
+   and K2 against its plain version at the buckets' new bf16 shapes; (e)
+   `--augment` trains an epoch; one float32 step of
+   `make_train_step_accum(n_accum=2)` (TF32 off) against the CPU within
+   phase 8's tolerances, K2 once a micro-batch for each gated conv; (f)
+   informative img/s and busy shares: the eager step with and without
+   EMA, the graphed recipe chunk with and without `ema_decay` +
+   `step_lr`, each multi-scale bucket's eager step.
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
@@ -138,7 +161,8 @@ the kernel, its plain version and the one-call library equivalent where
 there is one, and the H100 bound with what bounds it, all at the same
 inputs; the NMS kernel also its launches, device ms and bound on phase
 13's batch, both kernels their launches on phase 16's anchor-free paths,
-on phase 17's compact paths and on phase 18's stream paths); the last
+on phase 17's compact paths, on phase 18's stream paths and on phase
+19's recipe paths); the last
 line is `{"ok": true, "device": {...}}`.
 """
 
@@ -338,6 +362,17 @@ STREAM_RECIPES = (
      sum(AF_GATED.values())),
 )
 TRACE_ATTEMPTS = 6
+# phase 19: the trainer's recipe on phase 16's nc=80 data
+RECIPE_N = 4          # steps of the graphed recipe chunk in (c) and (f)
+RECIPE_LR = dict(total_steps=64, warmup_steps=8, initial_lr=1e-3,
+                 min_lr=1e-5)  # (c)'s make_step_lr schedule
+RECIPE_AF_HP = {"topk": 13, "alpha": 1.0, "cls_weight": 1.0}
+RECIPE_EMA_DECAY = 0.999
+ACCUM, ACCUM_B = 2, 2  # (e): micro-batches of an update, images in each
+# (e): the images' perturbation that shows which gradients are discontinuous
+# at this input (the card's float32 forward differs from the CPU's by
+# about as much)
+ACCUM_NOISE = 1e-6
 
 
 def log(msg):
@@ -631,34 +666,45 @@ def _log_k2_rounds(phase, b, h, w, dtype, dev, seed):
         f"each; then SM clock, temperature, power): " + "; ".join(rounds))
 
 
+def _k2_held(b, h, w, dtype, dev, seed):
+    """K2 against its plain version (TF32 off) at one shape, two runs
+    bit-equal, within K2_TOL. Returns (inputs, largest absolute error,
+    dx and dW errors relative to the plain version's largest magnitude)."""
+    x, dy, wt = _conv_case(b, h, w, dtype, dev, seed)
+    dx, dw = conv_bwd._launch(x, dy, wt)
+    dx2, dw2 = conv_bwd._launch(x, dy, wt)
+    with tf32_disabled():
+        dx_p, dw_p = conv_bwd.fused_bwd_plain(x, dy, wt)
+    torch.cuda.synchronize()
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+        raise AssertionError(f"conv backward kernel not deterministic at "
+                             f"B={b} {h}x{w} {dtype}")
+    tol_dx, tol_dw = K2_TOL[dtype]
+    err_dx = (dx.float() - dx_p.float()).abs().max().item()
+    err_dw = (dw - dw_p).abs().max().item()
+    rel_dx = err_dx / dx_p.float().abs().max().item()
+    rel_dw = err_dw / dw_p.abs().max().item()
+    if (dx.dtype != dtype or not dx.is_contiguous(
+            memory_format=torch.channels_last)
+            or rel_dx > tol_dx or rel_dw > tol_dw):
+        raise AssertionError(f"conv backward kernel vs plain at "
+                             f"{_case_name(b, h, w, dtype)}: dx {rel_dx:.3e} "
+                             f"(tol {tol_dx:.3e}), dW {rel_dw:.3e} (tol "
+                             f"{tol_dw:.3e})")
+    return (x, dy, wt), max(err_dx, err_dw), rel_dx, rel_dw
+
+
 def phase_conv_bwd(dev):
     """The conv backward kernel against its plain version (TF32 off), two
     runs bit-equal; kernel, plain and one-call library backward times."""
     max_abs_err = 0.0
     times = {}
     for i, (b, h, w, dtype) in enumerate(K2_CASES):
-        x, dy, wt = _conv_case(b, h, w, dtype, dev, SEED + i)
-        dx, dw = conv_bwd._launch(x, dy, wt)
-        dx2, dw2 = conv_bwd._launch(x, dy, wt)
-        with tf32_disabled():
-            dx_p, dw_p = conv_bwd.fused_bwd_plain(x, dy, wt)
-        torch.cuda.synchronize()
-        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
-            raise AssertionError(f"conv backward kernel not deterministic at "
-                                 f"B={b} {h}x{w} {dtype}")
+        (x, dy, wt), err, rel_dx, rel_dw = _k2_held(b, h, w, dtype, dev,
+                                                   SEED + i)
         tol_dx, tol_dw = K2_TOL[dtype]
-        err_dx = (dx.float() - dx_p.float()).abs().max().item()
-        err_dw = (dw - dw_p).abs().max().item()
-        rel_dx = err_dx / dx_p.float().abs().max().item()
-        rel_dw = err_dw / dw_p.abs().max().item()
-        max_abs_err = max(max_abs_err, err_dx, err_dw)
+        max_abs_err = max(max_abs_err, err)
         name = f"B={b} {h}x{w} {str(dtype).split('.')[1]}"
-        if (dx.dtype != dtype or not dx.is_contiguous(
-                memory_format=torch.channels_last)
-                or rel_dx > tol_dx or rel_dw > tol_dw):
-            raise AssertionError(f"conv backward kernel vs plain at {name}: "
-                                 f"dx {rel_dx:.3e} (tol {tol_dx:.3e}), dW "
-                                 f"{rel_dw:.3e} (tol {tol_dw:.3e})")
 
         def kernel():
             conv_bwd._launch(x, dy, wt)
@@ -2461,6 +2507,545 @@ def phase_stream_cli(workdir, yaml_path):
     return k1, k2
 
 
+class _EpochTee(_Tee):
+    """A _Tee that reads K2's launch count each time an "Epoch N:" line is
+    printed (the launches of the epoch's training, its evaluation runs no
+    backward)."""
+
+    def __init__(self):
+        super().__init__()
+        self.at_epochs = []
+
+    def write(self, s):
+        if s.startswith("Epoch "):
+            self.at_epochs.append(conv_bwd.launches)
+        return super().write(s)
+
+
+def _cfg_s(size=None, head="anchor", dtype="bfloat16"):
+    return YoloConfig.from_size("s", num_classes=AF_NC,
+                                img_size=size or IMG_SIZE,
+                                compute_dtype=dtype, head_type=head)
+
+
+def _k2_per_step(cfg):
+    """K2 launches in one train step of cfg's model: its gated convs (a
+    forward on the meta device) x LAUNCHES_PER_CALL."""
+    return sum(_gated_convs(cfg).values()) * conv_bwd.LAUNCHES_PER_CALL
+
+
+def _saved(out, what):
+    saved = re.search(r"Training complete\. Model saved to (\S+)", out)
+    if not saved:
+        raise AssertionError(f"{what}: no checkpoint, output:\n{out}")
+    return saved.group(1)
+
+
+def phase_ema_resume_cli(dev, workdir, yaml_path):
+    """(a) the CLI trains --ema --val-det 2 epochs, then --resume from its
+    checkpoint to epoch 3: JAX's resume line, the checkpoint's step 3
+    epochs of steps, its model (the EMA) apart from extra.raw_params, K2
+    launched for every step's gated convs, K1 through --val-det; one
+    request served from the final checkpoint. Returns (K2, K1 launches)."""
+    per_step = _k2_per_step(_cfg_s())
+    steps = -(-8 * TRAIN_STEPS // 8)  # phase 16's train split at batch 8
+    base = [str(yaml_path), "--batch-size", "8", "--size", "s",
+            "--img-size", str(IMG_SIZE), "--ema", "--val-det"]
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    k1 = k2 = 0
+    try:
+        conv_bwd.launches = nms_cuda.launches = 0
+        t0 = time.perf_counter()
+        rc, out = _cli(base + ["--epochs", "2"])
+        ckpt = workdir / _saved(out, "--ema")
+        if (rc != 0 or len(re.findall(r"^Epoch \d: ", out, re.M)) != 2
+                or conv_bwd.launches != 2 * steps * per_step
+                or nms_cuda.launches < 2):
+            raise AssertionError(f"--ema: rc {rc}, K2 {conv_bwd.launches} "
+                                 f"(want {2 * steps * per_step}), K1 "
+                                 f"{nms_cuda.launches}, output:\n{out}")
+        k1, k2 = nms_cuda.launches, conv_bwd.launches
+        wall = time.perf_counter() - t0
+        conv_bwd.launches = nms_cuda.launches = 0
+        rc, out = _cli(base + ["--epochs", "3", "--resume", str(ckpt)])
+        resumed = workdir / _saved(out, "--resume")
+        line = f"Resuming from {ckpt} at epoch 3"
+        epochs = re.findall(r"^Epoch (\d): ", out, re.M)
+        if (rc != 0 or line not in out.splitlines() or epochs != ["3"]
+                or resumed != ckpt
+                or conv_bwd.launches != steps * per_step
+                or nms_cuda.launches < 1):
+            raise AssertionError(f"--resume --ema: rc {rc}, epochs {epochs},"
+                                 f" K2 {conv_bwd.launches}, K1 "
+                                 f"{nms_cuda.launches}, output:\n{out}")
+        k1 += nms_cuda.launches
+        k2 += conv_bwd.launches
+    finally:
+        os.chdir(cwd)
+    payload = read_payload(ckpt)
+    extra = payload["extra"]
+    moved = [k for k, v in _flat_tree(payload["model"]["params"]).items()
+             if not np.array_equal(v, _flat_tree(extra["raw_params"])[k])]
+    if extra["step"] != 3 * steps or not moved or payload["epoch"] != 2:
+        raise AssertionError(f"resumed checkpoint: step {extra['step']} "
+                             f"(want {3 * steps}), epoch {payload['epoch']}, "
+                             f"{len(moved)} EMA leaves apart from the raw")
+    state, cfg, _ = load_checkpoint(ckpt)
+    image = sorted(Path(yaml_path).parent.glob("val/images/*.jpg"))[0]
+    nms_cuda.launches = 0
+    dets = Predictor(state, cfg, conf_threshold=CONF, iou_threshold=IOU,
+                     device=dev)(str(image))
+    if nms_cuda.launches != 1 or not np.isfinite(
+            np.asarray(dets, np.float64)).all():
+        raise AssertionError(f"EMA checkpoint request: {nms_cuda.launches} "
+                             f"NMS launches, {len(dets)} detections")
+    k1 += 1
+    log(f"phase 19 (a) CLI --ema --val-det 2 epochs ({wall:.1f} s), then "
+        f"'{line}' to epoch 3: checkpoint step {extra['step']} (= 3 x "
+        f"{steps}), {len(moved)} of "
+        f"{len(_flat_tree(extra['raw_params']))} model leaves (the EMA) "
+        f"apart from extra.raw_params; K2 {k2} launches (= {3 * steps} steps"
+        f" x {per_step}); K1 {k1 - 1} through --val-det + 1 request from "
+        f"the resumed checkpoint ({len(dets)} detections, all finite)")
+    return k2, k1
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, name))
+        else:
+            out[name] = np.asarray(v)
+    return out
+
+
+def _dense_loaders(yaml_path, size=None, shuffle=False):
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    config = load_dataset_yaml(yaml_path)
+    anchors = np.asarray(YoloConfig().anchors, np.float32)
+    return [DataLoader(YoloDataset(config[split], AF_NC, anchors,
+                                   size or IMG_SIZE),
+                       batch_size=8, shuffle=shuffle and split == "train",
+                       seed=SEED, prefetch=0) for split in ("train", "val")]
+
+
+def phase_resume_bitwise(dev, workdir, yaml_path):
+    """(b) with an EMA, 2 epochs straight equal 1 epoch + restore_train_state
+    + 1 epoch bit for bit (cudnn.deterministic, torch's deterministic mode):
+    the live weights, BatchNorm statistics, Adam's moments and steps, and
+    the checkpoints (EMA, raw weights, optax state, step)."""
+    from yolo_from_scratch_tpu_torch.train.loop import (
+        fit,
+        restore_train_state,
+    )
+    from yolo_from_scratch_tpu_torch.train.steps import make_eval_step
+
+    cfg = _cfg_s()
+    train, val = _dense_loaders(yaml_path)
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    kw = dict(device=dev, epochs=2, initial_lr=1e-3, warmup_epochs=0,
+              log=lambda *_: None, use_ema=True)
+    step, evaluate = make_train_step(cfg, device=dev), make_eval_step(
+        cfg, device=dev)
+    t0 = time.perf_counter()
+    with _deterministic() as caught:
+        straight, _ = fit(create_train_state(cfg, 1e-3, seed=SEED,
+                                             device=dev),
+                          step, evaluate, train, val, cfg,
+                          save_path=workdir / "straight.ckpt", **kw)
+        first, _ = fit(create_train_state(cfg, 1e-3, seed=SEED, device=dev),
+                       step, evaluate, train, val, cfg,
+                       save_path=workdir / "first.ckpt",
+                       **{**kw, "epochs": 1})
+        del first
+        state, rcfg, start, ema_sd = restore_train_state(
+            workdir / "first.ckpt", 1e-3, device=dev,
+            compute_dtype="bfloat16")
+        resumed, _ = fit(state, step, evaluate, train, val, rcfg,
+                         save_path=workdir / "resumed.ckpt",
+                         start_epoch=start, initial_ema=ema_sd, **kw)
+    torch.cuda.synchronize()
+    live = _differ("resumed vs straight", _state_tensors(resumed),
+                   _state_tensors(straight))
+    a = _flat_tree(read_payload(workdir / "resumed.ckpt"))
+    b = _flat_tree(read_payload(workdir / "straight.ckpt"))
+    files = sorted(k for k in b if k not in a or not np.array_equal(a[k],
+                                                                     b[k]))
+    ops = sorted({str(w.message).split(" does not have")[0]
+                  for w in caught if "deterministic" in str(w.message)})
+    log(f"phase 19 (b) 2 epochs straight vs 1 + restore_train_state + 1, "
+        f"EMA on (cudnn.deterministic, torch deterministic mode): "
+        f"{len(_state_tensors(resumed)) - len(live)} / "
+        f"{len(_state_tensors(resumed))} live state tensors bit-equal, "
+        f"checkpoints {len(b) - len(files)} / {len(b)} leaves bit-equal "
+        f"(EMA model, raw weights and statistics, optax moments and counts, "
+        f"step {int(a['extra/step'])}); restored at epoch {start + 1}; ops "
+        f"without a deterministic kernel: {ops or 'none'}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if live or files or start != 1:
+        raise AssertionError(f"resumed run differs from the straight run: "
+                             f"{sorted(live.items())[:8]} {files[:8]}")
+
+
+def _recipe_chunk(yaml_path, dev, n=RECIPE_N):
+    """N steps x 8 of phase 16's train split as compact labels (wrapping),
+    on the card."""
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    ds = YoloDataset(load_dataset_yaml(yaml_path)["train"], AF_NC,
+                     img_size=IMG_SIZE)
+    arrays = ds.load_batch_compact(np.arange(8 * n) % len(ds), COMPACT_K)
+    return [torch.from_numpy(a).reshape(n, 8, *a.shape[1:]).to(dev)
+            for a in arrays]
+
+
+def phase_recipe_graph(dev, yaml_path):
+    """(c) the anchor-free recipe (--compact-targets --device-mosaic
+    --device-augment flip --weight-decay 0.05) with af_hp, a make_step_lr
+    schedule and ema_decay through make_train_step_multi_compact: a graphed
+    chunk equals its eager steps bit for bit (weights, statistics, AdamW's
+    state, the EMA, the learning rate left, metrics); two replays from one
+    state bit-equal; K2's launches in one replay (profiler). Returns K2's
+    launches in a replay."""
+    from yolo_from_scratch_tpu_torch.train import graphs
+    from yolo_from_scratch_tpu_torch.train.ema import ema_init, ema_update
+    from yolo_from_scratch_tpu_torch.train.schedule import make_step_lr
+    from yolo_from_scratch_tpu_torch.train.steps import (
+        make_train_step_multi_compact,
+        set_learning_rate,
+    )
+
+    cfg = _cfg_s(head="anchor_free")
+    chunk = _recipe_chunk(yaml_path, dev)
+    lr_fn = make_step_lr(**RECIPE_LR)
+    flags = dict(device_mosaic=True, device_augment="flip",
+                 augment_seed=SEED, af_hp=RECIPE_AF_HP)
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+
+    def tensors(state, ema):
+        out = _state_tensors(state)
+        out.update({f"ema.{k}": v.detach().clone()
+                    for k, v in ema.state_dict().items()})
+        out["lr"] = torch.as_tensor(
+            state.optimizer.param_groups[0]["lr"]).clone()
+        return out
+
+    t0 = time.perf_counter()
+    with _deterministic() as caught:
+        eager = create_train_state(cfg, 1e-3, seed=SEED, device=dev,
+                                   weight_decay=0.05)
+        ema = ema_init(eager.model)
+        single = make_train_step(cfg, device=dev, compact_targets=True,
+                                 **flags)
+        per, lrs = [], []
+        for i in range(RECIPE_N):
+            set_learning_rate(eager, lr_fn(torch.tensor(
+                eager.step, dtype=torch.int32, device=dev)))
+            lrs.append(float(eager.optimizer.param_groups[0]["lr"]))
+            eager, m = single(eager, chunk[0][i], (chunk[1][i],
+                                                   chunk[2][i]))
+            ema_update(ema, eager.model, eager.step, RECIPE_EMA_DECAY)
+            per.append(torch.stack([m[k] for k in sorted(m)]))
+        want, want_m = tensors(eager, ema), torch.stack(per).mean(0)
+        del eager, ema, single
+        state = create_train_state(cfg, 1e-3, seed=SEED, device=dev,
+                                   weight_decay=0.05)
+        ema = ema_init(state.model)
+        snap = graphs.Snapshot(state.model, state.optimizer, ema)
+        trainer = make_train_step_multi_compact(
+            cfg, device=dev, step_lr=lr_fn, ema_decay=RECIPE_EMA_DECAY,
+            **flags)
+        (state, ema), m = trainer((state, ema), *chunk)
+        got = tensors(state, ema)
+        got_m = torch.stack([m[k] for k in sorted(m)])
+        snap.restore()
+        state.step = 0
+        (state, ema), m2 = trainer((state, ema), *chunk)
+        again = tensors(state, ema)
+        again_m = torch.stack([m2[k] for k in sorted(m2)])
+    torch.cuda.synchronize()
+    ops = sorted({str(w.message).split(" does not have")[0]
+                  for w in caught if "deterministic" in str(w.message)})
+    vs_eager = _differ("recipe graph vs eager", got, want)
+    replays = _differ("recipe replay vs replay", again, got)
+    log(f"phase 19 (c) anchor-free recipe + af_hp {RECIPE_AF_HP} + step_lr "
+        f"{RECIPE_LR} (lr of steps 0-{RECIPE_N - 1}: "
+        f"{', '.join(f'{v:.4e}' for v in lrs)}) + ema_decay "
+        f"{RECIPE_EMA_DECAY}: a graphed chunk of {RECIPE_N} vs {RECIPE_N} "
+        f"eager steps (capturable AdamW, deterministic): "
+        f"{len(got) - len(vs_eager)} / {len(got)} tensors bit-equal (state, "
+        f"EMA, lr); metrics {got_m.tolist()} vs {want_m.tolist()}; two "
+        f"replays {len(got) - len(replays)} / {len(got)} bit-equal; ops "
+        f"without a deterministic kernel: {ops or 'none'}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if vs_eager or not torch.equal(got_m, want_m):
+        raise AssertionError(f"recipe graph differs from the eager steps: "
+                             f"{sorted(vs_eager.items())[:8]}")
+    if replays or not torch.equal(got_m, again_m):
+        raise AssertionError(f"two recipe replays differ: "
+                             f"{sorted(replays.items())[:8]}")
+    snap.restore()
+    state.step = 0
+    counts = _launch_counts(lambda: trainer((state, ema), *chunk))
+    k2 = sum(n for k, (n, _) in counts.items() if "conv3x3_bwd" in k)
+    want_k2 = _k2_per_step(cfg) * RECIPE_N
+    log(f"phase 19 (c): one replay launches "
+        f"{sum(n for n, _ in counts.values())} kernels in "
+        f"{sum(ms for _, ms in counts.values()):.2f} ms of device time, K2 "
+        f"{k2} (= {want_k2 // RECIPE_N} a step x {RECIPE_N}); profiler")
+    if k2 != want_k2:
+        raise AssertionError(f"recipe replay: {k2} K2 launches, want "
+                             f"{want_k2}")
+    del trainer, state, ema, snap
+    torch.cuda.empty_cache()
+    return k2
+
+
+def phase_multiscale(dev, workdir, yaml_path):
+    """(d) --multi-scale trains 3 epochs through the CLI, one a bucket; K2's
+    launches in each held to the gated convs at that size; K2 against its
+    plain version at the buckets' new bf16 shapes. Returns ({size: K2
+    launches}, largest K2 error, sizes)."""
+    sizes = cli.multi_scale_sizes(IMG_SIZE)
+    steps = -(-8 * TRAIN_STEPS // 8)
+    want = {s: _k2_per_step(_cfg_s(s)) * steps for s in sizes}
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    tee = _EpochTee()
+    try:
+        conv_bwd.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = cli.main([str(yaml_path), "--batch-size", "8", "--size", "s",
+                           "--img-size", str(IMG_SIZE), "--epochs", "3",
+                           "--multi-scale"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    out = tee.text.getvalue()
+    marks = [0] + tee.at_epochs
+    got = {s: marks[i + 1] - marks[i] for i, s in enumerate(sizes)}
+    ckpt = read_payload(workdir / _saved(out, "--multi-scale"))
+    if (rc != 0 or f"Multi-scale buckets: {sizes} (epoch-rotated)" not in out
+            or len(tee.at_epochs) != 3 or got != want
+            or ckpt["img_size"] != IMG_SIZE):
+        raise AssertionError(f"--multi-scale: rc {rc}, K2 a bucket {got} "
+                             f"(want {want}), checkpoint img_size "
+                             f"{ckpt['img_size']}, output:\n{out}")
+    log(f"phase 19 (d) CLI --multi-scale, 3 epochs in {wall:.1f} s: buckets "
+        f"{sizes}, K2 launches a bucket {got} (= gated convs "
+        + ", ".join(f"{s}: {_gated_convs(_cfg_s(s))}" for s in sizes)
+        + f" x {steps} steps x {conv_bwd.LAUNCHES_PER_CALL}); checkpoint "
+        f"img_size {ckpt['img_size']}")
+    err = 0.0
+    shapes = sorted({hw for s in sizes if s != IMG_SIZE
+                     for hw in _gated_convs(_cfg_s(s))})
+    for i, (h, w) in enumerate(shapes):
+        _, e, rel_dx, rel_dw = _k2_held(8, h, w, torch.bfloat16, dev,
+                                        SEED + 40 + i)
+        err = max(err, e)
+        ms = device_ms(lambda: conv_bwd._launch(*_conv_case(
+            8, h, w, torch.bfloat16, dev, SEED)))
+        log(f"  K2 {_case_name(8, h, w, torch.bfloat16)} (a multi-scale "
+            f"bucket's shape): dx err {rel_dx:.3e}, dW err {rel_dw:.3e} of "
+            f"max (tol {K2_TOL[torch.bfloat16][0]:.1e} / "
+            f"{K2_TOL[torch.bfloat16][1]:.1e}), 2 runs bit-equal; "
+            f"{ms:.4f} ms (profiler, with the inputs' generation)")
+    return got, err, sizes
+
+
+def phase_other_paths(dev, workdir, yaml_path):
+    """(e) --augment trains an epoch through the CLI; one float32 step of
+    make_train_step_accum(n_accum=2) on the card (TF32 off) against the
+    port on the CPU. Returns K2's launches in the accumulating step."""
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        t0 = time.perf_counter()
+        rc, out = _cli([str(yaml_path), "--batch-size", "8", "--size", "s",
+                        "--img-size", str(IMG_SIZE), "--epochs", "1",
+                        "--augment"])
+    finally:
+        os.chdir(cwd)
+    if rc != 0 or not EPOCH_LINE.search(out):
+        raise AssertionError(f"--augment: rc {rc}, output:\n{out}")
+    _saved(out, "--augment")
+    log(f"phase 19 (e) CLI --augment: 1 epoch, exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{EPOCH_LINE.search(out).group(1)} img/s (host mosaic + jitter)")
+
+    from yolo_from_scratch_tpu_torch.train.steps import make_train_step_accum
+
+    cfg = _cfg_s(dtype="float32")
+    cpu = torch.device("cpu")
+    train, _ = _dense_loaders(yaml_path)
+    images, targets = train.dataset.load_batch(range(2 * ACCUM_B))
+    images = torch.from_numpy(images).reshape(ACCUM, ACCUM_B,
+                                              *images.shape[1:])
+    targets = [torch.from_numpy(t).reshape(ACCUM, ACCUM_B, *t.shape[1:])
+               for t in targets]
+    noise = torch.randn(images.shape, generator=torch.Generator().manual_seed(
+        SEED)) * ACCUM_NOISE
+    results = []
+    for device, inputs in ((dev, images), (cpu, images),
+                           (cpu, images + noise)):
+        state = create_train_state(cfg, 1e-3, seed=SEED, device=device)
+        step = make_train_step_accum(cfg, ACCUM, device=device)
+        conv_bwd.launches = 0
+        with tf32_disabled():
+            state, m = step(state, inputs.to(device),
+                            *(t.to(device) for t in targets))
+        results.append((m["loss"].item(), {
+            n: p.grad.cpu() for n, p in state.model.named_parameters()},
+            conv_bwd.launches))
+    (loss, grads, k2), (cpu_loss, cpu_grads, _), (_, nudged, _) = results
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+    # a max-pool's argmax in SPPF flips between near-equal inputs when the
+    # forward moves by rounding, and the gradient of every layer before it
+    # jumps: a tensor that the CPU itself moves past the tolerance when the
+    # images move by ACCUM_NOISE is held to that move instead
+    spread = {n: rel(nudged[n], g) for n, g in cpu_grads.items()}
+    held = [(rel(grads[n], g) / max(PARITY_GRAD_TOL, spread[n]), n)
+            for n, g in cpu_grads.items() if n not in PRE_BN_BIASES]
+    sensitive = [n for _, n in held if spread[n] > PARITY_GRAD_TOL]
+    worst = max(held)
+    rel_loss = abs(loss - cpu_loss) / abs(cpu_loss)
+    want_k2 = ACCUM * _k2_per_step(cfg)
+    log(f"phase 19 (e) make_train_step_accum(n_accum={ACCUM}), B={ACCUM_B} "
+        f"a micro-batch, float32, card (TF32 off, K2) vs CPU (plain "
+        f"version): loss {loss:.6f} vs {cpu_loss:.6f} ({rel_loss:.2e} "
+        f"relative, tol {PARITY_LOSS_TOL}); the clipped mean gradients: "
+        f"{len(held) - len(sensitive)} tensors within {PARITY_GRAD_TOL} of "
+        f"their max, {len(sensitive)} ({', '.join(sensitive[:2])} ... "
+        f"{sensitive[-1] if sensitive else '-'}) within the CPU's own move "
+        f"when the images move by {ACCUM_NOISE:g}; worst "
+        f"{worst[0]:.3f} of its bound ({worst[1]}: card "
+        f"{rel(grads[worst[1]], cpu_grads[worst[1]]):.2e}, CPU's move "
+        f"{spread[worst[1]]:.2e}); K2 {k2} launches (= {ACCUM} "
+        f"micro-batches x {want_k2 // ACCUM})")
+    if rel_loss > PARITY_LOSS_TOL or worst[0] > 1.0 or k2 != want_k2:
+        raise AssertionError("accumulating step on the card differs from "
+                             "the CPU")
+    return k2
+
+
+def _timed_steps(fn, n):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def phase_recipe_throughput(dev, yaml_path):
+    """(f) informative img/s and busy shares, in turns within this call:
+    the eager step with and without EMA, the graphed anchor-free recipe
+    chunk with and without ema_decay + step_lr, and each multi-scale
+    bucket's eager step."""
+    from yolo_from_scratch_tpu_torch.train.ema import (
+        ema_init,
+        wrap_train_step_with_ema,
+    )
+    from yolo_from_scratch_tpu_torch.train.schedule import make_step_lr
+    from yolo_from_scratch_tpu_torch.train.steps import (
+        make_train_step_multi_compact,
+    )
+
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    smi = _smi("name,power.limit")
+    cfg = _cfg_s()
+    train, _ = _dense_loaders(yaml_path)
+    images, targets = train.dataset.load_batch(range(8))
+    images = torch.from_numpy(images).to(dev)
+    targets = [torch.from_numpy(t).to(dev) for t in targets]
+    state = create_train_state(cfg, 1e-3, seed=SEED, device=dev)
+    plain = make_train_step(cfg, device=dev)
+    with_ema = wrap_train_step_with_ema(plain, decay=0.9999)
+    ema = ema_init(state.model)
+    runs = {"eager": lambda: plain(state, images, targets),
+            "eager + EMA": lambda: with_ema((state, ema), images, targets)}
+    walls = collections.defaultdict(list)
+    for name in ("eager", "eager + EMA", "eager + EMA", "eager"):
+        walls[name].append(_timed_steps(runs[name], TIMED_STEPS // 2))
+    for name, fn in runs.items():
+        wall = statistics.mean(walls[name])
+        busy = _busy_ms(fn)
+        log(f"phase 19 (f) {name} step, 's' @{IMG_SIZE} b8 bf16 nc={AF_NC}: "
+            f"{' / '.join(f'{8 / w:.1f}' for w in walls[name])} img/s "
+            f"(turns, {TIMED_STEPS // 2} steps each; host clock), device busy "
+            f"{busy:.2f} ms a step ({busy / (wall * 1e3):.0%}; profiler); "
+            f"{smi}")
+    del state, ema, runs
+    torch.cuda.empty_cache()
+
+    af = _cfg_s(head="anchor_free")
+    chunk = _recipe_chunk(yaml_path, dev)
+    flags = dict(device_mosaic=True, device_augment="flip",
+                 augment_seed=SEED, af_hp=RECIPE_AF_HP)
+    graphs_ = {}
+    for name, knobs in (("graph N=4", {}),
+                        ("graph N=4 + ema_decay + step_lr",
+                         dict(ema_decay=RECIPE_EMA_DECAY,
+                              step_lr=make_step_lr(**RECIPE_LR)))):
+        st = create_train_state(af, 1e-3, seed=SEED, device=dev,
+                                weight_decay=0.05)
+        trainer = make_train_step_multi_compact(af, device=dev, **flags,
+                                                **knobs)
+        carry = (st, ema_init(st.model)) if knobs else st
+        trainer(carry, *chunk)  # capture + one replay
+        graphs_[name] = (trainer, carry)
+    walls = collections.defaultdict(list)
+    order = list(graphs_) + list(graphs_)[::-1]
+    for name in order:
+        trainer, carry = graphs_[name]
+        walls[name].append(_timed_steps(lambda: trainer(carry, *chunk),
+                                        STREAM_REPEATS) / RECIPE_N)
+    for name, (trainer, carry) in graphs_.items():
+        wall = statistics.mean(walls[name])
+        busy = _busy_ms(lambda: trainer(carry, *chunk)) / RECIPE_N
+        log(f"phase 19 (f) anchor-free recipe {name}: "
+            f"{' / '.join(f'{8 / w:.1f}' for w in walls[name])} img/s "
+            f"(turns, {STREAM_REPEATS} chunks each; host clock), "
+            f"{wall * 1e3:.2f} ms a step, device busy {busy:.2f} ms a step "
+            f"({busy / (wall * 1e3):.0%}; profiler); {smi}")
+    del graphs_, chunk
+    torch.cuda.empty_cache()
+
+    for size in cli.multi_scale_sizes(IMG_SIZE):
+        cfg = _cfg_s(size)
+        train, _ = _dense_loaders(yaml_path, size)
+        imgs, tgts = train.dataset.load_batch(range(8))
+        imgs = torch.from_numpy(imgs).to(dev)
+        tgts = [torch.from_numpy(t).to(dev) for t in tgts]
+        state = create_train_state(cfg, 1e-3, seed=SEED, device=dev)
+        step = make_train_step(cfg, device=dev)
+
+        def fn():
+            step(state, imgs, tgts)
+
+        wall = _timed_steps(fn, TIMED_STEPS // 2)
+        busy = _busy_ms(fn)
+        log(f"phase 19 (f) multi-scale bucket {size}: eager step "
+            f"{8 / wall:.1f} img/s, {wall * 1e3:.2f} ms (host clock, "
+            f"{TIMED_STEPS // 2} steps), device busy {busy:.2f} ms "
+            f"({busy / (wall * 1e3):.0%}; profiler); {smi}")
+        del state, step, imgs, tgts
+        torch.cuda.empty_cache()
+
+
 def main():
     t_main = time.perf_counter()
 
@@ -2603,6 +3188,22 @@ def main():
             f"at the CLI's warm-ups and captures")
         done(18)
 
+        # 19. the trainer's recipe: --ema and --resume through the CLI, a
+        # resume bit for bit, the knobs in a graph, --multi-scale,
+        # --augment and accumulation, throughput
+        ema_k2, ema_k1 = phase_ema_resume_cli(dev, Path(tmp), af_yaml)
+        phase_resume_bitwise(dev, Path(tmp), af_yaml)
+        recipe_k2 = phase_recipe_graph(dev, af_yaml)
+        ms_k2, ms_err, ms_sizes = phase_multiscale(dev, Path(tmp), af_yaml)
+        accum_k2 = phase_other_paths(dev, Path(tmp), af_yaml)
+        phase_recipe_throughput(dev, af_yaml)
+        log(f"recipe paths' kernel launches: NMS {ema_k1} (--ema --val-det "
+            f"and a request); conv backward {ema_k2} (--ema, --resume), "
+            f"{[ms_k2[s] for s in ms_sizes]} (--multi-scale buckets "
+            f"{ms_sizes}), {accum_k2} (accumulation), {recipe_k2} (one "
+            f"replay of the recipe graph, profiler)")
+        done(19)
+
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
         "route": "cuda",
@@ -2629,13 +3230,14 @@ def main():
         "af_map_launches": af_map,
         "compact_launches": compact_k1,
         "stream_launches": stream_k1,
+        "ema_val_det_launches": ema_k1,
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
         "source": "yolo_from_scratch_tpu_torch/csrc/conv_bwd.cu",
         "replaces": "yolo_from_scratch_tpu/ops/conv_bwd.py:89",
         "launches": k2_launches,
-        "max_abs_err": k2_err,
+        "max_abs_err": max(k2_err, ms_err),
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound[0],
@@ -2645,6 +3247,10 @@ def main():
         "compact_launches": compact_k2,
         "stream_launches": stream_k2["anchor"],
         "stream_af_launches": stream_k2["anchor_free"],
+        "ema_launches": ema_k2,
+        "multiscale_launches": [ms_k2[s] for s in ms_sizes],
+        "accum_launches": accum_k2,
+        "recipe_graph_launches": recipe_k2,
     }, *({
         "name": name,
         "route": "cuda",

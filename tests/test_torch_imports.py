@@ -6,8 +6,9 @@ S x S uint8 array (whose letterbox is the identity and needs no PIL) on the
 CPU with either head and none of jax, flax or PIL in `sys.modules`; and
 train one step of either head on the CPU from a dataset of JPEGs (PIL
 decodes them), with dense targets, on the compact path (mosaic,
-augmentation, the sparse loss, AdamW) and through the scanned compact
-trainer that `--stream` drives, with no jax or flax.
+augmentation, the sparse loss, AdamW), through the scanned compact
+trainer that `--stream` drives, with its per-step learning rate and EMA,
+and load augmented items (`--augment`), with no jax, flax or OpenCV.
 The conv-backward prototype benchmarks import with none of jax, flax or
 triton, and run their CPU check as a user runs them. None of these loads
 any module of the JAX package (`yolo_from_scratch_tpu`), and no source
@@ -85,6 +86,9 @@ TRAIN_SCRIPT = """
 import sys
 import torch
 
+# one intra-op thread: the test workers share the cores
+torch.set_num_threads(1)
+
 from yolo_from_scratch_tpu_torch import YoloConfig
 from yolo_from_scratch_tpu_torch.data import DataLoader, YoloDataset
 from yolo_from_scratch_tpu_torch.data.device_queue import DeviceQueue
@@ -98,6 +102,9 @@ import yolo_from_scratch_tpu_torch.train.graphs
 import yolo_from_scratch_tpu_torch.train.loop
 from yolo_from_scratch_tpu_torch.train.steps import (
     make_train_step_multi_compact)
+from yolo_from_scratch_tpu_torch.train.ema import ema_init
+from yolo_from_scratch_tpu_torch.train.loop import restore_train_state
+from yolo_from_scratch_tpu_torch.train.schedule import make_step_lr
 
 config = load_dataset_yaml(sys.argv[1])
 cfg = YoloConfig(num_classes=config["nc"], img_size=128, width_mult=0.25,
@@ -127,6 +134,17 @@ for head in ("anchor", "anchor_free"):
     state, metrics = make_train_step_multi_compact(
         cfg, device_mosaic=True, device_augment="full")(state, *chunk)
     assert state.step == 3 and torch.isfinite(metrics["loss"]), metrics
+    # the recipe knobs: a per-step learning rate and an EMA in the chunk
+    (state, ema), metrics = make_train_step_multi_compact(
+        cfg, step_lr=make_step_lr(8, 2, 1e-3, 1e-5), ema_decay=0.99)(
+        (state, ema_init(state.model)), *chunk)
+    assert state.step == 5 and torch.isfinite(metrics["loss"]), metrics
+# host --augment (the mosaic's bilinear resize without OpenCV)
+aug = YoloDataset(config["train"], cfg.num_classes, cfg.anchors_array,
+                  cfg.img_size, augment=True, seed=1)
+for i in range(len(aug)):
+    assert aug[i][0].shape == (cfg.img_size, cfg.img_size, 3)
+assert "cv2" not in sys.modules
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax"))
 print("LOADED", loaded)
@@ -218,7 +236,8 @@ def test_static_check_sees_the_port():
     """The static check above parses the whole port, including lazy
     imports inside functions (a guard against an empty glob)."""
     assert len(PORT_SOURCES) > 30
-    for module in ("data/cache.py", "data/stream.py", "train/graphs.py"):
+    for module in ("data/cache.py", "data/stream.py", "train/graphs.py",
+                   "train/ema.py", "train/schedule.py"):
         assert PORT_DIR / module in PORT_SOURCES, module
     names = _imported_modules(PORT_DIR / "infer" / "predict.py")
     assert "yolo_from_scratch_tpu_torch.data.letterbox" in names

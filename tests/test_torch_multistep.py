@@ -121,9 +121,16 @@ def hold_to_jax(state, start, jax_out, metrics, n=N):
     assert state.step == n and int(jax_st.step) == n
     np.testing.assert_allclose(metrics["loss"].item(),
                                float(jax_metrics["loss"]), rtol=n * 1e-4)
-    model = state.model
-    want = from_flax_variables(jax.tree_util.tree_map(np.asarray, {
-        "params": jax_st.params, "batch_stats": jax_st.batch_stats}), model)
+    hold_weights_to_jax(state.model, start, {
+        "params": jax_st.params, "batch_stats": jax_st.batch_stats}, n)
+
+
+def hold_weights_to_jax(model, start, jax_variables, n=N):
+    """A model's weights and statistics (the state's, or an EMA's) against
+    a JAX variables tree, each weight's change from `start` at the
+    tolerances of the module docstring."""
+    want = from_flax_variables(jax.tree_util.tree_map(
+        np.asarray, jax_variables), model)
     for name, t in model.state_dict().items():
         if name.endswith((".bn.mean", ".bn.var")):
             np.testing.assert_allclose(
@@ -269,13 +276,22 @@ def test_chunk_draws_are_the_step_draws():
 
 
 def test_recipe_knobs_raise():
+    """The recipe knobs are ported (tests/test_torch_recipe.py holds them
+    to JAX); what they cannot take raises when the trainer is built, not
+    at its first step: an af_hp key the anchor-free loss has no keyword
+    for, a step_lr that is not a function, an ema_decay outside (0, 1]."""
     cfg = _cfg()
+    for kw, error in (({"af_hp": {"top_k": 5}}, ValueError),
+                      ({"step_lr": 1e-3}, TypeError),
+                      ({"ema_decay": 0.0}, ValueError),
+                      ({"ema_decay": 1.5}, ValueError)):
+        with pytest.raises(error):
+            make_train_step_multi_compact(cfg, **kw)
+    with pytest.raises(ValueError, match="top_k"):
+        tsteps.make_train_step_multi_pool(cfg, af_hp={"top_k": 5})
     for kw in ({"af_hp": {"topk": 5}}, {"step_lr": lambda s: 1e-3},
                {"ema_decay": 0.999}):
-        with pytest.raises(NotImplementedError):
-            make_train_step_multi_compact(cfg, **kw)
-    with pytest.raises(NotImplementedError):
-        tsteps.make_train_step_multi_pool(cfg, af_hp={"topk": 5})
+        make_train_step_multi_compact(cfg, **kw)
 
 
 def test_optax_state_dict_reads_capturable_tensors():

@@ -276,11 +276,11 @@ def test_cli_inspect_and_unported_modes(jax_checkpoint, cfg):
     assert f"Total parameters: {n:,}" in result.stdout
     assert "Model architecture:" in result.stdout
     # training, evaluation and --compute-anchors are ported
-    # (tests/test_torch_eval.py, tests/test_torch_anchors.py); multi-scale
+    # (tests/test_torch_eval.py, tests/test_torch_anchors.py); data-parallel
     # training is not yet
-    result = _run_port_cli(["data.yaml", "--multi-scale"])
+    result = _run_port_cli(["data.yaml", "--data-parallel"])
     assert result.returncode == 2
-    assert "--multi-scale is not ported yet" in result.stdout
+    assert "--data-parallel is not ported yet" in result.stdout
 
 
 def test_train_torch_script_and_device_letterbox_inference(

@@ -225,23 +225,104 @@ def _pool_inputs(seed=0, repeats=True):
     return pool, idx.astype(np.int32)
 
 
-def test_pool_trainer_matches_jax():
+@pytest.fixture(scope="module")
+def jax_pool_trainer():
+    """JAX's pool trainer (anchor head, Adam), compiled once."""
+    cfg = _cfg()
+    tx, _ = jax_state(variables(cfg))
+    return jax_multi_pool(JaxYOLO(cfg), tx, cfg, donate=False)
+
+
+def _pool_held_to_jax(jax_pool_trainer, pool, idx):
     cfg = _cfg()
     var = variables(cfg)
-    # no image twice in a batch: two copies of one image make the SPPF
-    # conv's weight gradient vanish at this size (its max-pooled inputs are
-    # constant over the 2x2 P5 map and the batch, and the BatchNorm after
-    # it takes out their mean), and Adam's scale-free step turns the
-    # rounding noise left into changes of up to lr
-    pool, idx = _pool_inputs(repeats=False)
-    tx, st0 = jax_state(var)
-    jax_out = jax_multi_pool(JaxYOLO(cfg), tx, cfg, donate=False)(
-        st0, *(jnp.asarray(a) for a in pool), jnp.asarray(idx))
+    _, st0 = jax_state(var)
+    jax_out = jax_pool_trainer(st0, *(jnp.asarray(a) for a in pool),
+                               jnp.asarray(idx))
     state = port_state(cfg, var)
     start = {n: t.clone() for n, t in state.model.state_dict().items()}
     state, metrics = make_train_step_multi_pool(cfg)(
         state, *(torch.from_numpy(a) for a in pool), torch.from_numpy(idx))
     hold_to_jax(state, start, jax_out, metrics)
+
+
+def test_pool_trainer_matches_jax(jax_pool_trainer):
+    # no image twice in a batch: with two copies of one image the SPPF
+    # conv's weight gradient vanishes at this size (the test below), and
+    # Adam's scale-free first step turns the rounding noise left into
+    # changes of up to lr
+    _pool_held_to_jax(jax_pool_trainer, *_pool_inputs(repeats=False))
+
+
+def test_pool_trainer_with_repeats_matches_jax(jax_pool_trainer):
+    """Draws with repeats, the last step's batch two copies of one image:
+    the whole state is held to JAX. (A repeated batch at the first step is
+    not: there Adam's first update turns the vanished gradient's rounding
+    noise into steps of +-lr that each package takes its own way.)"""
+    pool, idx = _pool_inputs(seed=1, repeats=True)
+    assert idx[-1, 0] == idx[-1, 1] and len(set(idx[0])) == B
+    _pool_held_to_jax(jax_pool_trainer, pool, idx)
+
+
+def _sppf_conv2_grads(img, n_pooled):
+    """Both packages' gradients of SPPF's output conv on a batch of two
+    copies of one image at img x img: (port, JAX) weight gradients split
+    into the 1 + n_pooled input blocks [x, y1, y2, y3] (each block's
+    largest magnitude)."""
+    from yolo_from_scratch_tpu.config import YoloConfig
+    from yolo_from_scratch_tpu.train.steps import _make_expand as jax_expand
+    from yolo_from_scratch_tpu.train.steps import _make_loss_fn
+    from yolo_from_scratch_tpu_torch.train.steps import (
+        _make_expand,
+        make_loss_fn,
+    )
+
+    cfg = YoloConfig(num_classes=3, img_size=img, width_mult=0.25,
+                     depth_mult=0.33)
+    var = variables(cfg)
+    rng = np.random.default_rng(img)
+    image = rng.integers(0, 256, (1, img, img, 3), dtype=np.uint8)
+    boxes = [np.asarray([[0.3, 0.4, 0.2, 0.3], [0.7, 0.6, 0.4, 0.2]],
+                        np.float32)]
+    from yolo_from_scratch_tpu_torch.data.assign_device import pack_labels
+
+    labels, counts = pack_labels(boxes * 2, [np.asarray([0, 2])] * 2, K)
+    images = np.concatenate([image, image])
+    state = port_state(cfg, var)
+    x, t = _make_expand(cfg, True)(0, torch.from_numpy(images), (
+        torch.from_numpy(labels), torch.from_numpy(counts)))
+    make_loss_fn(cfg)(state.model, x, t)[0].backward()
+    port = state.model.sppf.conv2.conv.weight.grad[:, :, 0, 0].T.numpy()
+    xi, ti = jax_expand(cfg, True)(0, jnp.asarray(images), (
+        jnp.asarray(labels), jnp.asarray(counts)))
+    import jax
+
+    loss_fn = _make_loss_fn(JaxYOLO(cfg), cfg, False)
+    grads = jax.jit(jax.grad(
+        lambda p: loss_fn(p, var["batch_stats"], xi, ti)[0]))(var["params"])
+    jax_g = np.asarray(grads["sppf"]["conv2"]["conv"]["kernel"])[0, 0]
+    hidden = port.shape[0] // 4
+    return [[np.abs(g[i * hidden:(i + 1) * hidden]).max() for i in range(4)]
+            for g in (port, jax_g)]
+
+
+@pytest.mark.parametrize("img,vanished", [(64, (1, 2, 3)), (128, (2, 3))])
+def test_sppf_gradient_vanishes_on_a_repeated_batch(img, vanished):
+    """The pool trainer's fault with repeats, pinned: SPPF's output conv
+    sees [x, y1, y2, y3], y_k the k-fold 5x5 max pool (a 5, 9, 13 px
+    window). Where the window covers the whole P5 map (2x2 at 64, 4x4 at
+    128 for y2 and y3), y_k is constant over the map; with two copies of
+    one image in the batch the train-mode BatchNorm after the conv takes
+    out the batch's mean, and the weight gradient of those input blocks
+    is rounding noise in both packages (under 1e-5 of the x block's),
+    while the others are not."""
+    for blocks in _sppf_conv2_grads(img, 3):
+        for i in range(1, 4):
+            ratio = blocks[i] / blocks[0]
+            if i in vanished:
+                assert ratio < 1e-5, (img, i, ratio)
+            else:
+                assert ratio > 1e-2, (img, i, ratio)
 
 
 @pytest.mark.parametrize("head", ["anchor", "anchor_free"])

@@ -14,9 +14,12 @@ own copies, held bit-equal to the JAX package's by the tests.
 Ported so far: single-image, pipelined and batched serving (letterbox on
 the host or the device -> forward -> decode -> gate -> top-k -> class-aware
 greedy NMS, one launch a batch), training and evaluation with mAP and
-detection P/R/F1, the k-means anchors, and the conv-backward prototype
-benchmarks; every TPU kernel of the JAX package is a CUDA kernel written by
-hand (`csrc/`).
+detection P/R/F1 for both heads (dense, compact-label and streamed, the
+scanned trainers as CUDA graphs; `--resume`, `--ema`, `--multi-scale`,
+host `--augment`, the per-step learning rate and gradient accumulation),
+the k-means anchors, and the conv-backward prototype benchmarks; every
+TPU kernel of the JAX package is a CUDA kernel written by hand
+(`csrc/`).
 """
 
 from yolo_from_scratch_tpu_torch.config import (

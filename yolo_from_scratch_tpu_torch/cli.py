@@ -16,7 +16,13 @@ from compact labels expanded on the device (`--sparse-loss`,
 makes the optimizer AdamW; `--stream` trains from a one-time on-disk cache
 through the scanned trainers, N steps (`--stream-chunk`) a CUDA graph
 replay, from double-buffered chunks or a device-resident pool
-(`--stream-pool P`). Evaluation, inference and inspect take the
+(`--stream-pool P`). `--resume CKPT` goes on from a checkpoint of either
+package (its config governs; weights, optimizer state, step and epoch are
+restored, and the file is written again in place), `--ema` evaluates and
+saves an EMA of the weights (decay 0.9999, tau 2000), `--multi-scale`
+rotates 0.75x / 1x / 1.25x resolution buckets per epoch and `--augment`
+adds the host's mosaic, flip and jitter at load time, as the JAX CLI
+does. Evaluation, inference and inspect take the
 head from the checkpoint; `--dtype auto` is bfloat16 on the card and
 float32 on the CPU.
 `--val-det` adds the detection-level P/R/F1 to each epoch, `--map` adds
@@ -41,15 +47,18 @@ YAML_EXTS = (".yaml", ".yml")
 
 # JAX-CLI flags with no port yet
 UNPORTED_FLAGS = (
-    "--resume", "--ema", "--multi-scale", "--augment", "--data-parallel",
-    "--spatial", "--model-parallel", "--distributed", "--coordinator",
-    "--num-processes", "--process-id", "--int8", "--export",
-    "--export-batch", "--export-platforms",
+    "--data-parallel", "--spatial", "--model-parallel", "--distributed",
+    "--coordinator", "--num-processes", "--process-id", "--int8",
+    "--export", "--export-batch", "--export-platforms",
 )
 UNPORTED_PREFIXES = ("--packed",)
-# the JAX CLI's flags that --stream refuses (exit 1, before "not ported")
-STREAM_EXCLUSIVE = ("--augment", "--ema", "--multi-scale", "--distributed",
-                    "--spatial", "--model-parallel")
+# unported JAX-CLI flags that --stream refuses (exit 1, before "not
+# ported"); _train refuses the ported --augment, --ema and --multi-scale
+STREAM_EXCLUSIVE = ("--distributed", "--spatial", "--model-parallel")
+# --multi-scale's resolution factors, each rounded to a multiple of 32
+MULTI_SCALE_FACTORS = (0.75, 1.0, 1.25)
+# --ema's decay (fit's default, as the JAX CLI leaves it)
+EMA_DECAY = 0.9999
 
 
 def build_parser():
@@ -132,6 +141,30 @@ def build_parser():
     parser.add_argument("--cache-dir", type=str, default=None,
                         help="with --stream: cache location (default: a "
                              ".yolo_tpu_cache_* dir next to the images)")
+    parser.add_argument("--resume", type=str, default=None, metavar="CKPT",
+                        help="resume training from a checkpoint of either "
+                             "package: weights (the raw ones of an --ema "
+                             "checkpoint), optimizer state, step and "
+                             "epoch; its config (size, img-size, head, "
+                             "nc) governs, and the file is written again "
+                             "in place")
+    parser.add_argument("--ema", action="store_true",
+                        help="keep an EMA of the weights and BatchNorm "
+                             "statistics (decay 0.9999, tau 2000): "
+                             "evaluation, --val-det and the checkpoint's "
+                             "model use it, the raw weights ride in the "
+                             "checkpoint for --resume")
+    parser.add_argument("--multi-scale", action="store_true",
+                        help="YOLOv5-style multi-scale training: epochs "
+                             "rotate through 0.75x/1x/1.25x resolution "
+                             "buckets (rounded to /32; one train step and "
+                             "loader a bucket); evaluation and the "
+                             "checkpoint stay at --img-size")
+    parser.add_argument("--augment", action="store_true",
+                        help="host augmentation at load time: a 4-image "
+                             "mosaic (p=0.5), hflip (p=0.5) and "
+                             "brightness/contrast jitter (the reference "
+                             "has none)")
     parser.add_argument("--weight-decay", type=float, default=0.0,
                         metavar="W",
                         help="AdamW decoupled weight decay (default 0 = "
@@ -252,14 +285,22 @@ def _compute_anchors(args, yaml_file):
 
 
 def _loader(config, split, cfg, batch_size, shuffle=False, seed=0,
-            compact=0):
+            compact=0, augment=False):
     from yolo_from_scratch_tpu_torch.data import DataLoader, YoloDataset
 
     return DataLoader(YoloDataset(config[split], cfg.num_classes,
                                   cfg.anchors_array, cfg.img_size,
-                                  head_type=cfg.head_type),
+                                  head_type=cfg.head_type, augment=augment,
+                                  seed=seed),
                       batch_size=batch_size, shuffle=shuffle, seed=seed,
                       compact=compact)
+
+
+def multi_scale_sizes(img_size):
+    """--multi-scale's buckets: 0.75x / 1x / 1.25x of img_size rounded to
+    multiples of 32 (at least 32), sorted, as the JAX CLI computes them."""
+    return sorted({max(32, round(img_size * f / 32) * 32)
+                   for f in MULTI_SCALE_FACTORS})
 
 
 def _evaluate(args, config, ckpt_file):
@@ -346,7 +387,10 @@ def _det_eval(cfg, model, dataset, device):
 
 
 def _train(args, config):
-    from yolo_from_scratch_tpu_torch.train.loop import fit
+    from yolo_from_scratch_tpu_torch.train.loop import (
+        fit,
+        restore_train_state,
+    )
     from yolo_from_scratch_tpu_torch.train.steps import (
         create_train_state,
         make_eval_step,
@@ -359,12 +403,43 @@ def _train(args, config):
     dtype = args.dtype
     if dtype == "auto":
         dtype = "bfloat16" if device.type == "cuda" else "float32"
-    cfg = YoloConfig.from_size(args.size,
-                               num_classes=config.get("nc", 1),
-                               img_size=args.img_size, compute_dtype=dtype,
-                               head_type=args.head)
-    if not args.stream and (args.stream_pool or args.cache_dir):
+    state = resume_ema = save_path = None
+    start_epoch = 0
+    if args.resume:
+        # the checkpoint's config governs the model, the loss and the data
+        state, cfg, start_epoch, resume_ema = restore_train_state(
+            args.resume, args.lr, device=device,
+            weight_decay=args.weight_decay, compute_dtype=dtype)
+        save_path = args.resume
+        print(f"Resuming from {args.resume} at epoch {start_epoch + 1}")
+        for flag, passed, kept, shown in (
+                ("--size", YOLO_SIZES[args.size]["width_mult"],
+                 cfg.width_mult, args.size),
+                ("--img-size", args.img_size, cfg.img_size, args.img_size),
+                ("--head", args.head, cfg.head_type, args.head)):
+            if passed != kept:
+                print(f"WARNING: {flag} {shown!r} ignored on --resume; "
+                      f"checkpoint uses {kept!r}")
+    else:
+        cfg = YoloConfig.from_size(args.size,
+                                   num_classes=config.get("nc", 1),
+                                   img_size=args.img_size,
+                                   compute_dtype=dtype, head_type=args.head)
+    if args.stream:
+        for flag, bad in (("--augment", args.augment), ("--ema", args.ema),
+                          ("--multi-scale", args.multi_scale)):
+            if bad:
+                print(f"ERROR: --stream does not compose with {flag}; use "
+                      f"--device-augment/--device-mosaic for augmentation "
+                      f"on the stream path")
+                return 1
+    elif args.stream_pool or args.cache_dir:
         print("ERROR: --stream-pool/--cache-dir require --stream")
+        return 1
+    if args.compact_targets and args.augment:
+        print("ERROR: --compact-targets streams raw labels — host-side "
+              "--augment (mosaic) is unsupported; use --device-augment / "
+              "--device-mosaic instead")
         return 1
     if args.device_mosaic and not args.compact_targets:
         print("ERROR: --device-mosaic requires --compact-targets "
@@ -377,14 +452,17 @@ def _train(args, config):
     if args.sparse_loss and cfg.head_type == "anchor_free":
         print("NOTE: --sparse-loss ignored (anchor-free TAL is "
               "already dense-transport-free)")
-    state = create_train_state(cfg, args.lr, seed=args.seed, device=device,
-                               weight_decay=args.weight_decay)
+    if state is None:
+        state = create_train_state(cfg, args.lr, seed=args.seed,
+                                   device=device,
+                                   weight_decay=args.weight_decay)
     # both heads build their eval targets on the device from compact
     # labels (anchor: data/assign_device.py; anchor-free:
     # models/anchor_free.py::assign_targets_anchor_free_device_batch)
     train_loader = _loader(config, "train", cfg, args.batch_size,
                            shuffle=True, seed=args.seed,
-                           compact=args.compact_targets)
+                           compact=args.compact_targets,
+                           augment=args.augment)
     val_loader = _loader(config, "val", cfg, args.batch_size,
                          compact=args.compact_targets)
     if len(train_loader.dataset) == 0:
@@ -403,11 +481,13 @@ def _train(args, config):
     print(f"  Total epochs: {args.epochs}")
     det_eval = (_det_eval(cfg, state.model, val_loader.dataset, device)
                 if args.val_det else None)
-    train_step = make_train_step(
-        cfg, args.reference_quirks, device,
-        device_augment=args.device_augment, augment_seed=args.seed,
-        compact_targets=bool(args.compact_targets),
-        device_mosaic=args.device_mosaic, sparse_loss=args.sparse_loss)
+    step_kw = dict(device_augment=args.device_augment,
+                   augment_seed=args.seed,
+                   compact_targets=bool(args.compact_targets),
+                   device_mosaic=args.device_mosaic,
+                   sparse_loss=args.sparse_loss)
+    train_step = make_train_step(cfg, args.reference_quirks, device,
+                                 **step_kw)
     eval_step = make_eval_step(cfg, quirk_640=args.reference_quirks,
                                device=device,
                                compact_targets=bool(args.compact_targets))
@@ -444,12 +524,33 @@ def _train(args, config):
                 cfg, args.reference_quirks, device, **multi)
             print(f"Streaming from cache ({len(cache)} images), "
                   f"double-buffered chunks of {args.stream_chunk} steps")
+    multi_scale = None
+    if args.multi_scale:
+        # one step and loader a bucket; the model is fully convolutional,
+        # so the one state serves every size
+        sizes = multi_scale_sizes(cfg.img_size)
+        print(f"Multi-scale buckets: {sizes} (epoch-rotated)")
+        multi_scale = []
+        for size in sizes:
+            if size == cfg.img_size:
+                multi_scale.append((train_step, train_loader))
+                continue
+            cfg_s = cfg.with_(img_size=size)
+            multi_scale.append((
+                make_train_step(cfg_s, args.reference_quirks, device,
+                                **step_kw),
+                _loader(config, "train", cfg_s, args.batch_size,
+                        shuffle=True, seed=args.seed,
+                        compact=args.compact_targets,
+                        augment=args.augment)))
     state, save_path = fit(
         state, train_step, eval_step,
         train_loader, val_loader, cfg, device=device, epochs=args.epochs,
         initial_lr=args.lr, min_lr=args.min_lr,
         warmup_epochs=args.warmup_epochs, metrics_path=args.metrics_jsonl,
-        det_eval=det_eval, stream=stream)
+        det_eval=det_eval, stream=stream, start_epoch=start_epoch,
+        save_path=save_path, use_ema=args.ema, ema_decay=EMA_DECAY,
+        initial_ema=resume_ema, multi_scale=multi_scale)
     print(f"\nTraining complete. Model saved to {save_path}")
     return 0
 

@@ -177,6 +177,10 @@ class YOLO(nn.Module):
         return self
 
     def forward(self, x, train: bool = False):
+        """Head outputs for NHWC x at any multiple of 32 (the multi-scale
+        trainer's buckets share one model); their grids must be the
+        input's size / stride."""
+        size = x.shape[1]
         x = x.to(compute_dtype(self.cfg)).permute(0, 3, 1, 2)  # NHWC -> NCHW
 
         x = self.stem1(self.stem0(x, train), train)
@@ -207,11 +211,11 @@ class YOLO(nn.Module):
 
         outs = [self.head_p3(p3_fpn, train), self.head_p4(p4_panet, train),
                 self.head_p5(p5_panet, train)]
-        for out, gs in zip(outs, self.cfg.grid_sizes):
+        for out, stride in zip(outs, STRIDES):
+            gs = size // stride
             if out.shape[1:3] != (gs, gs):
                 raise ValueError(f"head grid {tuple(out.shape[1:3])} != "
-                                 f"({gs}, {gs}) for img_size "
-                                 f"{self.cfg.img_size}")
+                                 f"({gs}, {gs}) for an input of {size}")
         # heads return float32 so decode runs in full precision even when
         # the convs compute in bfloat16
         return [out.float() for out in outs]

@@ -2,17 +2,19 @@
 package's one jitted program for N scanned steps (`train/steps.py`'s
 `make_train_step_multi*`). This module has no JAX counterpart.
 
-`capture(run, warmup, model, optimizer)` records `run()` (N optimizer
-steps that read only static tensors and the training state) as one
-`torch.cuda.CUDAGraph`, which the caller replays:
+`capture(run, warmup, model, optimizer, *others)` records `run()` (N
+optimizer steps that read only static tensors and the training state) as
+one `torch.cuda.CUDAGraph`, which the caller replays:
 
 - Warm-up: `warmup()` runs first on a side stream. It builds the kernel
   library, cuDNN's plans and the optimizer's lazily created state. It
-  must not change the training state, so the parameters, buffers and
-  optimizer state are snapshotted before it and copied back into the same
+  must not change the training state, so the parameters, buffers,
+  optimizer state and learning-rate tensors, and those of `others` (an
+  EMA model), are snapshotted before it and copied back into the same
   tensors after it (`Snapshot`); optimizer state that the warm-up created
   is zeroed, which is Adam's fresh state. The graph then reads and writes
-  exactly those tensors.
+  exactly those tensors (`addresses` lists them, so that a caller can
+  tell when they were replaced).
 - Capture runs with `torch.backends.cudnn.benchmark` off, in the
   thread-local error mode (background threads that stage the next chunk
   may call the CUDA API meanwhile). The optimizer must be capturable
@@ -34,15 +36,39 @@ from pathlib import Path
 import torch
 
 
-class Snapshot:
-    """Clones of a model's parameters and buffers and of its optimizer's
-    state tensors; `restore()` copies them back into the same tensors and
-    zeroes optimizer state created since (Adam's and AdamW's fresh state:
-    step 0, zero moments)."""
+def _state_tensors(model, optimizer, *others):
+    """The training state's tensors apart from the optimizer's per-parameter
+    state: parameters and buffers, the optimizer's group tensors (a
+    capturable optimizer's learning rate), and the parameters and buffers
+    of `others`."""
+    tensors = [*model.parameters(), *model.buffers()]
+    tensors += [v for g in optimizer.param_groups for k, v in g.items()
+                if k != "params" and torch.is_tensor(v)]
+    for m in others:
+        tensors += [*m.parameters(), *m.buffers()]
+    return tensors
 
-    def __init__(self, model, optimizer):
+
+def addresses(model, optimizer, *others) -> tuple:
+    """The addresses of every tensor a graph of training steps reads from
+    the training state: `_state_tensors` and the optimizer's state."""
+    tensors = _state_tensors(model, optimizer, *others)
+    for p in model.parameters():
+        tensors += [v for v in optimizer.state.get(p, {}).values()
+                    if torch.is_tensor(v)]
+    return tuple(t.data_ptr() for t in tensors)
+
+
+class Snapshot:
+    """Clones of a model's parameters and buffers, of its optimizer's
+    state and group tensors (the learning rate), and of the parameters and
+    buffers of `others` (an EMA model); `restore()` copies them back into
+    the same tensors and zeroes optimizer state created since (Adam's and
+    AdamW's fresh state: step 0, zero moments)."""
+
+    def __init__(self, model, optimizer, *others):
         self.optimizer = optimizer
-        self.tensors = [*model.parameters(), *model.buffers()]
+        self.tensors = _state_tensors(model, optimizer, *others)
         with torch.no_grad():
             self.saved = [t.detach().clone() for t in self.tensors]
             self.opt = {p: {k: v.clone() for k, v in s.items()
@@ -78,16 +104,16 @@ def _failed_at(exc) -> str:
             f"`{f.line}`")
 
 
-def capture(run, warmup, model, optimizer) -> torch.cuda.CUDAGraph:
+def capture(run, warmup, model, optimizer, *others) -> torch.cuda.CUDAGraph:
     """Capture `run()` as a CUDA graph after `warmup()` on a side stream;
-    the training state is as it was before the warm-up when this returns.
-    Raises RuntimeError if the optimizer is not capturable or the capture
-    fails."""
+    the training state (and `others`, an EMA model) is as it was before
+    the warm-up when this returns. Raises RuntimeError if the optimizer is
+    not capturable or the capture fails."""
     if not all(g.get("capturable") for g in optimizer.param_groups):
         raise RuntimeError("a CUDA graph of training steps needs a "
                            "capturable optimizer (make_optimizer(..., "
                            "capturable=True))")
-    snapshot = Snapshot(model, optimizer)
+    snapshot = Snapshot(model, optimizer, *others)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):

@@ -9,7 +9,13 @@ never a per-batch `.item()`. With a `stream` (`data/stream.py`, `--stream`)
 an epoch is the stream's `run_epoch` through a scanned trainer instead,
 and a pool stream's fresh-ingest rate joins the epoch line and record.
 
-Not ported: EMA, the multi-scale trainer and multi-host.
+`start_epoch` resumes mid-schedule (`restore_train_state` reads the
+checkpoint back, `--resume`); `use_ema` keeps an EMA of the weights and
+BatchNorm statistics (`train/ema.py`, `--ema`), with which evaluation and
+`det_eval` run and which the checkpoint's `model` holds, the raw weights
+and the step riding in `extra` as the JAX package writes them;
+`multi_scale` rotates (train_step, loader) buckets per epoch
+(`--multi-scale`). Not ported: multi-host.
 """
 
 from __future__ import annotations
@@ -21,15 +27,27 @@ import numpy as np
 import torch
 
 from yolo_from_scratch_tpu_torch.data.device_queue import DeviceQueue
+from yolo_from_scratch_tpu_torch.train.ema import (
+    ema_init,
+    wrap_train_step_with_ema,
+)
 from yolo_from_scratch_tpu_torch.train.metrics import prf1
 from yolo_from_scratch_tpu_torch.train.schedule import lr_at_epoch
 from yolo_from_scratch_tpu_torch.train.steps import (
     METRIC_KEYS,
+    create_train_state,
+    load_optax_state,
     optax_state_dict,
     set_learning_rate,
 )
-from yolo_from_scratch_tpu_torch.utils.checkpoint import save_checkpoint
-from yolo_from_scratch_tpu_torch.utils.convert import to_flax_variables
+from yolo_from_scratch_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+)
+from yolo_from_scratch_tpu_torch.utils.convert import (
+    from_flax_variables,
+    to_flax_variables,
+)
 from yolo_from_scratch_tpu_torch.utils.metrics_log import MetricsLogger
 
 
@@ -72,25 +90,52 @@ def eval_epoch(eval_step, model, loader, device):
 def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
         device, epochs=100, initial_lr=1e-2, min_lr=1e-4, warmup_epochs=3,
         save_path=None, log=print, metrics_path=None, det_eval=None,
-        stream=None):
-    """Train + eval + checkpoint + LR step per epoch. Returns (state,
-    save_path); the checkpoint goes to `yolo_<timestamp>.ckpt` in the
-    working directory unless `save_path` is given.
+        stream=None, start_epoch=0, use_ema=False, ema_decay=0.9999,
+        initial_ema=None, multi_scale=None):
+    """Train + eval + checkpoint + LR step per epoch, epochs `start_epoch`
+    to `epochs` - 1. Returns (state, save_path); the checkpoint goes to
+    `yolo_<timestamp>.ckpt` in the working directory unless `save_path`
+    is given.
 
     `det_eval`: optional callable (model) -> (P%, R%, F1%), the
     detection-level metrics (NMS output vs GT at a fixed confidence) on
     the val split, appended to the epoch line and the JSONL record. It is
-    given the live training model and must not change it (serve a copy of
-    its weights: `BatchPredictor.load_weights`).
+    given the evaluated model (the live one, or the EMA) and must not
+    change it (serve a copy of its weights: `BatchPredictor.load_weights`).
+
+    `use_ema`: an EMA of the weights and BatchNorm statistics (decay
+    `ema_decay`, tau 2000) updated after every step, starting from a copy
+    of the state's model, or from the state dict `initial_ema` (a resumed
+    average, `restore_train_state`'s). Evaluation and `det_eval` use it;
+    the checkpoint's `model` holds it, and `extra` the raw weights
+    (`raw_params`, `raw_batch_stats`) beside `step`.
+
+    `multi_scale`: a list of (train_step, train_loader) pairs, one per
+    resolution bucket; epoch e trains with pair e % len (the model is
+    fully convolutional, so one state serves every bucket). Evaluation and
+    the checkpoint stay at cfg.img_size, and the positional `train_step`
+    / `train_loader` are then unused for training.
 
     `stream`: a `ChunkStream` or `PoolStream` whose `run_epoch` trains
     each epoch with `train_step`, a scanned trainer, in place of
-    `train_loader`; it is stopped when fit returns or raises."""
+    `train_loader` (not with `use_ema` or `multi_scale`: the CLI refuses
+    them); it is stopped when fit returns or raises."""
+    schedule = (list(multi_scale) if multi_scale
+                else [(train_step, train_loader)])
+    ema = None
+    if use_ema:
+        ema = ema_init(state.model)
+        if initial_ema is not None:
+            # --resume: go on with the checkpointed average instead of
+            # pinning it to the raw weights again
+            ema.load_state_dict(initial_ema)
+        schedule = [(wrap_train_step_with_ema(fn, decay=ema_decay), loader)
+                    for fn, loader in schedule]
     try:
-        return _fit_epochs(state, train_step, eval_step, train_loader,
-                           val_loader, cfg, device, epochs, initial_lr,
-                           min_lr, warmup_epochs, save_path, log,
-                           metrics_path, det_eval, stream)
+        return _fit_epochs(state, ema, schedule, eval_step, val_loader, cfg,
+                           device, start_epoch, epochs, initial_lr, min_lr,
+                           warmup_epochs, save_path, log, metrics_path,
+                           det_eval, stream)
     finally:
         if stream is not None and hasattr(stream, "stop"):
             # a pool stream's persistent refresher must not stage uploads
@@ -98,28 +143,33 @@ def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
             stream.stop()
 
 
-def _fit_epochs(state, train_step, eval_step, train_loader, val_loader, cfg,
-                device, epochs, initial_lr, min_lr, warmup_epochs, save_path,
-                log, metrics_path, det_eval, stream):
+def _fit_epochs(state, ema, schedule, eval_step, val_loader, cfg, device,
+                start_epoch, epochs, initial_lr, min_lr, warmup_epochs,
+                save_path, log, metrics_path, det_eval, stream):
     """fit()'s epoch loop, apart so that the stream's shutdown wraps it."""
     if save_path is None:
         timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
         save_path = f"yolo_{timestamp}.ckpt"
     metrics_logger = MetricsLogger(metrics_path)
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         lr = lr_at_epoch(epoch, warmup_epochs, epochs, initial_lr, min_lr)
         state = set_learning_rate(state, lr)
+        epoch_step, epoch_loader = schedule[epoch % len(schedule)]
         ingest_img_s = None
         if stream is not None:
-            state, means, n_imgs, dt = stream.run_epoch(train_step, state)
+            state, means, n_imgs, dt = stream.run_epoch(epoch_step, state)
             loss, bbox, obj, cls = (means.get(k, 0.0) for k in METRIC_KEYS)
             ingest_img_s = means.get("ingest_img_s")
+        elif ema is not None:
+            (state, ema), loss, bbox, obj, cls, n_imgs, dt = train_epoch(
+                epoch_step, (state, ema), epoch_loader, device)
         else:
             state, loss, bbox, obj, cls, n_imgs, dt = train_epoch(
-                train_step, state, train_loader, device)
+                epoch_step, state, epoch_loader, device)
+        evaluated = ema if ema is not None else state.model
         val_loss, val_p, val_r, val_f1 = eval_epoch(
-            eval_step, state.model, val_loader, device)
-        det = det_eval(state.model) if det_eval is not None else None
+            eval_step, evaluated, val_loader, device)
+        det = det_eval(evaluated) if det_eval is not None else None
         det_str = (f" | Det: P {det[0]:.1f}%, R {det[1]:.1f}%, "
                    f"F1 {det[2]:.1f}%" if det is not None else "")
         ingest = (f" | ingest {ingest_img_s:.1f} img/s"
@@ -142,9 +192,55 @@ def _fit_epochs(state, train_step, eval_step, train_loader, val_loader, cfg,
         if ingest_img_s is not None:
             record["ingest_images_per_sec"] = ingest_img_s
         metrics_logger.log(record)
-        # Adam's state in the JAX package's optax layout, so that its
-        # --resume continues the moments instead of restarting them
-        save_checkpoint(save_path, to_flax_variables(state.model.state_dict()),
+        # 'model' holds the weights to serve (the EMA when kept); the raw
+        # weights and the step ride in extra, and Adam's state in the JAX
+        # package's optax layout, so that either package's --resume
+        # continues the training itself
+        extra = {"step": state.step}
+        if ema is not None:
+            raw = to_flax_variables(state.model.state_dict())
+            extra["raw_params"] = raw["params"]
+            extra["raw_batch_stats"] = raw["batch_stats"]
+        save_checkpoint(save_path, to_flax_variables(evaluated.state_dict()),
                         cfg, epoch=epoch, opt_state=optax_state_dict(state),
-                        extra={"step": state.step})
+                        extra=extra)
     return state, save_path
+
+
+def restore_train_state(ckpt_path, learning_rate=1e-2, *, device,
+                        weight_decay: float = 0.0, compute_dtype=None):
+    """Rebuild a train state from a checkpoint of either package for
+    `--resume` (the JAX package's `restore_train_state`). Returns (state,
+    cfg, start_epoch, ema_state_dict):
+
+    - the weights are the raw ones of `extra` when the checkpoint was
+      written with an EMA (`raw_params`, `raw_batch_stats`), else its
+      `model`; `ema_state_dict` is then the checkpoint's `model`, the
+      average to go on with (`fit(initial_ema=...)`), else None;
+    - the optimizer is Adam, or AdamW when `weight_decay` > 0 (capturable
+      on a CUDA device, as `create_train_state` makes it), and its state
+      is read from the optax layout in place (`load_optax_state`), before
+      any graph is captured on it;
+    - `state.step` is `extra['step']`, and training starts at the
+      checkpoint's epoch + 1.
+
+    cfg is the checkpoint's (it governs the model, the loss and the data),
+    with `compute_dtype` when given."""
+    model_sd, cfg, meta = load_checkpoint(ckpt_path)
+    if compute_dtype is not None:
+        cfg = cfg.with_(compute_dtype=compute_dtype)
+    extra = meta.get("extra") or {}
+    state = create_train_state(cfg, learning_rate, device=device,
+                               weight_decay=weight_decay)
+    ema_sd = None
+    weights = model_sd
+    if "raw_params" in extra:
+        weights = from_flax_variables(
+            {"params": extra["raw_params"],
+             "batch_stats": extra["raw_batch_stats"]}, state.model)
+        ema_sd = model_sd
+    state.model.load_state_dict(weights)
+    if meta.get("opt_state") is not None:
+        load_optax_state(state, meta["opt_state"])
+    state.step = int(extra.get("step", 0))
+    return state, cfg, meta["epoch"] + 1, ema_sd

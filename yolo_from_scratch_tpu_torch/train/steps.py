@@ -35,6 +35,17 @@ and replayed at every later one: the chunk is copied into the graph's
 static inputs and the draws of its N steps (`ChunkDraws`) into static
 device buffers before each replay. A failed capture raises; nothing falls
 back to eager steps on the card.
+
+The recipe knobs of the JAX package's recipe study: `af_hp` (the
+anchor-free loss's weights and TAL's topk / alpha / beta) in every train
+step; `step_lr` (a per-step schedule, `train/schedule.py::make_step_lr`)
+and `ema_decay` (an EMA of the weights and BatchNorm statistics,
+`train/ema.py`) in `make_train_step_multi_compact`, where each step's
+index comes from a static device row of the chunk, so that inside a graph
+each step writes its own learning rate into the optimizer's lr tensor
+before its update and takes its own EMA decay after it.
+`make_train_step_accum` takes one update from the mean gradient of
+`n_accum` micro-batches.
 """
 
 from __future__ import annotations
@@ -72,16 +83,23 @@ from yolo_from_scratch_tpu_torch.ops.mosaic_device import (
     mosaic_compact_batch,
     mosaic_draws,
 )
+from yolo_from_scratch_tpu_torch.train.ema import ema_update
 from yolo_from_scratch_tpu_torch.train.metrics import (
     grid_metric_counts,
     grid_metric_counts_anchor_free,
 )
-from yolo_from_scratch_tpu_torch.utils.convert import to_flax_variables
+from yolo_from_scratch_tpu_torch.utils.convert import (
+    from_flax_variables,
+    to_flax_variables,
+)
 
 GRAD_CLIP_NORM = 10.0
 METRIC_KEYS = ("loss", "bbox", "obj", "cls")
 # the mosaic's stream is apart from the flip/jitter one (train/steps.py:299)
 MOSAIC_SALT = 0x6D6F7361
+# the anchor-free loss's keywords that `af_hp` may set (train/steps.py:80)
+AF_HP_KEYS = ("box_weight", "cls_weight", "dfl_weight", "topk", "alpha",
+              "beta")
 
 
 @dataclasses.dataclass
@@ -165,16 +183,59 @@ def optax_state_dict(state: TrainState) -> dict:
     }
 
 
-def set_learning_rate(state: TrainState, lr: float) -> TrainState:
-    """Set the learning rate of every parameter group (per epoch). A
-    capturable optimizer's learning rate is a device tensor, filled in
-    place: a captured graph reads the tensor it was captured with."""
+def set_learning_rate(state: TrainState, lr) -> TrainState:
+    """Set the learning rate of every parameter group: per epoch a float,
+    per step (`step_lr`) a 0-d float32 tensor. A capturable optimizer's
+    learning rate is a device tensor, written in place: a captured graph
+    reads the tensor it was captured with."""
     for group in state.optimizer.param_groups:
         if torch.is_tensor(group["lr"]):
-            group["lr"].fill_(lr)
+            if torch.is_tensor(lr):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(lr)
         else:
-            group["lr"] = lr
+            group["lr"] = float(lr)
     return state
+
+
+def load_optax_state(state: TrainState, opt_state: dict) -> TrainState:
+    """The inverse of `optax_state_dict`: read the JAX package's optax
+    layout (adam, or the adamw chain when the optimizer is AdamW) into the
+    optimizer, its moments, counts and learning rate. Existing state
+    tensors are written in place, so a CUDA graph captured on them goes on
+    reading the restored values; missing ones are created as torch creates
+    them (a capturable optimizer's step on the parameters' device).
+    `state.step` is the caller's (the checkpoint's `extra['step']`)."""
+    inner = opt_state["inner_state"]["1"]
+    adamw = isinstance(state.optimizer, torch.optim.AdamW)
+    if ("2" in inner) != adamw:
+        raise ValueError(
+            f"the checkpoint holds the {'adamw' if '2' in inner else 'adam'}"
+            f" chain, the optimizer is {type(state.optimizer).__name__} "
+            f"(pass the --weight-decay the checkpoint was trained with)")
+    adam = inner["0"]
+    count = float(np.asarray(adam["count"]))
+    model = state.model
+    moments = {key: from_flax_variables({"params": adam[leaf]}, model,
+                                        collections=("params",))
+               for key, leaf in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}
+    capturable = all(g.get("capturable") for g in
+                     state.optimizer.param_groups)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            slot = state.optimizer.state[p]
+            if not slot:
+                slot["step"] = (torch.zeros((), dtype=torch.float32,
+                                            device=p.device) if capturable
+                                else torch.tensor(0.0))
+                slot["exp_avg"] = torch.zeros_like(p)
+                slot["exp_avg_sq"] = torch.zeros_like(p)
+            slot["step"].fill_(count)
+            for key, tree in moments.items():
+                slot[key].copy_(tree[name])
+    lr = opt_state["hyperparams"]["learning_rate"]
+    return set_learning_rate(state, float(np.asarray(lr)))
 
 
 def create_train_state(cfg: YoloConfig, learning_rate=1e-2, *, seed=0,
@@ -217,24 +278,38 @@ def _af_gt(labels, valid, num_classes):
     return labels[..., 1:5], gt_cls, valid.float()
 
 
+def _af_kwargs(af_hp):
+    """`af_hp` as the anchor-free loss's keywords; an unknown key raises
+    (the JAX package would fail at its first trace)."""
+    af_kw = dict(af_hp or {})
+    unknown = sorted(set(af_kw) - set(AF_HP_KEYS))
+    if unknown:
+        raise ValueError(f"af_hp: unknown keys {unknown} (known: "
+                         f"{', '.join(AF_HP_KEYS)})")
+    return af_kw
+
+
 def make_loss_fn(cfg: YoloConfig, quirk_640: bool = False, device=None, *,
-                 af_compact: bool = False, sparse: bool = False):
+                 af_compact: bool = False, sparse: bool = False,
+                 af_hp: dict | None = None):
     """loss_fn(model, images, targets) -> (total, (bbox, obj, cls)), the
     model in train mode (its running statistics move).
 
     `af_compact`: the anchor-free head with targets the GT tuple of
     `_af_gt`. `sparse`: the anchor head with targets (labels, valid) and
-    the gather-based loss."""
+    the gather-based loss. `af_hp`: the anchor-free loss's keywords
+    (AF_HP_KEYS); the anchor head ignores them, as in the JAX package."""
+    af_kw = _af_kwargs(af_hp)
     if cfg.head_type == "anchor_free":
 
         def loss_fn_af(model, images, targets):
             preds = model(_normalize(images), train=True)
             if af_compact:
                 total, bbox, cls = yolo_loss_anchor_free_from_gt(
-                    preds, *targets, cfg.num_classes, cfg.img_size)
+                    preds, *targets, cfg.num_classes, cfg.img_size, **af_kw)
             else:
                 total, bbox, cls = yolo_loss_anchor_free(
-                    preds, targets, cfg.num_classes, cfg.img_size)
+                    preds, targets, cfg.num_classes, cfg.img_size, **af_kw)
             return total, (bbox, torch.zeros_like(total), cls)
 
         return loss_fn_af
@@ -260,17 +335,23 @@ def make_loss_fn(cfg: YoloConfig, quirk_640: bool = False, device=None, *,
 class DrawSpec(NamedTuple):
     """Which random draws a train step takes, and their seed: the mosaic's
     from `step_generator(seed ^ MOSAIC_SALT, step)`, the flip and jitter's
-    (`jitter` False: the flip alone) from `step_generator(seed, step)`."""
+    (`jitter` False: the flip alone) from `step_generator(seed, step)`.
+    `steps`: the step's own index as an int32 tensor too (the per-step
+    learning rate and EMA decay read it)."""
 
     seed: int
     mosaic: bool
     augment: bool
     jitter: bool
+    steps: bool = False
 
     def draw(self, step: int, b: int) -> dict:
         """One step's draws for a batch of b, on the CPU: {"mosaic": (do,
-        idx)} and {"augment": (do_flip, gain, bias)} as the spec asks."""
+        idx)}, {"augment": (do_flip, gain, bias)} and {"step": (step,)} as
+        the spec asks."""
         out = {}
+        if self.steps:
+            out["step"] = (torch.tensor(step, dtype=torch.int32),)
         if self.mosaic:
             out["mosaic"] = mosaic_draws(
                 step_generator(self.seed ^ MOSAIC_SALT, step), b)
@@ -298,6 +379,8 @@ class ChunkDraws:
     def __init__(self, spec: DrawSpec, n: int, b: int, device):
         self.spec, self.n, self.b = spec, n, b
         fields = {}
+        if spec.steps:
+            fields["step"] = (((n,), torch.int32),)
         if spec.mosaic:
             fields["mosaic"] = (((n, b), torch.bool), ((n, 3, b), torch.int64))
         if spec.augment:
@@ -396,15 +479,23 @@ def _make_expand(cfg: YoloConfig, compact_targets: bool, device=None, *,
 
 def _make_step_body(cfg: YoloConfig, quirk_640: bool, device, *,
                     device_augment, augment_seed: int, compact_targets: bool,
-                    device_mosaic: bool, sparse_loss: bool):
-    """(spec, body): body(state, images, targets, draws) -> (total, bbox,
-    obj, cls) runs one optimizer update with `draws` (`spec.draw`'s
-    layout, on the images' device) and leaves `state.step` to its
-    caller."""
+                    device_mosaic: bool, sparse_loss: bool, af_hp=None,
+                    step_lr=None, ema_decay=None):
+    """(spec, body): body(state, images, targets, draws, ema=None) ->
+    (total, bbox, obj, cls) runs one optimizer update with `draws`
+    (`spec.draw`'s layout, on the images' device) and leaves `state.step`
+    to its caller. With `step_lr` the update first takes the learning rate
+    of the draws' step; with `ema_decay` the EMA model `ema` is updated
+    after it, at the step the update has advanced to."""
     af_compact = compact_targets and cfg.head_type == "anchor_free"
     sparse_loss = sparse_loss and compact_targets and not af_compact
     loss_fn = make_loss_fn(cfg, quirk_640, device, af_compact=af_compact,
-                           sparse=sparse_loss)
+                           sparse=sparse_loss, af_hp=af_hp)
+    if step_lr is not None and not callable(step_lr):
+        raise TypeError("step_lr must be a function of the step "
+                        "(train/schedule.py::make_step_lr)")
+    if ema_decay is not None and not 0.0 < ema_decay <= 1.0:
+        raise ValueError(f"ema_decay must lie in (0, 1], got {ema_decay}")
     # the anchor-free compact and sparse paths augment at label level in
     # expand; the dense-level hook would not take their targets
     aug = (make_device_augment(cfg, augment_seed,
@@ -414,9 +505,12 @@ def _make_step_body(cfg: YoloConfig, quirk_640: bool, device, *,
                           seed=augment_seed, device_augment=device_augment,
                           sparse=sparse_loss)
     spec = DrawSpec(augment_seed, bool(device_mosaic), bool(device_augment),
-                    device_augment != "flip")
+                    device_augment != "flip",
+                    steps=step_lr is not None or ema_decay is not None)
 
-    def body(state, images, targets, draws):
+    def body(state, images, targets, draws, ema=None):
+        if step_lr is not None:
+            set_learning_rate(state, step_lr(draws["step"][0]))
         images, targets = expand(state.step, images, targets, draws)
         if aug is not None:
             images, targets = aug(state.step, images, targets,
@@ -426,6 +520,8 @@ def _make_step_body(cfg: YoloConfig, quirk_640: bool, device, *,
         total.backward()
         clip_by_global_norm_([p.grad for p in state.model.parameters()])
         state.optimizer.step()
+        if ema_decay is not None:
+            ema_update(ema, state.model, draws["step"][0] + 1, ema_decay)
         return tuple(t.detach() for t in (total, bbox, obj, cls))
 
     return spec, body
@@ -434,7 +530,7 @@ def _make_step_body(cfg: YoloConfig, quirk_640: bool, device, *,
 def make_train_step(cfg: YoloConfig, quirk_640: bool = False, device=None, *,
                     device_augment=False, augment_seed: int = 0,
                     compact_targets: bool = False, device_mosaic: bool = False,
-                    sparse_loss: bool = False):
+                    sparse_loss: bool = False, af_hp: dict | None = None):
     """train_step(state, images, targets) -> (state, metrics): images
     (B, S, S, 3) float32 in [0, 1] or uint8, targets [P3, P4, P5] dense, or
     with `compact_targets` (labels (B, K, 5), counts (B,)), all on
@@ -444,11 +540,11 @@ def make_train_step(cfg: YoloConfig, quirk_640: bool = False, device=None, *,
     photometric jitter on the device; `device_mosaic` (compact only): the
     4-image mosaic; `sparse_loss` (compact, anchor head): the gather-based
     loss, no dense maps. Draws are keyed by `augment_seed` and
-    `state.step`."""
+    `state.step`. `af_hp`: the anchor-free loss's keywords (AF_HP_KEYS)."""
     spec, body = _make_step_body(
         cfg, quirk_640, device, device_augment=device_augment,
         augment_seed=augment_seed, compact_targets=compact_targets,
-        device_mosaic=device_mosaic, sparse_loss=sparse_loss)
+        device_mosaic=device_mosaic, sparse_loss=sparse_loss, af_hp=af_hp)
 
     def train_step(state: TrainState, images, targets):
         draws = _upload_draws(spec.draw(state.step, images.shape[0]),
@@ -473,49 +569,67 @@ class _ChunkTrainer:
     `select(resident, chunk, i)` gives step i's (images, targets). The
     metrics are the means over the N steps of each step's METRIC_KEYS, as
     `jax.tree.map(jnp.mean, metrics)` gives them; `state.step` advances
-    by N."""
+    by N. With `ema` the first argument and the result's first element
+    are (state, ema_model), and the graph updates the EMA model in place.
 
-    def __init__(self, spec, body, select, n_resident=0):
+    A graph is replayed only while the training state's tensors are the
+    ones it captured (their addresses are compared at every call): a
+    state whose tensors were replaced since (an optimizer's
+    `load_state_dict`) is captured anew, never read through freed
+    memory."""
+
+    def __init__(self, spec, body, select, n_resident=0, ema=False):
         self.spec, self.body, self.select = spec, body, select
         self.n_resident = n_resident
+        self.ema = ema
         self._graph = None
 
-    def _steps(self, state, resident, chunk, draws, metrics, count):
+    def _steps(self, state, ema, resident, chunk, draws, metrics, count):
         for i in range(count):
             images, targets = self.select(resident, chunk, i)
             metrics[i] = torch.stack(self.body(state, images, targets,
-                                               draws.step(i)))
+                                               draws.step(i), ema))
 
-    def __call__(self, state, *args):
+    def __call__(self, carry, *args):
+        state, ema = carry if self.ema else (carry, None)
         resident, chunk = args[:self.n_resident], args[self.n_resident:]
         n, b = chunk[0].shape[:2]
         if chunk[0].device.type == "cpu":
             draws = ChunkDraws(self.spec, n, b, "cpu")
             draws.load(state.step)
             metrics = torch.empty((n, len(METRIC_KEYS)))
-            self._steps(state, resident, chunk, draws, metrics, n)
+            self._steps(state, ema, resident, chunk, draws, metrics, n)
         else:
-            metrics = self._replay(state, resident, chunk, n, b)
+            metrics = self._replay(state, ema, resident, chunk, n, b)
         state.step += n
-        return state, dict(zip(METRIC_KEYS, metrics.mean(0).unbind()))
+        metrics = dict(zip(METRIC_KEYS, metrics.mean(0).unbind()))
+        return ((state, ema) if self.ema else state), metrics
 
-    def _replay(self, state, resident, chunk, n, b):
-        # the graph holds its model and optimizer, so their ids stay unique
-        key = (id(state.model), id(state.optimizer),
+    def _replay(self, state, ema, resident, chunk, n, b):
+        from yolo_from_scratch_tpu_torch.train import graphs
+
+        others = (ema,) if ema is not None else ()
+        # the graph holds its model, optimizer and EMA, so their ids stay
+        # unique
+        key = (id(state.model), id(state.optimizer), id(ema),
                tuple((t.shape, t.dtype, t.device) for t in chunk),
                tuple((t.data_ptr(), t.shape, t.dtype) for t in resident))
-        if self._graph is None or self._graph[0] != key:
+        addresses = graphs.addresses(state.model, state.optimizer, *others)
+        if (self._graph is None or self._graph[0] != key
+                or self._graph[1] != addresses):
             self._graph = None  # the old graph's memory goes first
-            self._graph = (key, state.model, state.optimizer,
-                           *self._capture(state, resident, chunk, n, b))
-        graph, inputs, draws, metrics = self._graph[3:]
+            captured = self._capture(state, ema, resident, chunk, n, b)
+            self._graph = (key, graphs.addresses(state.model,
+                                                 state.optimizer, *others),
+                           state.model, state.optimizer, ema, *captured)
+        graph, inputs, draws, metrics = self._graph[5:]
         for dst, src in zip(inputs, chunk):
             dst.copy_(src, non_blocking=True)
         draws.load(state.step)
         graph.replay()
         return metrics
 
-    def _capture(self, state, resident, chunk, n, b):
+    def _capture(self, state, ema, resident, chunk, n, b):
         from yolo_from_scratch_tpu_torch.train import graphs
 
         device = chunk[0].device
@@ -526,33 +640,28 @@ class _ChunkTrainer:
         draws.load(state.step)
         metrics = torch.zeros((n, len(METRIC_KEYS)), device=device)
         graph = graphs.capture(
-            lambda: self._steps(state, resident, inputs, draws, metrics, n),
-            lambda: self._steps(state, resident, inputs, draws, metrics, 1),
-            state.model, state.optimizer)
+            lambda: self._steps(state, ema, resident, inputs, draws,
+                                metrics, n),
+            lambda: self._steps(state, ema, resident, inputs, draws,
+                                metrics, 1),
+            state.model, state.optimizer,
+            *((ema,) if ema is not None else ()))
         return graph, inputs, draws, metrics
-
-
-def _no_recipe_knobs(af_hp=None, step_lr=None, ema_decay=None):
-    for name, value in (("af_hp", af_hp), ("step_lr", step_lr),
-                        ("ema_decay", ema_decay)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} is not ported yet (af_hp and step_lr are the "
-                f"benchmark configs' knobs, ema_decay comes with --ema)")
 
 
 def make_train_step_multi(cfg: YoloConfig, quirk_640: bool = False,
                           device=None, *, device_augment=False,
-                          augment_seed: int = 0):
+                          augment_seed: int = 0, af_hp: dict | None = None):
     """Scanned multi-step trainer on dense targets:
     train_steps(state, images (N, B, S, S, 3) float32 or uint8, t3, t4, t5
     (N, B, g, g, A, 5+nc)) -> (state, metrics averaged over the N steps).
     `device_augment`: the dense-level flip / jitter hook, its draws keyed
-    by each step's index (the JAX package's `make_train_step_multi`)."""
+    by each step's index (the JAX package's `make_train_step_multi`).
+    `af_hp`: the anchor-free loss's keywords (AF_HP_KEYS)."""
     spec, body = _make_step_body(
         cfg, quirk_640, device, device_augment=device_augment,
         augment_seed=augment_seed, compact_targets=False,
-        device_mosaic=False, sparse_loss=False)
+        device_mosaic=False, sparse_loss=False, af_hp=af_hp)
     return _ChunkTrainer(spec, body, lambda _, c, i: (
         c[0][i], [c[1][i], c[2][i], c[3][i]]))
 
@@ -567,15 +676,26 @@ def make_train_step_multi_compact(cfg: YoloConfig, quirk_640: bool = False,
     train_steps(state, images (N, B, S, S, 3) uint8 or float32, labels
     (N, B, K, 5), counts (N, B)) -> (state, metrics averaged over the N
     steps); the targets are built on the device in each step, as in
-    `make_train_step(compact_targets=True)`. `af_hp`, `step_lr` and
-    `ema_decay` are not ported and raise NotImplementedError."""
-    _no_recipe_knobs(af_hp, step_lr, ema_decay)
+    `make_train_step(compact_targets=True)`.
+
+    The recipe knobs (the JAX function's): `af_hp` the anchor-free loss's
+    keywords (AF_HP_KEYS); `step_lr` a function of the step tensor giving
+    that step's learning rate (`train/schedule.py::make_step_lr`), written
+    into the optimizer before the step's update and left there after the
+    chunk; `ema_decay` an EMA of the weights and BatchNorm statistics at
+    that decay (tau 2000, `train/ema.py`), updated after every step at the
+    step it advanced to. With `ema_decay` the trainer is ((state,
+    ema_model), images, labels, counts) -> ((state, ema_model), metrics),
+    `ema_model` from `train/ema.py::ema_init`, updated in place. Each
+    step's index comes from the chunk's static device row (`ChunkDraws`),
+    so a graph replays each step's own learning rate and decay."""
     spec, body = _make_step_body(
         cfg, quirk_640, device, device_augment=device_augment,
         augment_seed=augment_seed, compact_targets=True,
-        device_mosaic=device_mosaic, sparse_loss=sparse_loss)
+        device_mosaic=device_mosaic, sparse_loss=sparse_loss, af_hp=af_hp,
+        step_lr=step_lr, ema_decay=ema_decay)
     return _ChunkTrainer(spec, body, lambda _, c, i: (
-        c[0][i], (c[1][i], c[2][i])))
+        c[0][i], (c[1][i], c[2][i])), ema=ema_decay is not None)
 
 
 def _pool_batch(pool, chunk, i):
@@ -594,14 +714,60 @@ def make_train_step_multi_pool(cfg: YoloConfig, quirk_640: bool = False,
     S, 3) uint8, pool_labels (P, K, 5), pool_counts (P,), idx (N, B)
     int32) -> (state, metrics); step i gathers its batch at idx[i]. The
     pool is read where it lies, never copied: its writer updates it in
-    place between calls. `af_hp` is not ported and raises
-    NotImplementedError."""
-    _no_recipe_knobs(af_hp)
+    place between calls. `af_hp`: the anchor-free loss's keywords
+    (AF_HP_KEYS)."""
     spec, body = _make_step_body(
         cfg, quirk_640, device, device_augment=device_augment,
         augment_seed=augment_seed, compact_targets=True,
-        device_mosaic=device_mosaic, sparse_loss=sparse_loss)
+        device_mosaic=device_mosaic, sparse_loss=sparse_loss, af_hp=af_hp)
     return _ChunkTrainer(spec, body, _pool_batch, n_resident=3)
+
+
+def make_train_step_accum(cfg: YoloConfig, n_accum: int,
+                          quirk_640: bool = False, device=None, *,
+                          device_augment=False, augment_seed: int = 0):
+    """Gradient accumulation on dense targets (the JAX package's
+    `make_train_step_accum`): train_step(state, images (n_accum, B, S, S,
+    3), t3, t4, t5 (n_accum, B, ...)) -> (state, metrics averaged over the
+    micro-batches). One clip + Adam update from the mean of the n_accum
+    micro-batch gradients (summed in micro-batch order, then divided by
+    n_accum), the BatchNorm statistics carried from micro-batch to
+    micro-batch, `state.step` advancing by one. Only one micro-batch's
+    activations are alive at a time. `device_augment`: the dense-level
+    hook, its draws keyed by step * n_accum + micro."""
+    if n_accum < 1:
+        raise ValueError(f"n_accum must be >= 1, got {n_accum}")
+    loss_fn = make_loss_fn(cfg, quirk_640, device)
+    aug = (make_device_augment(cfg, augment_seed,
+                               jitter=device_augment != "flip")
+           if device_augment else None)
+    spec = DrawSpec(augment_seed, False, bool(device_augment),
+                    device_augment != "flip")
+
+    def train_step(state: TrainState, images, t3, t4, t5):
+        state.optimizer.zero_grad(set_to_none=True)
+        per = []
+        for micro in range(n_accum):
+            imgs = _normalize(images[micro])
+            targets = [t3[micro], t4[micro], t5[micro]]
+            if aug is not None:
+                key = state.step * n_accum + micro
+                draws = _upload_draws(spec.draw(key, imgs.shape[0]),
+                                      imgs.device)
+                imgs, targets = aug(key, imgs, targets, draws["augment"])
+            total, (bbox, obj, cls) = loss_fn(state.model, imgs, targets)
+            total.backward()  # .grad holds the running sum
+            per.append(torch.stack([t.detach()
+                                    for t in (total, bbox, obj, cls)]))
+        grads = [p.grad for p in state.model.parameters()]
+        torch._foreach_div_(grads, float(n_accum))
+        clip_by_global_norm_(grads)
+        state.optimizer.step()
+        state.step += 1
+        metrics = torch.stack(per).mean(0)
+        return state, dict(zip(METRIC_KEYS, metrics.unbind()))
+
+    return train_step
 
 
 def make_eval_step(cfg: YoloConfig, conf_threshold=0.5, iou_threshold=0.5,

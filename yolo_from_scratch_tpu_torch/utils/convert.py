@@ -31,18 +31,22 @@ def _flatten(tree, prefix=()):
             yield path, val
 
 
-def from_flax_variables(variables, model: nn.Module) -> dict:
+def from_flax_variables(variables, model: nn.Module,
+                        collections=("params", "batch_stats")) -> dict:
     """Map a JAX variables tree onto `model`'s state-dict keys.
 
     Every JAX leaf is consumed exactly once, and every key of
     `model.state_dict()` must be produced with its shape: an unmatched key
     on either side, or a shape mismatch, raises ValueError. Returns a dict
-    of float32 CPU tensors.
+    of float32 CPU tensors. `collections=("params",)` maps a params-shaped
+    tree alone (Adam's moments in the optax layout) onto the parameters.
     """
-    expected = model.state_dict()
+    kinds = {"params": _PARAM_LEAVES, "batch_stats": _STAT_LEAVES}
+    expected = {k: v for k, v in model.state_dict().items()
+                if k.rsplit(".", 1)[-1] in set().union(
+                    *(kinds[c].values() for c in collections))}
     out = {}
-    for collection, leaves in (("params", _PARAM_LEAVES),
-                               ("batch_stats", _STAT_LEAVES)):
+    for collection, leaves in ((c, kinds[c]) for c in collections):
         for path, arr in _flatten(variables.get(collection, {})):
             if path[-1] not in leaves:
                 raise ValueError(f"unknown JAX leaf {collection}/"
@@ -63,7 +67,7 @@ def from_flax_variables(variables, model: nn.Module) -> dict:
             # a copy: arrays decoded from a checkpoint are read-only
             out[key] = torch.tensor(arr)
     missing = sorted(set(expected) - set(out))
-    extra = sorted(set(variables) - {"params", "batch_stats"})
+    extra = sorted(set(variables) - set(collections))
     if missing or extra:
         raise ValueError(f"unmatched keys: model keys without a JAX leaf "
                          f"{missing}, unknown JAX collections {extra}")
@@ -86,14 +90,15 @@ def _jax_location(key, shape):
 def to_flax_variables(state_dict) -> dict:
     """The inverse of `from_flax_variables`: a state dict (any device,
     float32 or bfloat16) -> `{'params': ..., 'batch_stats': ...}` nested
-    dicts of float32 C-contiguous numpy arrays, conv kernels HWIO."""
+    dicts of float32 C-contiguous numpy arrays, conv kernels HWIO. The
+    arrays are copies: they never alias a CPU tensor of the state dict."""
     tree = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
         collection, path, _ = _jax_location(key, tuple(t.shape))
         arr = t.detach().to("cpu", torch.float32).numpy()
         if path[-1] == "kernel":
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        _insert(tree[collection], path, np.ascontiguousarray(arr))
+        _insert(tree[collection], path, np.array(arr, order="C", copy=True))
     return tree
 
 
