@@ -7,18 +7,20 @@ depth 0.33) at 640x640, nc=1, anchor head, random weights from a seed,
 single-image and batched serving through `Predictor` and `BatchPredictor`
 (host and device letterbox), training, evaluation with mAP and the anchor
 k-means through the CLI; the anchor-free head at nc=80; the compact-label
-training path of both heads;
+training path of both heads; int8 serving and the frozen serving
+artifacts of both heads;
 then the conv-backward prototype entry points (`benchmarks/bwdproto.py`,
 `benchmarks/blockbwd.py`) at the training path's 64-channel shapes. It
 checks each hand-written CUDA kernel (NMS; the fused 3x3 conv backward
-K2; the prototypes K3, K4 and K5) against its plain PyTorch version.
+K2; the prototypes K3, K4 and K5; the int8 kernels Q1 and Q2) against its
+plain PyTorch version.
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the kernels from `csrc/` into `build/torch_kernels/`,
-   prints ptxas's registers and spills (a spill in a conv-backward or NMS
-   kernel fails), the launch geometry of the four bf16 conv backwards
+   prints ptxas's registers and spills (a spill in a conv-backward, NMS
+   or int8 kernel fails), the launch geometry of the four bf16 conv backwards
    (K2-K5) and the NMS kernel's mask workspace at N=4096 (B=1, 8, 32) and
    N=16,384; the conv backwards' dW workspace at B=8 80x80 must stay
    within 5 MB, K5's (two dW) within 10 MB;
@@ -153,7 +155,28 @@ and prints no result):
    phase 8's tolerances, K2 once a micro-batch for each gated conv; (f)
    informative img/s and busy shares: the eager step with and without
    EMA, the graphed recipe chunk with and without `ema_decay` +
-   `step_lr`, each multi-scale bucket's eager step.
+   `step_lr`, each multi-scale bucket's eager step;
+20. int8 serving and the frozen serving artifacts, 's' @640 nc=80 bf16,
+   both heads, on phase 17's checkpoints: (a) Q1 (quantize) and Q2 (the
+   int8 conv, `csrc/int8_conv.cu`) against their plain versions at each
+   of the 24 distinct quantized convs (k, s, cin, cout at its first
+   grid), B=1 and B=32: Q1's int8 and Q2's int32 accumulator bit-equal,
+   its bf16 output within 1 ulp, its float32 output within 1e-6
+   relative; device ms (profiler) beside the H100 bound and, at B=32,
+   the yardsticks `torch._int_mm` on the im2col and the bf16
+   `F.conv2d`; (b) the main path with the counts at 0: the CLI's
+   `--int8` request and one B=32 int8 `BatchPredictor` call (Q1 and Q2
+   once a quantized conv a forward, K1 once a call); the candidates
+   against the same path with plain Q1/Q2 on the card, K1's keep masks
+   against the plain NMS's where they are equal, the probabilities
+   within 2e-3 of the bf16 float path; request p50, B=32 img/s and the
+   busy share, int8 and bf16; (c) `--export` at batch 8, float and
+   `--int8`, for each head (of the checkpoints with their gate biases
+   raised, so that the CLI's gate of 0.5 keeps detections), each
+   artifact served in a fresh interpreter that loads no model module,
+   K1's, Q1's and Q2's launches in one call counted there by the
+   profiler, its detections equal to the live `BatchPredictor`'s on the
+   same staged batch (rtol 1e-5, atol 1e-4).
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
@@ -161,8 +184,10 @@ the kernel, its plain version and the one-call library equivalent where
 there is one, and the H100 bound with what bounds it, all at the same
 inputs; the NMS kernel also its launches, device ms and bound on phase
 13's batch, both kernels their launches on phase 16's anchor-free paths,
-on phase 17's compact paths, on phase 18's stream paths and on phase
-19's recipe paths); the last
+on phase 17's compact paths, on phase 18's stream paths, on phase
+19's recipe paths and on phase 20's int8 and artifact paths; Q1 and Q2
+their launches on phase 20's main path and in the artifacts, with their
+times, bounds and yardsticks summed over the 24 shapes at B=32); the last
 line is `{"ok": true, "device": {...}}`.
 """
 
@@ -200,11 +225,11 @@ from yolo_from_scratch_tpu_torch.data.letterbox import (
     letterbox_params,
 )
 from yolo_from_scratch_tpu_torch.device import cuda_device, tf32_disabled
+from yolo_from_scratch_tpu_torch.infer.detections import detections_per_image
 from yolo_from_scratch_tpu_torch.infer.predict import (
     BatchPredictor,
     PipelinedPredictor,
     Predictor,
-    _detections_per_image,
     _stage_batch,
     default_topk,
 )
@@ -215,6 +240,7 @@ from yolo_from_scratch_tpu_torch.models.yolo import YOLO
 from yolo_from_scratch_tpu_torch.ops import conv_bwd
 from yolo_from_scratch_tpu_torch.ops import nms as nms_plain
 from yolo_from_scratch_tpu_torch.ops import nms_cuda
+from yolo_from_scratch_tpu_torch.ops import quant
 from yolo_from_scratch_tpu_torch.ops.augment import (
     augment_batch,
     augment_compact_batch,
@@ -310,6 +336,8 @@ CONV_BWD_ENTRIES = ("conv3x3_bwd", "patch_bwd", "tap_bwd", "chain_bwd")
 # the NMS kernel's two passes (csrc/nms.cu), by their names in ptxas's
 # report and in the profiler
 NMS_ENTRIES = ("nms_mask_pass", "nms_scan")
+# the kernels of csrc/int8_conv.cu: Q2 (the int8 conv) and Q1 (quantize)
+INT8_ENTRIES = ("int8_conv_kernel", "quant_input_kernel")
 # phase 3: (B, N) at which every NMS case runs, and the max_keep values
 # below N (65 and 100 fall inside a scan chunk of 64 ranks)
 NMS_SHAPES = ((1, 300), (1, 4096), (8, 300), (8, 4096), (1, 4097),
@@ -373,6 +401,14 @@ ACCUM, ACCUM_B = 2, 2  # (e): micro-batches of an update, images in each
 # at this input (the card's float32 forward differs from the CPU's by
 # about as much)
 ACCUM_NOISE = 1e-6
+# phase 20
+INT8_SHAPES = 24      # distinct (k, s, cin, cout) of the quantized convs
+INT8_BATCH = 32       # the B=32 int8 call, and the kernels' larger batch
+Q2_BF16_ULPS = 1      # Q2's bf16 output vs its plain version
+Q2_F32_RTOL = 1e-6    # Q2's float32 output vs its plain version
+INT8_PROB_TOL = 2e-3  # int8 vs float probabilities (test_quantize.py's)
+EXPORT_BATCH = 8      # --export-batch's default
+ARTIFACT_RTOL, ARTIFACT_ATOL = 1e-5, 1e-4  # tests/test_export.py's
 
 
 def log(msg):
@@ -1164,7 +1200,7 @@ def phase_batch(state, cfg, dev):
     marks.append(time.perf_counter())
     cpu_out = [t.cpu() for t in out]
     marks.append(time.perf_counter())
-    _detections_per_image(*cpu_out, BATCH)
+    detections_per_image(*cpu_out, BATCH)
     marks.append(time.perf_counter())
     split = np.diff(marks) * 1e3
     log(f"one batch on the card: forward {fwd_ms:.4f} ms, forward + "
@@ -2075,7 +2111,7 @@ def phase_compact_train(dev, workdir, yaml_path):
         f"({compact_s:.1f} s) prints the dense eval's ({dense_s:.1f} s) "
         f"P/R/F1 lines {_eval_lines(dense[1])}; --map on the anchor-free "
         f"checkpoint: {map_launches} NMS kernel launches")
-    return k1, k2
+    return k1, k2, ckpts
 
 
 def phase_compact_throughput(dev, yaml_path):
@@ -3046,6 +3082,453 @@ def phase_recipe_throughput(dev, yaml_path):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- phase 20
+
+
+def _ulps_bf16(a, b):
+    """Largest distance in bf16 ulps between two bf16 tensors (their bit
+    patterns mapped to a monotone integer line)."""
+    def line(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((line(a) - line(b)).abs().max())
+
+
+def _int8_shapes(cfg):
+    """([(k, s, cin, cout, h, w)] of each distinct quantized conv, all
+    ConvBNSiLU but stem0, at its first grid in forward order; the number
+    of quantized convs), from a forward on the meta device."""
+    model = YOLO(cfg, device="meta")
+    seen, count = {}, [0]
+
+    def pre_hook(mod, args):
+        count[0] += 1
+        c = mod.conv
+        seen.setdefault((c.kernel_size[0], c.stride[0], c.in_channels,
+                         c.out_channels), tuple(args[0].shape[2:]))
+
+    for name, module in model.named_modules():
+        if isinstance(module, ConvBNSiLU) and name != "stem0":
+            module.register_forward_pre_hook(pre_hook)
+    with torch.no_grad():
+        model(torch.empty((1, cfg.img_size, cfg.img_size, 3), device="meta"))
+    return [(*key, *hw) for key, hw in seen.items()], count[0]
+
+
+def _q_case(b, k, s, cin, cout, h, w, dev, seed):
+    """A bf16 NCHW (channels-last) activation and a seeded int8 layer of
+    the shape: (x, q) with q's a_scale 0.8 of |x|'s max / 127, so the clip
+    is exercised."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((b, h, w, cin), generator=g, device=dev) * 2).to(
+        torch.bfloat16).permute(0, 3, 1, 2)
+    rng = np.random.default_rng(seed)
+    q = {"w_int8": rng.integers(-127, 128, (k, k, cin, cout), dtype=np.int8),
+         "w_scale": rng.uniform(1e-3, 1e-2, cout).astype(np.float32),
+         "bias": rng.normal(0, 0.5, cout).astype(np.float32),
+         "a_scale": np.float32(0.8 * x.abs().max().item() / 127)}
+    return x, q
+
+
+def _q_check(x, q, k, s, dev):
+    """Q1 and Q2 against their plain versions on the card: Q1's int8 and
+    Q2's int32 accumulator bit-equal, its bf16 output within 1 bf16 ulp,
+    its float32 output within 1e-6 relative. Returns (xq, packed w, bf16
+    scale, bf16 bias, bf16 max |err|, bf16 ulps, f32 rel err)."""
+    inv = quant.input_inverse(q["a_scale"], torch.bfloat16)
+    xq = quant._launch_quant_input(x, inv)
+    q1_err = (xq.int() - quant.quant_input_plain(x, inv).int()).abs().max()
+    if q1_err.item() != 0:
+        raise AssertionError(f"Q1 differs from its plain version by "
+                             f"{q1_err.item()}")
+    w = quant.pack_weights(q["w_int8"]).to(dev)
+    if not torch.equal(quant.int8_conv_acc(xq, w, k, s),
+                       quant.int8_conv_acc_plain(xq, w, k, s)):
+        raise AssertionError("Q2's int32 accumulator differs from its "
+                             "plain version")
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        sc, bi = (t.to(dev) for t in quant.dequant_vectors(
+            q["a_scale"], q["w_scale"], q["bias"], dt))
+        bf16 = dt == torch.bfloat16
+        got = torch.ops.yolo_torch.int8_conv(xq, w, sc, bi, k, s, bf16)
+        want = quant.int8_conv_plain(xq, w, sc, bi, k, s, bf16)
+        out[dt] = (sc, bi, got, want)
+    sc, bi, got, want = out[torch.bfloat16]
+    ulps = _ulps_bf16(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    _, _, g32, w32 = out[torch.float32]
+    rel = ((g32 - w32).abs() / w32.abs().clamp_min(1e-30)).max().item()
+    if ulps > Q2_BF16_ULPS or rel > Q2_F32_RTOL:
+        raise AssertionError(f"Q2 vs plain: {ulps} bf16 ulps, float32 "
+                             f"relative {rel:.3e}")
+    return xq, w, sc, bi, err, ulps, rel
+
+
+def phase_int8_kernels(dev):
+    """20 (a): Q1 and Q2 against their plain versions at each distinct
+    quantized conv of the 's' model @640 (both heads share them), B=1 and
+    B=32; device ms (profiler, TIMING_RUNS calls) beside the H100 bound and
+    the two yardsticks, `torch._int_mm` on the im2col and the bf16
+    `F.conv2d` of the layer. Returns (max bf16 |err|, {name: summed
+    timings over the shapes at B=32}, shapes)."""
+    cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE,
+                               compute_dtype="bfloat16")
+    shapes, n_quant = _int8_shapes(cfg)
+    af_shapes, af_quant = _int8_shapes(cfg.with_(head_type="anchor_free"))
+    extra = sorted(set(af_shapes) - set(shapes))
+    log(f"int8 convs of 's' @{IMG_SIZE}: {n_quant} quantized on the anchor "
+        f"head, {af_quant} on the anchor-free head; {len(shapes)} distinct "
+        f"(k, s, cin, cout), {sum(sh[1] == 2 for sh in shapes)} at stride "
+        f"2; the anchor-free head adds {len(extra)} distinct ({extra})")
+    if len(shapes) != INT8_SHAPES:
+        raise AssertionError(f"{len(shapes)} distinct int8 conv shapes, want "
+                             f"{INT8_SHAPES}")
+    sums = collections.Counter()
+    max_err, worst = 0.0, (0, 0.0)
+    for i, (k, s, cin, cout, h, w) in enumerate(shapes):
+        for b in (1, INT8_BATCH):
+            x, q = _q_case(b, k, s, cin, cout, h, w, dev, SEED + 31 * i + b)
+            xq, wp, sc, bi, err, ulps, rel = _q_check(x, q, k, s, dev)
+            max_err = max(max_err, err)
+            worst = (max(worst[0], ulps), max(worst[1], rel))
+            inv = quant.input_inverse(q["a_scale"], torch.bfloat16)
+
+            def kernels():
+                torch.ops.yolo_torch.int8_conv(
+                    torch.ops.yolo_torch.quant_input(x, inv), wp, sc, bi, k,
+                    s, True)
+
+            kernels()
+            per = kernel_ms(kernels, TIMING_RUNS)
+            q1 = sum(v for n, v in per.items() if "quant_input" in n) / \
+                TIMING_RUNS
+            q2 = sum(v for n, v in per.items() if "int8_conv" in n) / \
+                TIMING_RUNS
+            b1 = roofline.bound_ms(*roofline.quant_input_work(b, cin, h, w,
+                                                              2), "float32")
+            b2 = roofline.bound_ms(*roofline.int8_conv_work(
+                b, h, w, cin, cout, k, s, 2), "int8")
+            line = (f"int8 conv k{k} s{s} {cin}->{cout} @{h}x{w} B={b}: "
+                    f"Q1 {q1:.4f} ms (bound {b1[0]:.4f}, {b1[1]}), Q2 "
+                    f"{q2:.4f} ms (bound {b2[0]:.4f}, {b2[1]}, "
+                    f"{b2[0] / q2:.0%}); bf16 max |err| {err:.3e}, "
+                    f"{ulps} ulp, f32 rel {rel:.2e}")
+            if b == INT8_BATCH:
+                # the yardsticks: cuBLASLt's int8 GEMM on a prebuilt
+                # im2col (the im2col itself not timed), and cuDNN's bf16
+                # conv of the layer
+                cols = torch.nn.functional.unfold(
+                    xq.permute(0, 3, 1, 2).float(), k, padding=k // 2,
+                    stride=s)
+                a_mat = cols.permute(0, 2, 1).reshape(
+                    -1, cols.shape[1]).to(torch.int8).contiguous()
+                del cols
+                b_mat = torch.zeros((cout, a_mat.shape[1]), dtype=torch.int8,
+                                    device=dev)
+                lib = sum(kernel_ms(lambda: torch._int_mm(a_mat, b_mat.t()),
+                                    TIMING_RUNS).values()) / TIMING_RUNS
+                del a_mat
+                wf = torch.from_numpy(q["w_int8"]).permute(3, 2, 0, 1).to(
+                    dev, torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+                conv = sum(kernel_ms(lambda: torch.nn.functional.conv2d(
+                    x, wf, stride=s, padding=k // 2), TIMING_RUNS).values()
+                ) / TIMING_RUNS
+                p1 = median_ms(lambda: quant.quant_input_plain(x, inv),
+                               runs=3, warmup=1)
+                p2 = median_ms(lambda: quant.int8_conv_plain(
+                    xq, wp, sc, bi, k, s, True), runs=3, warmup=1)
+                sums.update({"q1": q1, "q2": q2, "q1_bound": b1[0],
+                             "q2_bound": b2[0], "int_mm": lib,
+                             "conv_bf16": conv, "q1_plain": p1,
+                             "q2_plain": p2,
+                             f"q2_bound_{b2[1]}": b2[0]})
+                line += (f"; yardsticks: torch._int_mm on the im2col "
+                         f"{lib:.4f} ms, bf16 F.conv2d {conv:.4f} ms "
+                         f"(profiler); plain Q1 {p1:.3f} ms, Q2 {p2:.3f} ms "
+                         f"(CUDA events, median of 3)")
+            log(line)
+            del x, xq
+        torch.cuda.empty_cache()
+    log(f"Q1 and Q2 == plain at {len(shapes)} shapes x B=1, {INT8_BATCH}: "
+        f"int8 and int32 bit-equal, bf16 within {worst[0]} ulp (max |err| "
+        f"{max_err:.3e}), float32 within {worst[1]:.2e} relative; summed "
+        f"over the shapes at B={INT8_BATCH}: Q1 {sums['q1']:.4f} ms (bound "
+        f"{sums['q1_bound']:.4f}), Q2 {sums['q2']:.4f} ms (bound "
+        f"{sums['q2_bound']:.4f}, {sums['q2_bound'] / sums['q2']:.0%}), "
+        f"torch._int_mm {sums['int_mm']:.4f} ms, bf16 conv "
+        f"{sums['conv_bf16']:.4f} ms, plain Q1 {sums['q1_plain']:.3f} ms, "
+        f"Q2 {sums['q2_plain']:.3f} ms; "
+        f"{_smi('name,power.limit')}")
+    return max_err, sums, shapes
+
+
+def phase_int8_serving(dev, ckpts, yaml_path):
+    """20 (b): int8 serving of both heads on phase 17's checkpoints ('s'
+    @640, nc=80, bf16): the CLI's `--int8` request and one B=32 int8
+    `BatchPredictor` call with the counts at 0 before them; the
+    candidates against the same path with plain Q1/Q2 on the card, the
+    keep masks, the probabilities against the float path; p50, img/s and
+    busy share, int8 and bf16 float. Returns {head: (Q1, Q2, K1)
+    launches}."""
+    from yolo_from_scratch_tpu_torch.infer.quantize import set_plain
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    config = load_dataset_yaml(str(yaml_path))
+    val_img = sorted(Path(config["val"]).glob("*.jpg"))[0]
+    rng = np.random.default_rng(SEED + 20)
+    images = [rng.integers(0, 256, (IMG_SIZE, IMG_SIZE, 3), dtype=np.uint8)
+              for _ in range(INT8_BATCH)]
+    counts = {}
+    for head in ("anchor", "anchor_free"):
+        state, cfg, _ = load_checkpoint(ckpts[head])
+        cfg = cfg.with_(compute_dtype="bfloat16")
+        calib = cli._train_calibration_images(config, cfg)
+        n_quant = _int8_shapes(cfg)[1]
+        # the anchor-free checkpoint's class probabilities sit near its
+        # prior: phase 16's gate for a trained checkpoint
+        conf = CONF if head == "anchor" else AF_CKPT_CONF
+        quant.quant_launches = quant.conv_launches = nms_cuda.launches = 0
+        rc, out = _cli([str(val_img), str(ckpts[head]), "--int8",
+                        "--dtype", "bfloat16"])
+        if rc != 0 or "Running inference on" not in out or not (
+                "object(s):" in out or "No objects detected." in out):
+            raise AssertionError(f"--int8 request ({head}): rc {rc}:\n{out}")
+        qb = BatchPredictor(state, cfg, conf_threshold=conf,
+                            iou_threshold=IOU, max_outputs=MAX_OUTPUTS,
+                            quantize_calib=calib, device=dev)
+        results = qb(images)
+        torch.cuda.synchronize()
+        counts[head] = (quant.quant_launches, quant.conv_launches,
+                        nms_cuda.launches)
+        if counts[head] != (2 * n_quant, 2 * n_quant, 2):
+            raise AssertionError(f"{head} int8 main path: (Q1, Q2, K1) "
+                                 f"launches {counts[head]}, want "
+                                 f"({2 * n_quant}, {2 * n_quant}, 2)")
+        _finite_nonempty(results, f"{head} int8 batch image")
+        log(f"{head} int8 serving: the CLI's --int8 request "
+            f"({out.strip().splitlines()[-1].strip()}) and one B="
+            f"{INT8_BATCH} BatchPredictor call launched (Q1, Q2, K1) "
+            f"{counts[head]} times ({n_quant} quantized convs a forward)")
+
+        # the same path with plain Q1/Q2 on the card
+        args = qb.stage(images)
+        cand_k = qb.postprocess.candidates(*args)
+        set_plain(qb.model, True)
+        cand_p = qb.postprocess.candidates(*args)
+        set_plain(qb.model, False)
+        same = [i for i in range(INT8_BATCH)
+                if all(torch.equal(a[i], b[i]) for a, b in zip(cand_k,
+                                                               cand_p))]
+        score_err = (cand_k[1] - cand_p[1]).abs().max().item()
+        if score_err > INT8_PROB_TOL:
+            raise AssertionError(f"{head}: kernel vs plain int8 candidate "
+                                 f"scores differ by {score_err}")
+        keep_k = nms_cuda.nms_keep_mask_batched(
+            nms_plain._class_offset_boxes(cand_k[0], cand_k[2]), cand_k[1],
+            IOU, max_keep=MAX_OUTPUTS, presorted=True)
+        keep_p = nms_plain.nms_keep_mask(
+            nms_plain._class_offset_boxes(cand_p[0], cand_p[2]), cand_p[1],
+            IOU, max_keep=MAX_OUTPUTS, presorted=True)
+        bad = [i for i in same if not torch.equal(keep_k[i], keep_p[i])]
+        if bad:
+            raise AssertionError(f"{head}: keep masks differ on images {bad} "
+                                 f"whose candidates are equal")
+        fb = BatchPredictor(state, cfg, conf_threshold=conf,
+                            iou_threshold=IOU, max_outputs=MAX_OUTPUTS,
+                            device=dev)
+        _, obj_q, cls_q, _ = qb.postprocess.decode(*args)
+        _, obj_f, cls_f, _ = fb.postprocess.decode(*args)
+        prob_err = max((obj_q - obj_f).abs().max().item(),
+                       (cls_q - cls_f).abs().max().item())
+        if prob_err > INT8_PROB_TOL:
+            raise AssertionError(f"{head}: int8 vs float probabilities "
+                                 f"differ by {prob_err}")
+        log(f"{head} int8, kernels vs plain Q1/Q2 on the card: candidates "
+            f"bit-equal on {len(same)}/{INT8_BATCH} images (max |score| err "
+            f"{score_err:.3e}, tol {INT8_PROB_TOL}), K1's keep masks == the "
+            f"plain NMS's on each of them; int8 vs the bf16 float path: max "
+            f"|probability| err {prob_err:.3e} over all "
+            f"{obj_q.numel()} predictions (tol {INT8_PROB_TOL})")
+
+        # p50 of a request, B=32 img/s, busy share: int8 and bf16 float
+        for name, calib_req, batch_pred in (("int8", [str(val_img)], qb),
+                                            ("bf16", None, fb)):
+            single = Predictor(state, cfg, conf_threshold=conf,
+                               iou_threshold=IOU, device=dev,
+                               quantize_calib=calib_req)
+            single(str(val_img))
+            lat = []
+            for _ in range(N_REQUESTS):
+                t0 = time.perf_counter()
+                single(str(val_img))
+                lat.append((time.perf_counter() - t0) * 1e3)
+            req_busy = _busy_ms(lambda: single(str(val_img)))
+            batch_pred(images)
+            blat = []
+            for _ in range(N_BATCHES):
+                t0 = time.perf_counter()
+                batch_pred(images)
+                blat.append((time.perf_counter() - t0) * 1e3)
+            busy = _busy_ms(lambda: batch_pred(images))
+            p50, bp50 = statistics.median(lat), statistics.median(blat)
+            log(f"{head} {name} serving: request p50 {p50:.3f} ms (host "
+                f"clock, {N_REQUESTS} requests of a {IMG_SIZE}x{IMG_SIZE} "
+                f"JPEG), device "
+                f"busy {req_busy:.3f} ms ({req_busy / p50:.0%}); B="
+                f"{INT8_BATCH} p50 {bp50:.3f} ms, "
+                f"{INT8_BATCH * 1e3 / bp50:.1f} img/s, device busy "
+                f"{busy:.3f} ms ({busy / bp50:.0%}; profiler); "
+                f"{_smi('name,power.limit')}")
+        del qb, fb, single
+        torch.cuda.empty_cache()
+    return counts
+
+
+ARTIFACT_SCRIPT = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from yolo_from_scratch_tpu_torch.infer.artifact import load_serving_artifact
+
+path, out, images = sys.argv[1], sys.argv[2], sys.argv[3:]
+art = load_serving_artifact(path)
+staged = art.stage(images)
+art.run(*staged)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    result = art.run(*staged)
+    torch.cuda.synchronize()
+names = {"mask": "nms_mask_pass", "scan": "nms_scan",
+         "q1": "quant_input_kernel", "q2": "int8_conv_kernel"}
+counts = {k: sum(e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and v in e.key) for k, v in names.items()}
+from yolo_from_scratch_tpu_torch.infer.detections import detections_per_image
+dets = detections_per_image(*(t.cpu() for t in result), len(images))
+bad = sorted(m for m in sys.modules
+             if m.startswith("yolo_from_scratch_tpu_torch.models")
+             or m.split(".")[0] in ("jax", "yolo_from_scratch_tpu"))
+json.dump({"dets": dets, "counts": counts, "meta": art.meta,
+           "bad_modules": bad}, open(out, "w"))
+"""
+
+
+def _served_checkpoint(ckpt, head, out):
+    """A copy of a phase 17 checkpoint whose scores pass the CLI's default
+    gate of 0.5 on about half the cells, so that the artifacts have
+    detections to compare: the anchor head's objectness biases raised by
+    4.6 (tests/test_torch_predict.py's `served`), the anchor-free head's
+    class biases set to 0 (its prior puts them near -11)."""
+    from yolo_from_scratch_tpu_torch.utils.checkpoint import save_checkpoint
+    from yolo_from_scratch_tpu_torch.utils.convert import to_flax_variables
+
+    state, cfg, _ = load_checkpoint(ckpt)
+    for name in ("head_p3", "head_p4", "head_p5"):
+        if head == "anchor":
+            state[f"{name}.pred.bias"].view(3, -1)[:, 4] += 4.6
+        else:
+            state[f"{name}.cls_pred.bias"].zero_()
+    save_checkpoint(out, to_flax_variables(state), cfg)
+    return out
+
+
+def phase_export(dev, ckpts, yaml_path, workdir):
+    """20 (c): `--export` through the CLI at the default batch of 8, float
+    and --int8, for each head, of phase 17's checkpoints with their gate
+    biases raised (`_served_checkpoint`); each artifact loaded and served
+    in a fresh interpreter (no model module imported there), K1's and Q2's
+    launches in it counted by the profiler, its detections against the
+    live BatchPredictor's on the same staged batch. Returns {artifact: its
+    kernel counts}."""
+    from yolo_from_scratch_tpu_torch.infer.artifact import stage_images
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    ckpts = {head: _served_checkpoint(path, head,
+                                      workdir / f"served_{head}.ckpt")
+             for head, path in ckpts.items()}
+    config = load_dataset_yaml(str(yaml_path))
+    images = [str(p) for p in sorted(Path(config["val"]).glob("*.jpg"))]
+    images = images[:EXPORT_BATCH]
+    jobs = {}
+    for head in ("anchor", "anchor_free"):
+        for int8 in (False, True):
+            name = f"{head}{'_int8' if int8 else ''}"
+            path = workdir / f"{name}.yexp"
+            t0 = time.perf_counter()
+            rc, out = _cli(([str(yaml_path)] if int8 else [])
+                           + [str(ckpts[head]), "--export", str(path),
+                              "--dtype", "bfloat16"]
+                           + (["--int8"] if int8 else []))
+            lines = out.strip().splitlines()
+            want = (f"  batch {EXPORT_BATCH}, img {IMG_SIZE}, classes "
+                    f"{AF_NC}, platforms cuda, nms cuda"
+                    + (", int8" if int8 else ""))
+            if rc != 0 or lines[-1] != want or not lines[-2].startswith(
+                    f"Exported {ckpts[head]} -> {path} ("):
+                raise AssertionError(f"--export {name}: rc {rc}:\n{out}")
+            log(f"--export {name}: {time.perf_counter() - t0:.1f} s, "
+                f"{lines[-2].split('(')[-1].rstrip(')')}; {lines[-1].strip()}")
+            jobs[name] = (path, workdir / f"{name}.json")
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", ARTIFACT_SCRIPT, str(path), str(out),
+         *images], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=Path(__file__).resolve().parent)
+        for name, (path, out) in jobs.items()}
+    for name, proc in procs.items():
+        try:
+            _, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"artifact {name} in a fresh interpreter: "
+                                 f"rc {proc.returncode}\n{err[-3000:]}")
+    log(f"the {len(jobs)} artifacts served in fresh interpreters, in "
+        f"parallel: {time.perf_counter() - t0:.1f} s")
+    counts = {}
+    for name, (path, out) in jobs.items():
+        res = json.loads(Path(out).read_text())
+        head = "anchor_free" if name.startswith("anchor_free") else "anchor"
+        int8 = name.endswith("int8")
+        state, cfg, _ = load_checkpoint(ckpts[head])
+        cfg = cfg.with_(compute_dtype="bfloat16")
+        n_quant = _int8_shapes(cfg)[1] if int8 else 0
+        c = res["counts"]
+        if res["bad_modules"] or c != {"mask": 1, "scan": 1, "q1": n_quant,
+                                       "q2": n_quant}:
+            raise AssertionError(f"artifact {name}: kernels {c} (want one "
+                                 f"K1 launch, {n_quant} Q1/Q2), modules "
+                                 f"{res['bad_modules']}")
+        live = BatchPredictor(
+            state, cfg, device=dev,
+            quantize_calib=(cli._train_calibration_images(config, cfg)
+                            if int8 else None))
+        staged = stage_images(images, IMG_SIZE, EXPORT_BATCH, dev)
+        want = detections_per_image(
+            *(t.cpu() for t in live.postprocess(*staged)), len(images))
+        got = res["dets"]
+        for g, w in zip(got, want):
+            a, b = np.asarray(sorted(g)), np.asarray(sorted(w))
+            if a.shape != b.shape or (len(a) and not np.allclose(
+                    a, b, rtol=ARTIFACT_RTOL, atol=ARTIFACT_ATOL)):
+                raise AssertionError(f"artifact {name} vs the live "
+                                     f"BatchPredictor: {a.shape} vs "
+                                     f"{b.shape}")
+        counts[name] = c
+        log(f"artifact {name}: {sum(map(len, got))} detections on "
+            f"{len(images)} images == the live BatchPredictor's (rtol "
+            f"{ARTIFACT_RTOL}, atol {ARTIFACT_ATOL}); kernels in one call "
+            f"(profiler, fresh interpreter): K1 mask pass {c['mask']} + scan "
+            f"{c['scan']}, Q1 {c['q1']}, Q2 {c['q2']}; no model module "
+            f"loaded")
+        del live
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     t_main = time.perf_counter()
 
@@ -3077,14 +3560,14 @@ def main():
         n = sum(int(k) for k in SPILL.findall(line))
         if n:
             spills[entry] = n
-    checked = [e for e in spills
-               if any(k in e for k in CONV_BWD_ENTRIES + NMS_ENTRIES)]
+    checked = [e for e in spills if any(
+        k in e for k in CONV_BWD_ENTRIES + NMS_ENTRIES + INT8_ENTRIES)]
     log(f"ptxas: spill bytes (stores + loads) {spills or 'none'}")
     if checked:
-        raise AssertionError(f"ptxas spilled in conv backward or NMS kernels "
-                             f"{checked} (log above)")
-    log("ptxas: no spills in the conv backward kernels (K2-K5) or the NMS "
-        "kernel's two passes (K1)")
+        raise AssertionError(f"ptxas spilled in conv backward, NMS or int8 "
+                             f"kernels {checked} (log above)")
+    log("ptxas: no spills in the conv backward kernels (K2-K5), the NMS "
+        "kernel's two passes (K1) or the int8 kernels (Q1, Q2)")
     lib = load_library()
     for b, n in NMS_WORKSPACES:
         geom = nms_cuda.geometry(lib, b, n)
@@ -3169,7 +3652,8 @@ def main():
         phase_compact_assign(dev, labels, counts, in_range)
         phase_sparse_loss(dev, labels, counts)
         phase_augment_parity(dev, images, labels, counts)
-        compact_k1, compact_k2 = phase_compact_train(dev, Path(tmp), af_yaml)
+        compact_k1, compact_k2, compact_ckpts = phase_compact_train(
+            dev, Path(tmp), af_yaml)
         phase_compact_throughput(dev, af_yaml)
         log(f"compact path's kernel launches: NMS {compact_k1} (--val-det "
             f"both heads + --map), conv backward {compact_k2}")
@@ -3204,6 +3688,18 @@ def main():
             f"replay of the recipe graph, profiler)")
         done(19)
 
+        # 20. int8 serving and the frozen serving artifacts, both heads, on
+        # phase 17's checkpoints: Q1 and Q2 against their plain versions,
+        # --int8 and a B=32 int8 call (the main path), --export float and
+        # int8 served from fresh interpreters
+        q_err, q_sums, _ = phase_int8_kernels(dev)
+        int8_counts = phase_int8_serving(dev, compact_ckpts, af_yaml)
+        artifact_counts = phase_export(dev, compact_ckpts, af_yaml, Path(tmp))
+        log(f"int8 and artifact paths' kernel launches: (Q1, Q2, K1) "
+            f"{int8_counts} (--int8 request + B={INT8_BATCH} call); in one "
+            f"call of each artifact (profiler) {artifact_counts}")
+        done(20)
+
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
         "route": "cuda",
@@ -3231,6 +3727,9 @@ def main():
         "compact_launches": compact_k1,
         "stream_launches": stream_k1,
         "ema_val_det_launches": ema_k1,
+        "int8_launches": sum(c[2] for c in int8_counts.values()),
+        "artifact_launches": sum(c["mask"] for c in
+                                 artifact_counts.values()),
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
@@ -3272,7 +3771,37 @@ def main():
          _bound(8, 40, 40, torch.bfloat16)[1]),
         ("chain_bwd", "benchmarks/blockbwd.py:71", chain_err,
          chain_ms[(40, 40)],
-         roofline.chain_bwd_bound_ms(8, 40, 40, "bfloat16")[1])))]}))
+         roofline.chain_bwd_bound_ms(8, 40, 40, "bfloat16")[1]))), {
+        # Q1 and Q2: device ms, bounds and yardsticks summed over the 24
+        # distinct quantized convs at B=32 (phase 20 (a))
+        "name": "quant_input",
+        "route": "cuda",
+        "source": "yolo_from_scratch_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "yolo_from_scratch_tpu/infer/quantize.py:166",
+        "launches": sum(c[0] for c in int8_counts.values()),
+        "max_abs_err": 0.0,
+        "ms": q_sums["q1"],
+        "plain_ms": q_sums["q1_plain"],
+        "bound_ms": q_sums["q1_bound"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "artifact_launches": sum(c["q1"] for c in artifact_counts.values()),
+    }, {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "yolo_from_scratch_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "yolo_from_scratch_tpu/infer/quantize.py:173",
+        "launches": sum(c[1] for c in int8_counts.values()),
+        "max_abs_err": q_err,
+        "ms": q_sums["q2"],
+        "plain_ms": q_sums["q2_plain"],
+        "bound_ms": q_sums["q2_bound"],
+        "bound_by": ("bytes" if q_sums["q2_bound_bytes"]
+                     >= q_sums["q2_bound_operations"] else "operations"),
+        "library_ms": q_sums["int_mm"],
+        "conv_bf16_ms": q_sums["conv_bf16"],
+        "artifact_launches": sum(c["q2"] for c in artifact_counts.values()),
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

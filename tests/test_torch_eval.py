@@ -192,12 +192,14 @@ def test_cli_trains_evaluates_and_jax_reads_the_checkpoint(
 
 
 # --ema, --resume, --multi-scale and --augment are ported
-# (tests/test_torch_cli_recipe.py); these are not yet
+# (tests/test_torch_cli_recipe.py), as are --int8 and --export*
+# (tests/test_torch_export.py); these are not yet
 @pytest.mark.parametrize("args", [["--distributed"], ["--spatial", "2"],
-                                  ["--export", "m.yexp"],
+                                  ["--coordinator", "localhost:1234"],
                                   ["--packed", "p3"],
                                   ["--model-parallel", "2"],
-                                  ["--export-batch", "4"], ["--int8"],
+                                  ["--num-processes", "2"],
+                                  ["--process-id", "0"],
                                   ["--data-parallel"]])
 def test_cli_unported_flags_exit_2(args, capsys):
     assert cli.main(["data.yaml", *args]) == 2

@@ -9,6 +9,9 @@ decodes them), with dense targets, on the compact path (mosaic,
 augmentation, the sparse loss, AdamW), through the scanned compact
 trainer that `--stream` drives, with its per-step learning rate and EMA,
 and load augmented items (`--augment`), with no jax, flax or OpenCV.
+The int8 path (`infer/quantize.py`, `ops/quant.py`) quantizes and serves,
+and `infer/export.py` writes an artifact that `infer/artifact.py` loads and
+serves, with none of jax or flax.
 The conv-backward prototype benchmarks import with none of jax, flax or
 triton, and run their CPU check as a user runs them. None of these loads
 any module of the JAX package (`yolo_from_scratch_tpu`), and no source
@@ -161,6 +164,51 @@ def test_port_trains_without_jax_or_flax(temp_dataset_dir):
     assert "NO JAX PACKAGE" in result.stdout, result.stdout
 
 
+INT8_EXPORT_SCRIPT = """
+import sys
+import numpy as np
+import torch
+
+from yolo_from_scratch_tpu_torch import YoloConfig
+from yolo_from_scratch_tpu_torch.infer.artifact import load_serving_artifact
+from yolo_from_scratch_tpu_torch.infer.export import save_serving_artifact
+from yolo_from_scratch_tpu_torch.infer.predict import BatchPredictor
+from yolo_from_scratch_tpu_torch.infer.quantize import QuantConvBNSiLU
+from yolo_from_scratch_tpu_torch.models.yolo import YOLO
+from yolo_from_scratch_tpu_torch.ops import quant
+from yolo_from_scratch_tpu_torch.utils.convert import (
+    from_flax_variables, random_variables)
+
+torch.set_num_threads(1)
+cpu = torch.device("cpu")
+cfg = YoloConfig(num_classes=2, img_size=64, width_mult=0.25, depth_mult=0.33)
+state = from_flax_variables(random_variables(YOLO(cfg, device="meta"), 1),
+                            YOLO(cfg, device="meta"))
+imgs = [np.random.default_rng(i).integers(0, 256, (64, 64, 3), np.uint8)
+        for i in range(2)]
+live = BatchPredictor(state, cfg, conf_threshold=0.005, device=cpu,
+                      quantize_calib=imgs)
+assert sum(isinstance(m, QuantConvBNSiLU) for m in live.model.modules()) == 58
+assert all(live(imgs))
+save_serving_artifact(sys.argv[1], state, cfg, 2, conf_threshold=0.005,
+                      platforms=["cpu"], quantize_calib=imgs)
+assert all(load_serving_artifact(sys.argv[1])(imgs))
+assert quant.conv_launches == 0 and quant.quant_launches == 0
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+print("LOADED", loaded)
+""" + NO_JAX_PACKAGE
+
+
+def test_port_quantizes_and_exports_without_jax_or_flax(tmp_path):
+    result = subprocess.run(
+        [sys.executable, "-c", INT8_EXPORT_SCRIPT, str(tmp_path / "q.yexp")],
+        capture_output=True, text=True, timeout=300, cwd=REPO_ROOT)
+    assert result.returncode == 0, result.stderr
+    assert "LOADED []" in result.stdout, result.stdout
+    assert "NO JAX PACKAGE" in result.stdout, result.stdout
+
+
 PROTOTYPES = ["bwdproto", "blockbwd"]
 
 PROTOTYPE_IMPORT = """
@@ -237,7 +285,12 @@ def test_static_check_sees_the_port():
     imports inside functions (a guard against an empty glob)."""
     assert len(PORT_SOURCES) > 30
     for module in ("data/cache.py", "data/stream.py", "train/graphs.py",
-                   "train/ema.py", "train/schedule.py"):
+                   "train/ema.py", "train/schedule.py", "infer/quantize.py",
+                   "infer/export.py", "infer/artifact.py", "ops/quant.py"):
         assert PORT_DIR / module in PORT_SOURCES, module
     names = _imported_modules(PORT_DIR / "infer" / "predict.py")
     assert "yolo_from_scratch_tpu_torch.data.letterbox" in names
+    # the artifact loader imports no model module, at any level
+    names = _imported_modules(PORT_DIR / "infer" / "artifact.py")
+    assert "yolo_from_scratch_tpu_torch.ops.quant" in names
+    assert not [m for m in names if ".models" in m or ".predict" in m]

@@ -271,13 +271,27 @@ def test_spill_check_names_every_conv_backward_kernel():
     csrc = Path(bwdproto.__file__).resolve().parents[1] / "csrc"
     kernels = {src.name: re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(",
                                     src.read_text())
-               for src in csrc.glob("*.cu") if src.name != "nms.cu"}
+               for src in csrc.glob("*.cu")
+               if src.name not in ("nms.cu", "int8_conv.cu")}
     assert set(kernels) == {"conv_bwd.cu", "conv_bwd_patch.cu",
                             "conv_bwd_tap.cu", "chain_bwd.cu"}
     for name, found in kernels.items():
         assert found, name
         for kernel in found:
             assert any(e in kernel for e in chip_smoke.CONV_BWD_ENTRIES), kernel
+
+
+def test_spill_check_names_every_int8_kernel():
+    """Phase 2 fails on a spill in a kernel whose name holds one of
+    `chip_smoke.INT8_ENTRIES`: they are exactly the kernels (Q1, Q2) that
+    `csrc/int8_conv.cu` defines."""
+    import chip_smoke
+
+    src = (Path(bwdproto.__file__).resolve().parents[1] / "csrc"
+           / "int8_conv.cu")
+    found = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(",
+                       src.read_text())
+    assert sorted(found) == sorted(chip_smoke.INT8_ENTRIES)
 
 
 def test_spill_check_names_every_nms_kernel():

@@ -17,9 +17,10 @@ greedy NMS, one launch a batch), training and evaluation with mAP and
 detection P/R/F1 for both heads (dense, compact-label and streamed, the
 scanned trainers as CUDA graphs; `--resume`, `--ema`, `--multi-scale`,
 host `--augment`, the per-step learning rate and gradient accumulation),
-the k-means anchors, and the conv-backward prototype benchmarks; every
-TPU kernel of the JAX package is a CUDA kernel written by hand
-(`csrc/`).
+the k-means anchors, post-training int8 serving (`--int8`) and frozen
+serving artifacts (`--export`, `.yexp`), and the conv-backward prototype
+benchmarks; every TPU kernel of the JAX package is a CUDA kernel written
+by hand (`csrc/`), as are the int8 serving conv's two kernels.
 """
 
 from yolo_from_scratch_tpu_torch.config import (

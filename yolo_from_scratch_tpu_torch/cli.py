@@ -7,6 +7,10 @@ dispatching on the positional files' extensions as the JAX CLI does.
   Inspect:         python -m yolo_from_scratch_tpu_torch model.ckpt
   Compute Anchors: python -m yolo_from_scratch_tpu_torch data.yaml \
                        --compute-anchors
+  Export:          python -m yolo_from_scratch_tpu_torch [data.yaml] \
+                       model.ckpt --export out.yexp [--int8]
+  Artifact:        python -m yolo_from_scratch_tpu_torch [image.jpg] \
+                       model.yexp
 
 (`python train_torch.py ...` is the same command line.) Each prints the
 JAX CLI's stdout lines. Training runs either head (`--head anchor` or
@@ -28,8 +32,14 @@ float32 on the CPU.
 `--val-det` adds the detection-level P/R/F1 to each epoch, `--map` adds
 mAP to evaluation (both through `BatchPredictor`, one NMS launch a batch),
 `--device-letterbox` resizes and pads on the device for inference and
-`--map`. A JAX-CLI flag the port does not have yet exits with status 2
-and names the flag, as does any other mode.
+`--map`. `--int8` serves the post-training int8 model (`infer/
+quantize.py`) for inference (calibrated on the image) and `--map`
+(calibrated on 16 train-split images); `--export OUT.yexp` freezes the
+batched serving program with its weights (`infer/export.py`, one platform:
+`--export-platforms cuda` or `cpu`, by default `--device`'s), and a
+`.yexp` alone is inspected, beside an image served. A JAX-CLI flag the
+port does not have yet exits with status 2 and names the flag, as does
+any other mode.
 """
 
 from __future__ import annotations
@@ -44,12 +54,12 @@ from yolo_from_scratch_tpu_torch.config import YOLO_SIZES, YoloConfig
 CKPT_EXTS = (".ckpt", ".msgpack")
 IMG_EXTS = (".jpg", ".png", ".jpeg")
 YAML_EXTS = (".yaml", ".yml")
+ART_EXTS = (".yexp",)  # frozen serving artifacts (infer/export.py)
 
 # JAX-CLI flags with no port yet
 UNPORTED_FLAGS = (
     "--data-parallel", "--spatial", "--model-parallel", "--distributed",
-    "--coordinator", "--num-processes", "--process-id", "--int8",
-    "--export", "--export-batch", "--export-platforms",
+    "--coordinator", "--num-processes", "--process-id",
 )
 UNPORTED_PREFIXES = ("--packed",)
 # unported JAX-CLI flags that --stream refuses (exit 1, before "not
@@ -191,6 +201,28 @@ def build_parser():
     parser.add_argument("--device-letterbox", action="store_true",
                         help="inference / --map: resize and pad on the "
                              "device (the host only decodes)")
+    parser.add_argument("--int8", action="store_true",
+                        help="inference / --map / --export: serve the "
+                             "post-training int8 model (BN folded into "
+                             "per-channel int8 conv weights, per-tensor "
+                             "activation scales calibrated on the image, or "
+                             "on 16 train images for --map and --export); "
+                             "its convs run the int8 kernels Q1 and Q2 on "
+                             "the card")
+    parser.add_argument("--export", type=str, default=None,
+                        metavar="OUT.yexp",
+                        help="with a .ckpt: freeze the batched serving "
+                             "program (weights baked in) to a serving "
+                             "artifact via torch.export; serve it with "
+                             "`train_torch.py image.jpg model.yexp`")
+    parser.add_argument("--export-batch", type=int, default=8,
+                        help="frozen batch size for --export (default: 8)")
+    parser.add_argument("--export-platforms", type=str, default=None,
+                        metavar="P",
+                        help="the one platform of the --export program, "
+                             "'cuda' (kernels through the registered ops) "
+                             "or 'cpu' (their plain versions); default: "
+                             "--device's")
     return parser
 
 
@@ -255,8 +287,14 @@ def _infer(args, image_file, ckpt_file):
     print(f"Running inference on {image_file}")
     print(f"Model: {ckpt_file}, Classes: {cfg.num_classes}, "
           f"Image size: {cfg.img_size}")
-    detections = Predictor(state_dict, cfg, device=device,
-                           device_letterbox=args.device_letterbox)(image_file)
+    detections = Predictor(
+        state_dict, cfg, device=device,
+        device_letterbox=args.device_letterbox,
+        quantize_calib=[image_file] if args.int8 else None)(image_file)
+    _print_detections(detections)
+
+
+def _print_detections(detections):
     if len(detections) == 0:
         print("No objects detected.")
     else:
@@ -265,6 +303,75 @@ def _infer(args, image_file, ckpt_file):
             print(f"  {i + 1}. Box: ({x1:.1f}, {y1:.1f}, {x2:.1f}, "
                   f"{y2:.1f}), Confidence: {conf:.3f}, "
                   f"Class: {int(class_id)}")
+
+
+def _train_calibration_images(config, cfg):
+    """--int8's calibration images for --map and --export: the first 16 of
+    the train split (never the split being scored)."""
+    from yolo_from_scratch_tpu_torch.data import YoloDataset
+
+    return YoloDataset(config["train"], cfg.num_classes, cfg.anchors_array,
+                       cfg.img_size, head_type=cfg.head_type).imgs[:16]
+
+
+def _artifact(artifact_file, image_file):
+    """Inspect a serving artifact, or serve `image_file` from it."""
+    from yolo_from_scratch_tpu_torch.infer.artifact import (
+        load_serving_artifact,
+    )
+
+    art = load_serving_artifact(artifact_file)
+    if not image_file:
+        print(f"Serving artifact: {artifact_file}")
+        for key, val in sorted(art.meta.items()):
+            print(f"  {key}: {val}")
+        return
+    m = art.meta
+    print(f"Serving artifact: {artifact_file} (batch {m['batch_size']}, "
+          f"img {m['img_size']}, classes {m['num_classes']}, "
+          f"platforms {','.join(m['platforms'])})")
+    print(f"Running inference on {image_file}")
+    _print_detections(art([image_file])[0])
+
+
+def _export(args, config, ckpt_file):
+    import os
+
+    from yolo_from_scratch_tpu_torch.infer.export import (
+        check_platforms,
+        save_serving_artifact,
+    )
+    from yolo_from_scratch_tpu_torch.utils.checkpoint import load_checkpoint
+
+    platforms = (args.export_platforms.split(",") if args.export_platforms
+                 else [args.device])
+    try:
+        check_platforms(platforms)
+    except ValueError as e:
+        print(f"ERROR: --export-platforms: {e}")
+        return 1
+    state_dict, cfg, _ = load_checkpoint(ckpt_file)
+    if args.dtype != "auto":
+        cfg = cfg.with_(compute_dtype=args.dtype)
+    calib = None
+    if args.int8:
+        if config is None:
+            print("ERROR: --export --int8 needs a dataset YAML for "
+                  "calibration images (train.py data.yaml model.ckpt "
+                  "--export out.yexp --int8)")
+            return 1
+        calib = _train_calibration_images(config, cfg)
+    header = save_serving_artifact(args.export, state_dict, cfg,
+                                   args.export_batch, platforms=platforms,
+                                   quantize_calib=calib)
+    print(f"Exported {ckpt_file} -> {args.export} "
+          f"({os.path.getsize(args.export):,} bytes)")
+    print(f"  batch {header['batch_size']}, img {header['img_size']}, "
+          f"classes {header['num_classes']}, "
+          f"platforms {','.join(header['platforms'])}, "
+          f"nms {'cuda' if header['cuda_nms'] else 'plain'}"
+          + (", int8" if header["int8"] else ""))
+    return 0
 
 
 def _compute_anchors(args, yaml_file):
@@ -332,10 +439,12 @@ def _evaluate(args, config, ckpt_file):
 
         # low threshold: mAP integrates the whole PR curve, so the
         # low-confidence tail must not be cut
-        predictor = BatchPredictor(state_dict, cfg, conf_threshold=1e-3,
-                                   max_outputs=300,
-                                   device_letterbox=args.device_letterbox,
-                                   device=device)
+        # --int8: scales calibrated on train-split images
+        predictor = BatchPredictor(
+            state_dict, cfg, conf_threshold=1e-3, max_outputs=300,
+            device_letterbox=args.device_letterbox, device=device,
+            quantize_calib=(_train_calibration_images(config, cfg)
+                            if args.int8 else None))
     for title, split in (("Training", "train"), ("Validation", "val")):
         loader = _loader(config, split, cfg, args.batch_size,
                          compact=compact)
@@ -575,18 +684,35 @@ def main(argv=None):
     yaml_file = next((a for a in args.files if a.endswith(YAML_EXTS)), None)
     ckpt_file = next((a for a in args.files if a.endswith(CKPT_EXTS)), None)
     image_file = next((a for a in args.files if a.endswith(IMG_EXTS)), None)
+    artifact_file = next((a for a in args.files if a.endswith(ART_EXTS)),
+                         None)
     if args.compute_anchors:
         return _compute_anchors(args, yaml_file)
     others = [a for a in args.files
-              if a not in (yaml_file, ckpt_file, image_file)]
+              if a not in (yaml_file, ckpt_file, image_file, artifact_file)]
 
-    if others or not (yaml_file or ckpt_file):
+    if others or not (yaml_file or ckpt_file or artifact_file):
         print("This mode is not ported yet: the PyTorch port runs training "
               "(data.yaml), evaluation (data.yaml model.ckpt), inference "
-              "(image.jpg model.ckpt), inspect (model.ckpt) and "
-              "--compute-anchors (data.yaml). Use `python train.py` for the "
-              "other modes.")
+              "(image.jpg model.ckpt), inspect (model.ckpt), export "
+              "(model.ckpt --export out.yexp), the artifact modes "
+              "(model.yexp, image.jpg model.yexp) and --compute-anchors "
+              "(data.yaml). Use `python train.py` for the other modes.")
         return 2
+    if artifact_file:
+        _artifact(artifact_file, image_file)
+        return 0
+    if ckpt_file and args.export:
+        from yolo_from_scratch_tpu_torch.utils.yaml_cfg import (
+            load_dataset_yaml,
+        )
+
+        size_cfg = YOLO_SIZES[args.size]
+        print(f"Creating YOLOv5{args.size.upper()} "
+              f"(width={size_cfg['width_mult']}, "
+              f"depth={size_cfg['depth_mult']})")
+        return _export(args, load_dataset_yaml(yaml_file) if yaml_file
+                       else None, ckpt_file)
     if ckpt_file and not yaml_file and not image_file:
         _inspect(ckpt_file)
         return 0

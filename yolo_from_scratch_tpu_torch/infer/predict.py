@@ -25,8 +25,12 @@ tensors.
   flight; each result comes back through pinned host memory behind a CUDA
   event.
 
-Not ported: int8 (`quantize_calib`), the TPU's `approx_topk` prefilter and
-the packed stem; none is accepted as an argument.
+`quantize_calib` (a list of images) serves the int8 model instead
+(`infer/quantize.py`), calibrated on those images: every ConvBNSiLU but
+`stem0` runs Q1 and Q2 (`ops/quant.py`), kernels on the card.
+
+Not ported: the TPU's `approx_topk` prefilter and the packed stem; neither
+is accepted as an argument.
 """
 
 from __future__ import annotations
@@ -43,6 +47,10 @@ from yolo_from_scratch_tpu_torch.data.letterbox import (
     letterbox_geometry,
     letterbox_image,
     stage_to_bucket,
+)
+from yolo_from_scratch_tpu_torch.infer.detections import (
+    detections,
+    detections_per_image,
 )
 from yolo_from_scratch_tpu_torch.models.anchor_free import decode_anchor_free
 from yolo_from_scratch_tpu_torch.models.yolo import (
@@ -294,20 +302,24 @@ def _load_model(state_dict, cfg, device):
     return cast_convs_(model, compute_dtype(cfg)).eval()
 
 
-def _detections(boxes, scores, classes, valid):
-    """[(x1, y1, x2, y2, conf, cls), ...] of one image's fixed-shape
-    output on the host. One tolist() per column: per-element float()/int()
-    costs ~1.5 us a detection."""
-    return [(*b, s, c) for b, s, c in zip(boxes[valid].tolist(),
-                                          scores[valid].tolist(),
-                                          classes[valid].tolist())]
+def _quantize(model, state_dict, cfg, calib_images):
+    """The predictors' PTQ: calibrate `model` on the letterboxed images and
+    return its int8 copy, quantized from the float32 `state_dict` (the
+    model's own conv weights are already cast to the compute dtype)."""
+    from yolo_from_scratch_tpu_torch.infer.quantize import (
+        calib_batches_from_images,
+        quantize_model,
+    )
+
+    batches = calib_batches_from_images(calib_images, cfg.img_size)
+    return quantize_model(model, batches, state_dict=state_dict)
 
 
-def _detections_per_image(boxes, scores, classes, valid, n):
-    """Per-image detection lists of the first `n` rows of a batch's
-    fixed-shape output on the host."""
-    return [_detections(boxes[i], scores[i], classes[i], valid[i])
-            for i in range(n)]
+def _refuse_letterbox(quantize_calib, device_letterbox):
+    if quantize_calib is not None and device_letterbox:
+        raise ValueError(
+            "quantize_calib + device_letterbox unsupported: the "
+            "calibrated layout must match the serving layout")
 
 
 def letterbox_input(image, img_size: int):
@@ -337,16 +349,22 @@ class Predictor:
     `utils.convert.from_flax_variables`). `device_letterbox=True` moves the
     resize and pad onto the device: the host only decodes, and the B=1
     batch program (`make_batch_postprocess`, one NMS launch) runs behind
-    `letterbox_device_bucketed`.
+    `letterbox_device_bucketed`. `quantize_calib`: serve the int8 model
+    calibrated on these images (not with `device_letterbox`).
     """
 
     def __init__(self, state_dict, cfg: YoloConfig, conf_threshold=0.5,
                  iou_threshold=0.4, topk=None, max_outputs=None, *, device,
-                 use_cuda_nms=True, device_letterbox=False):
+                 use_cuda_nms=True, device_letterbox=False,
+                 quantize_calib=None):
+        _refuse_letterbox(quantize_calib, device_letterbox)
         self.cfg = cfg
         self.device = torch.device(device)
         self.device_letterbox = device_letterbox
         self.model = _load_model(state_dict, cfg, self.device)
+        if quantize_calib is not None:
+            self.model = _quantize(self.model, state_dict, cfg,
+                                   quantize_calib)
         self.postprocess = make_postprocess(
             self.model, cfg, conf_threshold, iou_threshold, topk, max_outputs,
             use_cuda_nms=use_cuda_nms,
@@ -377,8 +395,8 @@ class Predictor:
             staged = _stage_batch([_image_array(image)], self.cfg.img_size)
             out = self._post_lb(*(torch.from_numpy(a).to(self.device)
                                   for a in staged))
-            return _detections(*(t[0].cpu() for t in out))
-        return _detections(*(t.cpu() for t in self.postprocess(
+            return detections(*(t[0].cpu() for t in out))
+        return detections(*(t.cpu() for t in self.postprocess(
             *self.stage(image))))
 
 
@@ -399,9 +417,10 @@ class PipelinedPredictor:
 
     def __init__(self, state_dict, cfg: YoloConfig, depth=4,
                  conf_threshold=0.5, iou_threshold=0.4, topk=None,
-                 max_outputs=None, *, device):
+                 max_outputs=None, *, device, quantize_calib=None):
         self._p = Predictor(state_dict, cfg, conf_threshold, iou_threshold,
-                            topk, max_outputs, device=device)
+                            topk, max_outputs, device=device,
+                            quantize_calib=quantize_calib)
         self.depth = max(1, int(depth))
         self._inflight = collections.deque()
 
@@ -421,7 +440,7 @@ class PipelinedPredictor:
         out, done = inflight
         if done is not None:
             done.synchronize()
-        return _detections(*(t.cpu() for t in out))
+        return detections(*(t.cpu() for t in out))
 
     def submit(self, image):
         """Enqueue one image; returns the results whose window slot was
@@ -464,15 +483,22 @@ class BatchPredictor:
     normalize, forward and NMS run on the device, the batch staged in one
     bucket of 256-px multiples (`_stage_batch`). `topk`: NMS candidates
     per image (default `default_topk`, 4096 @640 for either head).
+    `quantize_calib`: serve the int8 model calibrated on these images (not
+    with `device_letterbox`).
     """
 
     def __init__(self, state_dict, cfg: YoloConfig, conf_threshold=0.5,
                  iou_threshold=0.4, max_outputs=300, device_letterbox=False,
-                 topk=None, *, device, use_cuda_nms=True):
+                 topk=None, quantize_calib=None, *, device,
+                 use_cuda_nms=True):
+        _refuse_letterbox(quantize_calib, device_letterbox)
         self.cfg = cfg
         self.device = torch.device(device)
         self.device_letterbox = device_letterbox
         self.model = _load_model(state_dict, cfg, self.device)
+        if quantize_calib is not None:
+            self.model = _quantize(self.model, state_dict, cfg,
+                                   quantize_calib)
         self.postprocess = make_batch_postprocess(
             self.model, cfg, conf_threshold, iou_threshold, topk=topk,
             max_outputs=max_outputs, use_cuda_nms=use_cuda_nms)
@@ -514,4 +540,4 @@ class BatchPredictor:
                                   for a in staged))
         else:
             out = self.postprocess(*self.stage(images))
-        return _detections_per_image(*(t.cpu() for t in out), len(images))
+        return detections_per_image(*(t.cpu() for t in out), len(images))

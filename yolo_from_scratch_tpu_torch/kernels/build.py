@@ -142,4 +142,11 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, f"{name}_geometry").restype = i32
     lib.chain_bwd.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
     lib.chain_bwd.restype = i32
+    lib.int8_conv.argtypes = [ptr] * 5 + [i32] * 12 + [ptr]
+    lib.int8_conv.restype = i32
+    lib.quant_input.argtypes = ([ptr, i32] + [ctypes.c_longlong] * 4
+                                + [i32] * 5 + [ctypes.c_float, ptr, ptr])
+    lib.quant_input.restype = i32
+    lib.int8_conv_error_string.argtypes = [i32]
+    lib.int8_conv_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,13 +9,16 @@ in plain torch on the same stream and exactly as `nms_pallas.py` does
 outside its Pallas kernel: the sort and the scatter back (skipped when
 `presorted`), the class offsets and the top-k compaction.
 
-Dispatch is by the tensors' device: CPU tensors go to the plain version
-(`ops/nms.py`), CUDA tensors launch the kernel or raise, anything else
-raises. There is no fallback from the kernel to the plain version.
-`launches` counts the wrapper's launches of the kernel (both passes
-each time) and nothing else. It counts Python calls: a launch captured in
-a CUDA graph is counted once, at capture, and never at a replay (count
-a replay's launches with the profiler).
+The keep mask of sorted boxes is the registered op
+`yolo_torch::nms_keep_mask`, which dispatches by the tensors' device: CPU
+tensors go to the plain version (`ops/nms.py`), CUDA tensors launch the
+kernel or raise, anything else raises. There is no fallback from the
+kernel to the plain version. The live path and a `torch.export` program
+(`infer/export.py`, which cannot trace a ctypes call on `data_ptr()`) call
+the same op. `launches` counts the wrapper's launches of the kernel (both
+passes each time) and nothing else. It counts Python calls: a launch
+captured in a CUDA graph is counted once, at capture, and never at a
+replay (count a replay's launches with the profiler).
 """
 
 from __future__ import annotations
@@ -101,19 +104,35 @@ def _launch_keep_mask(boxes_s, scores_s, iou_threshold, cap):
     return keep
 
 
+@torch.library.custom_op("yolo_torch::nms_keep_mask", mutates_args=())
+def keep_mask_sorted(boxes_s: torch.Tensor, scores_s: torch.Tensor,
+                     iou_threshold: float, cap: int) -> torch.Tensor:
+    """(B, N) keep mask of (B, N, 4) / (B, N) boxes and scores sorted by
+    descending score per image, at most `cap` kept an image: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    if boxes_s.device.type == "cpu":
+        return nms_plain.nms_keep_mask(boxes_s, scores_s, iou_threshold,
+                                       max_keep=cap, presorted=True)
+    return _launch_keep_mask(boxes_s, scores_s, iou_threshold, cap)
+
+
+@keep_mask_sorted.register_fake
+def _(boxes_s, scores_s, iou_threshold, cap):
+    return scores_s.new_empty(scores_s.shape, dtype=torch.bool)
+
+
 def nms_keep_mask_batched(boxes, scores, iou_threshold, max_keep=None,
                           presorted=False):
     """Batched greedy NMS. boxes (B, N, 4), scores (B, N); entries <=
     NEG_INF/2 are padding. `presorted`: scores already descend per image
     (e.g. straight out of the top-k), so the sort and the scatter back are
     skipped. Returns a (B, N) bool keep mask in the original order."""
-    if boxes.device.type == "cpu":
-        return nms_plain.nms_keep_mask(boxes, scores, iou_threshold,
-                                       max_keep=max_keep, presorted=presorted)
-    if boxes.device.type != "cuda" or scores.device != boxes.device:
+    if (boxes.device.type not in ("cpu", "cuda")
+            or scores.device != boxes.device):
         raise ValueError(f"NMS takes CPU or CUDA tensors on one device, got "
                          f"boxes on {boxes.device}, scores on {scores.device}")
-    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+    if boxes.device.type == "cuda" and (boxes.dtype != torch.float32
+                                        or scores.dtype != torch.float32):
         raise TypeError(f"NMS kernel takes float32, got {boxes.dtype}, "
                         f"{scores.dtype}")
     if (boxes.dim() != 3 or boxes.shape[2] != 4
@@ -127,7 +146,8 @@ def nms_keep_mask_batched(boxes, scores, iou_threshold, max_keep=None,
         scores_s, order = sort_desc(scores, dim=1)
         boxes_s = torch.gather(boxes, 1, order[..., None].expand(b, n, 4))
     cap = n if max_keep is None else min(max_keep, n)
-    keep = _launch_keep_mask(boxes_s, scores_s, iou_threshold, cap)
+    keep = torch.ops.yolo_torch.nms_keep_mask(boxes_s, scores_s,
+                                              float(iou_threshold), cap)
     if presorted:
         return keep
     return torch.zeros_like(keep).scatter_(1, order, keep)

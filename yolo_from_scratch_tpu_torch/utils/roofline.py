@@ -15,9 +15,9 @@ import torch
 
 C = 64
 H100_BYTES_PER_S = 3.35e12
-# bf16 on the tensor cores; float32 outside them (the float32 kernels keep
-# FMAs: TF32 would miss their 1e-5 tolerance)
-H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# bf16 and int8 on the tensor cores; float32 outside them (the float32
+# kernels keep FMAs: TF32 would miss their 1e-5 tolerance)
+H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # one IoU test (csrc/nms.cu::suppresses): 4 min/max, 2 subtractions, 2
 # clamps and 1 product for the overlap, 3 additions for the union (with
 # its 1e-6), 1 division, 1 comparison; and once per box its area (2
@@ -28,7 +28,8 @@ NMS_FLOPS_PER_BOX = 3
 
 def bound_ms(flops, bytes_, dtype):
     """(least ms, "bytes" or "operations") for `flops` operations in
-    `dtype` ("bfloat16" or "float32") and `bytes_` of device memory."""
+    `dtype` ("bfloat16", "float32" or "int8") and `bytes_` of device
+    memory."""
     t_bytes = bytes_ / H100_BYTES_PER_S
     t_ops = flops / H100_PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -94,3 +95,25 @@ def chain_bwd_bound_ms(b, h, w, dtype):
     """`bound_ms` of `chain_bwd_work` at (B, H, W) in `dtype`."""
     itemsize = 2 if dtype == "bfloat16" else 4
     return bound_ms(*chain_bwd_work(b, h, w, itemsize), dtype)
+
+
+def int8_conv_work(b, h, w, cin, cout, k, stride, out_itemsize):
+    """(operations, bytes) of Q2, one int8 conv with its epilogue: 2 M N K
+    integer operations, M = B Ho Wo, K = k^2 Cin (the real channels, not
+    Q1's zero padding); xq read once (B H W Cin int8), the (Cout, K) int8
+    weights and the two float32 vectors read, the output written in its
+    type (4 bytes for the raw int32)."""
+    ho = (h + 2 * (k // 2) - k) // stride + 1
+    wo = (w + 2 * (k // 2) - k) // stride + 1
+    m, kk = b * ho * wo, k * k * cin
+    return (2 * m * cout * kk,
+            b * h * w * cin + cout * kk + 2 * cout * 4
+            + m * cout * out_itemsize)
+
+
+def quant_input_work(b, c, h, w, itemsize):
+    """(operations, bytes) of Q1: per element a product, a rounding and a
+    clip (4 float32 operations); the activation read in its type, the int8
+    written."""
+    n = b * c * h * w
+    return 4 * n, n * itemsize + n
