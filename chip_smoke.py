@@ -160,11 +160,15 @@ and prints no result):
    both heads, on phase 17's checkpoints: (a) Q1 (quantize) and Q2 (the
    int8 conv, `csrc/int8_conv.cu`) against their plain versions at each
    of the 24 distinct quantized convs (k, s, cin, cout at its first
-   grid), B=1 and B=32: Q1's int8 and Q2's int32 accumulator bit-equal,
-   its bf16 output within 1 ulp, its float32 output within 1e-6
-   relative; device ms (profiler) beside the H100 bound and, at B=32,
-   the yardsticks `torch._int_mm` on the im2col and the bf16
-   `F.conv2d`; (b) the main path with the counts at 0: the CLI's
+   grid), B=1 and B=32, and five shapes off the model's grid at B=2: Q1's
+   int8 and Q2's int32 accumulator, bf16 and float32 outputs bit-equal;
+   Q2's launch geometry (`int8_conv_geometry`)
+   held to N >= cout, at most 227 KB of shared memory and tiles that
+   cover the output; device ms (profiler) beside the H100 bound, summed
+   at each batch, and, at B=32, the yardsticks `torch._int_mm` on the
+   im2col and the bf16 `F.conv2d`; at the 1x1 stride-1 shapes `torch.
+   _int_mm` on xq viewed (M, Cp), Q2's exact int32 accumulator in one call
+   (checked equal), against Q2 with its epilogue; (b) the main path with the counts at 0: the CLI's
    `--int8` request and one B=32 int8 `BatchPredictor` call (Q1 and Q2
    once a quantized conv a forward, K1 once a call); the candidates
    against the same path with plain Q1/Q2 on the card, K1's keep masks
@@ -337,7 +341,7 @@ CONV_BWD_ENTRIES = ("conv3x3_bwd", "patch_bwd", "tap_bwd", "chain_bwd")
 # report and in the profiler
 NMS_ENTRIES = ("nms_mask_pass", "nms_scan")
 # the kernels of csrc/int8_conv.cu: Q2 (the int8 conv) and Q1 (quantize)
-INT8_ENTRIES = ("int8_conv_kernel", "quant_input_kernel")
+INT8_ENTRIES = ("int8_conv_tma_kernel", "quant_input_kernel")
 # phase 3: (B, N) at which every NMS case runs, and the max_keep values
 # below N (65 and 100 fall inside a scan chunk of 64 ranks)
 NMS_SHAPES = ((1, 300), (1, 4096), (8, 300), (8, 4096), (1, 4097),
@@ -404,8 +408,11 @@ ACCUM_NOISE = 1e-6
 # phase 20
 INT8_SHAPES = 24      # distinct (k, s, cin, cout) of the quantized convs
 INT8_BATCH = 32       # the B=32 int8 call, and the kernels' larger batch
-Q2_BF16_ULPS = 1      # Q2's bf16 output vs its plain version
-Q2_F32_RTOL = 1e-6    # Q2's float32 output vs its plain version
+# (k, s, cin, cout, h, w) off the model's grid, at B=2: Cp padded, cout
+# not a wgmma width or past 256 (two N tiles), ragged tiles
+INT8_ODD_SHAPES = ((3, 1, 24, 17, 9, 13), (1, 1, 48, 40, 7, 11),
+                   (3, 2, 32, 300, 12, 10), (1, 1, 16, 8, 5, 5),
+                   (3, 2, 3, 24, 17, 23))
 INT8_PROB_TOL = 2e-3  # int8 vs float probabilities (test_quantize.py's)
 EXPORT_BATCH = 8      # --export-batch's default
 ARTIFACT_RTOL, ARTIFACT_ATOL = 1e-5, 1e-4  # tests/test_export.py's
@@ -3131,10 +3138,10 @@ def _q_case(b, k, s, cin, cout, h, w, dev, seed):
 
 
 def _q_check(x, q, k, s, dev):
-    """Q1 and Q2 against their plain versions on the card: Q1's int8 and
-    Q2's int32 accumulator bit-equal, its bf16 output within 1 bf16 ulp,
-    its float32 output within 1e-6 relative. Returns (xq, packed w, bf16
-    scale, bf16 bias, bf16 max |err|, bf16 ulps, f32 rel err)."""
+    """Q1 and Q2 against their plain versions on the card: Q1's int8,
+    Q2's int32 accumulator and its bf16 and float32 outputs bit-equal.
+    Returns (xq, packed w, bf16 scale, bf16 bias, bf16 max |err|, bf16
+    ulps, f32 rel err), the last three 0 when the check passes."""
     inv = quant.input_inverse(q["a_scale"], torch.bfloat16)
     xq = quant._launch_quant_input(x, inv)
     q1_err = (xq.int() - quant.quant_input_plain(x, inv).int()).abs().max()
@@ -3159,19 +3166,43 @@ def _q_check(x, q, k, s, dev):
     err = (got.float() - want.float()).abs().max().item()
     _, _, g32, w32 = out[torch.float32]
     rel = ((g32 - w32).abs() / w32.abs().clamp_min(1e-30)).max().item()
-    if ulps > Q2_BF16_ULPS or rel > Q2_F32_RTOL:
+    if not (torch.equal(got, want) and torch.equal(g32, w32)):
         raise AssertionError(f"Q2 vs plain: {ulps} bf16 ulps, float32 "
-                             f"relative {rel:.3e}")
+                             f"relative {rel:.3e}; want bit-equal")
     return xq, w, sc, bi, err, ulps, rel
+
+
+def _q2_geometry(lib, b, k, s, cin, cout, h, w, sms):
+    """Q2's launch geometry at one shape from the library, held to what
+    the kernel needs: N = cout rounded up to 16, 32, 64, 128 or 256 (256
+    past that), at most 227 KB of shared memory, three stages or more,
+    tiles that cover the output and a grid no larger than the work."""
+    geom = quant.conv_geometry(lib, b, h, w, quant.padded_channels(cin),
+                               cout, k, s, sms)
+    ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
+    want_n = max(16, 1 << (min(cout, 256) - 1).bit_length())
+    ok = (geom.nt == want_n and geom.n_tiles == -(-cout // geom.nt)
+          and geom.smem <= 232448
+          and geom.stages >= 3 and geom.tile_h * geom.tile_w <= 64
+          and geom.tiles_y * geom.tile_h >= ho
+          and geom.tiles_x * geom.tile_w >= wo
+          and geom.work == b * geom.tiles_y * geom.tiles_x * geom.n_tiles
+          and 1 <= geom.grid <= geom.work)
+    if not ok:
+        raise AssertionError(f"Q2 geometry at B={b} k{k} s{s} {cin}->{cout} "
+                             f"@{h}x{w}: {geom}")
+    return geom
 
 
 def phase_int8_kernels(dev):
     """20 (a): Q1 and Q2 against their plain versions at each distinct
     quantized conv of the 's' model @640 (both heads share them), B=1 and
-    B=32; device ms (profiler, TIMING_RUNS calls) beside the H100 bound and
-    the two yardsticks, `torch._int_mm` on the im2col and the bf16
-    `F.conv2d` of the layer. Returns (max bf16 |err|, {name: summed
-    timings over the shapes at B=32}, shapes)."""
+    B=32; Q2's geometry; device ms (profiler, TIMING_RUNS calls) beside
+    the H100 bound and the yardsticks: `torch._int_mm` on the im2col and
+    the bf16 `F.conv2d` of the layer (B=32), and at the 1x1 stride-1
+    shapes `torch._int_mm` on xq viewed (M, Cp), Q2's int32 accumulator
+    (both batches). Returns (max bf16 |err|, {name: summed timings over
+    the shapes at B=32, and "b1_*" at B=1}, shapes)."""
     cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE,
                                compute_dtype="bfloat16")
     shapes, n_quant = _int8_shapes(cfg)
@@ -3184,10 +3215,13 @@ def phase_int8_kernels(dev):
     if len(shapes) != INT8_SHAPES:
         raise AssertionError(f"{len(shapes)} distinct int8 conv shapes, want "
                              f"{INT8_SHAPES}")
+    lib = load_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sums = collections.Counter()
     max_err, worst = 0.0, (0, 0.0)
     for i, (k, s, cin, cout, h, w) in enumerate(shapes):
         for b in (1, INT8_BATCH):
+            geom = _q2_geometry(lib, b, k, s, cin, cout, h, w, sms)
             x, q = _q_case(b, k, s, cin, cout, h, w, dev, SEED + 31 * i + b)
             xq, wp, sc, bi, err, ulps, rel = _q_check(x, q, k, s, dev)
             max_err = max(max_err, err)
@@ -3212,8 +3246,29 @@ def phase_int8_kernels(dev):
             line = (f"int8 conv k{k} s{s} {cin}->{cout} @{h}x{w} B={b}: "
                     f"Q1 {q1:.4f} ms (bound {b1[0]:.4f}, {b1[1]}), Q2 "
                     f"{q2:.4f} ms (bound {b2[0]:.4f}, {b2[1]}, "
-                    f"{b2[0] / q2:.0%}); bf16 max |err| {err:.3e}, "
-                    f"{ulps} ulp, f32 rel {rel:.2e}")
+                    f"{b2[0] / q2:.0%}); N {geom.nt}"
+                    f"{' split' if geom.split else ''}, tile "
+                    f"{geom.tile_h}x{geom.tile_w}, chunk {geom.chunk}, "
+                    f"{geom.stages} stages, {geom.smem} B smem, weights "
+                    f"{'resident' if geom.resident else 'staged'}, grid "
+                    f"{geom.grid}; bit-equal (bf16 max |err| {err:.3e})")
+            pre = "" if b == INT8_BATCH else "b1_"
+            sums.update({f"{pre}q1": q1, f"{pre}q2": q2,
+                         f"{pre}q1_bound": b1[0], f"{pre}q2_bound": b2[0]})
+            if k == 1 and s == 1:
+                # one cuBLASLt call computes Q2's exact int32 accumulator
+                # of a 1x1 stride-1 conv: xq viewed (M, Cp) @ w^T
+                a_mat = xq.view(-1, xq.shape[-1])
+                if not torch.equal(torch._int_mm(a_mat, wp.t()).view(
+                        *xq.shape[:3], cout), quant.int8_conv_acc(
+                            xq, wp, k, s)):
+                    raise AssertionError("torch._int_mm differs from Q2's "
+                                         "int32 accumulator")
+                mm = sum(kernel_ms(lambda: torch._int_mm(a_mat, wp.t()),
+                                   TIMING_RUNS).values()) / TIMING_RUNS
+                sums.update({f"{pre}q2_1x1": q2, f"{pre}int_mm_1x1": mm})
+                line += (f"; 1x1: torch._int_mm on xq (M, Cp) {mm:.4f} ms, "
+                         f"Q2 {mm / q2:.2f}x its speed")
             if b == INT8_BATCH:
                 # the yardsticks: cuBLASLt's int8 GEMM on a prebuilt
                 # im2col (the im2col itself not timed), and cuDNN's bf16
@@ -3226,8 +3281,9 @@ def phase_int8_kernels(dev):
                 del cols
                 b_mat = torch.zeros((cout, a_mat.shape[1]), dtype=torch.int8,
                                     device=dev)
-                lib = sum(kernel_ms(lambda: torch._int_mm(a_mat, b_mat.t()),
-                                    TIMING_RUNS).values()) / TIMING_RUNS
+                lib_ms = sum(kernel_ms(lambda: torch._int_mm(a_mat,
+                                                             b_mat.t()),
+                                       TIMING_RUNS).values()) / TIMING_RUNS
                 del a_mat
                 wf = torch.from_numpy(q["w_int8"]).permute(3, 2, 0, 1).to(
                     dev, torch.bfloat16).contiguous(
@@ -3239,28 +3295,35 @@ def phase_int8_kernels(dev):
                                runs=3, warmup=1)
                 p2 = median_ms(lambda: quant.int8_conv_plain(
                     xq, wp, sc, bi, k, s, True), runs=3, warmup=1)
-                sums.update({"q1": q1, "q2": q2, "q1_bound": b1[0],
-                             "q2_bound": b2[0], "int_mm": lib,
-                             "conv_bf16": conv, "q1_plain": p1,
-                             "q2_plain": p2,
+                sums.update({"int_mm": lib_ms, "conv_bf16": conv,
+                             "q1_plain": p1, "q2_plain": p2,
                              f"q2_bound_{b2[1]}": b2[0]})
                 line += (f"; yardsticks: torch._int_mm on the im2col "
-                         f"{lib:.4f} ms, bf16 F.conv2d {conv:.4f} ms "
+                         f"{lib_ms:.4f} ms, bf16 F.conv2d {conv:.4f} ms "
                          f"(profiler); plain Q1 {p1:.3f} ms, Q2 {p2:.3f} ms "
                          f"(CUDA events, median of 3)")
             log(line)
             del x, xq
         torch.cuda.empty_cache()
+    for i, (k, s, cin, cout, h, w) in enumerate(INT8_ODD_SHAPES):
+        _q2_geometry(lib, 2, k, s, cin, cout, h, w, sms)
+        _q_check(*_q_case(2, k, s, cin, cout, h, w, dev, SEED + 7 * i), k, s,
+                 dev)
+    log(f"Q1 and Q2 == plain at the odd shapes {INT8_ODD_SHAPES}, B=2")
     log(f"Q1 and Q2 == plain at {len(shapes)} shapes x B=1, {INT8_BATCH}: "
-        f"int8 and int32 bit-equal, bf16 within {worst[0]} ulp (max |err| "
-        f"{max_err:.3e}), float32 within {worst[1]:.2e} relative; summed "
-        f"over the shapes at B={INT8_BATCH}: Q1 {sums['q1']:.4f} ms (bound "
+        f"int8, int32, bf16 and float32 bit-equal; summed over the shapes at "
+        f"B={INT8_BATCH}: Q1 {sums['q1']:.4f} ms (bound "
         f"{sums['q1_bound']:.4f}), Q2 {sums['q2']:.4f} ms (bound "
         f"{sums['q2_bound']:.4f}, {sums['q2_bound'] / sums['q2']:.0%}), "
-        f"torch._int_mm {sums['int_mm']:.4f} ms, bf16 conv "
+        f"torch._int_mm on the im2col {sums['int_mm']:.4f} ms, bf16 conv "
         f"{sums['conv_bf16']:.4f} ms, plain Q1 {sums['q1_plain']:.3f} ms, "
-        f"Q2 {sums['q2_plain']:.3f} ms; "
-        f"{_smi('name,power.limit')}")
+        f"Q2 {sums['q2_plain']:.3f} ms; at B=1: Q1 {sums['b1_q1']:.4f} ms, "
+        f"Q2 {sums['b1_q2']:.4f} ms (bound {sums['b1_q2_bound']:.4f}, "
+        f"{sums['b1_q2_bound'] / sums['b1_q2']:.0%}); the 13 1x1 stride-1 "
+        f"shapes: Q2 {sums['q2_1x1']:.4f} ms against torch._int_mm on xq "
+        f"{sums['int_mm_1x1']:.4f} ms at B={INT8_BATCH}, "
+        f"{sums['b1_q2_1x1']:.4f} against {sums['b1_int_mm_1x1']:.4f} at "
+        f"B=1; {_smi('name,power.limit')}")
     return max_err, sums, shapes
 
 
@@ -3402,7 +3465,7 @@ with profile(activities=[ProfilerActivity.CUDA]) as prof:
     result = art.run(*staged)
     torch.cuda.synchronize()
 names = {"mask": "nms_mask_pass", "scan": "nms_scan",
-         "q1": "quant_input_kernel", "q2": "int8_conv_kernel"}
+         "q1": "quant_input_kernel", "q2": "int8_conv_tma_kernel"}
 counts = {k: sum(e.count for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and v in e.key) for k, v in names.items()}
@@ -3800,6 +3863,12 @@ def main():
                      >= q_sums["q2_bound_operations"] else "operations"),
         "library_ms": q_sums["int_mm"],
         "conv_bf16_ms": q_sums["conv_bf16"],
+        "b1_ms": q_sums["b1_q2"],
+        "b1_bound_ms": q_sums["b1_q2_bound"],
+        "ms_1x1": q_sums["q2_1x1"],
+        "int_mm_1x1_ms": q_sums["int_mm_1x1"],
+        "b1_ms_1x1": q_sums["b1_q2_1x1"],
+        "b1_int_mm_1x1_ms": q_sums["b1_int_mm_1x1"],
         "artifact_launches": sum(c["q2"] for c in artifact_counts.values()),
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -286,12 +286,18 @@ def test_cli_compact_recipes_and_flag_rules(temp_dataset_multiclass,
                                          "--device-mosaic", "--device-augment",
                                          "flip", "--weight-decay", str(WD),
                                          "--sparse-loss"])):
+        # a working directory a head: two runs that end in the same second
+        # would otherwise share the CLI's `yolo_<timestamp>.ckpt`
+        (tmp_path / head).mkdir()
+        monkeypatch.chdir(tmp_path / head)
         rc, out = _run(capsys, common + ["--head", head] + extra)
         assert rc == 0, out
         assert EPOCH.search(out), out
         assert ("NOTE: --sparse-loss ignored (anchor-free TAL is already "
                 "dense-transport-free)" in out) == (head == "anchor_free")
-        ckpts[head] = re.search(r"Model saved to (\S+)", out).group(1)
+        ckpts[head] = str((tmp_path / head / re.search(
+            r"Model saved to (\S+)", out).group(1)).resolve())
+    assert ckpts["anchor"] != ckpts["anchor_free"]
 
     jax_state, _, start_epoch, _ = restore_train_state(
         ckpts["anchor_free"], jax_optimizer(1e-3, WD))

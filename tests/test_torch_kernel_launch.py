@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from yolo_from_scratch_tpu_torch.benchmarks import blockbwd, bwdproto
-from yolo_from_scratch_tpu_torch.ops import conv_bwd
+from yolo_from_scratch_tpu_torch.ops import conv_bwd, quant
 from yolo_from_scratch_tpu_torch.utils import roofline
 
 H100_SMS = 132
@@ -357,3 +357,199 @@ def test_nms_mask_pass_tests():
     assert roofline.nms_iou_count(keep, valid) == 2
     assert roofline.nms_mask_pass_tests(torch.ones((2, 4096), dtype=torch.bool)) \
         == 2 * 4096 * 4095 // 2
+
+
+# ------------------------------------------------------------------ Q2
+
+INT8_SRC = Path(bwdproto.__file__).resolve().parents[1] / "csrc" / "int8_conv.cu"
+
+
+class _Q2Lib:
+    """Stands in for the kernel library's `int8_conv_geometry`: the rule of
+    `q2_geometry` in `csrc/int8_conv.cu`, transcribed, with the constants
+    that `test_q2_geometry_constants_are_the_kernels` reads from the
+    source."""
+
+    kSmemLimit, kSmemTwo, kResidentMax = 232448, 115712, 98304
+    kMinStages, kMaxStages, kBoxMax = 3, 8, 256
+    kFixed = 8 * (16 * 144 + 16 * 4) + (4 * 8 + 2) * 8 + 16 * 4 + 1024
+
+    @staticmethod
+    def _align1k(v):
+        return (v + 1023) & ~1023
+
+    def _choose_tile(self, ho, wo, k, s, mt):
+        best = None
+        for tw in range(1, min(wo, mt) + 1):
+            if (tw - 1) * s + k > self.kBoxMax:
+                break
+            th = min(mt // tw, ho)
+            while (th - 1) * s + k > self.kBoxMax:
+                th -= 1
+            tiles = -(-ho // th) * -(-wo // tw)
+            halo = tiles * ((th - 1) * s + k) * ((tw - 1) * s + k)
+            if best is None or (tiles, halo) <= best[:2]:
+                best = (tiles, halo, th, tw)
+        return best[2], best[3]
+
+    def int8_conv_geometry(self, b, h, w, cp, n, k, s, sms, out):
+        if min(b, h, w, n, s, sms, cp) <= 0 or k not in (1, 3) or cp % 16:
+            return 1001
+        taps = k * k
+        ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
+        nt = 16
+        while nt < n and nt < 256:
+            nt *= 2
+        n_tiles = -(-n // nt)
+        th, tw = self._choose_tile(ho, wo, k, s, 64)
+        tiles_y, tiles_x = -(-ho // th), -(-wo // tw)
+        halo_h, halo_w = (th - 1) * s + k, (tw - 1) * s + k
+        work = b * tiles_y * tiles_x * n_tiles
+        if work >= 1 << 22:
+            return 1003
+        split = int(nt == 256 or work < 2 * sms)
+        pipes = 1 if split else 2
+        vecs = self._align1k(n_tiles * nt * 8)
+        for pas in range(4):
+            budget = self.kSmemLimit if pas & 1 else self.kSmemTwo
+            for chunk in (128, 64, 32) if pas < 2 else (16,):
+                if cp % chunk:
+                    continue
+                wchunk = self._align1k(
+                    (taps + (chunk == 16 and taps & 1)) * nt * chunk)
+                all_w = cp // chunk * wchunk
+                resident = all_w if n_tiles == 1 and all_w <= self.kResidentMax else 0
+                stage = self._align1k(halo_h * halo_w * chunk) + (0 if resident else wchunk)
+                room = (budget - self.kFixed - vecs - resident) // pipes
+                if self.kMinStages * stage > room:
+                    continue
+                stages = min(self.kMaxStages, room // stage)
+                smem = self.kFixed + vecs + resident + pipes * stages * stage
+                per_sm = min(4, 233472 // (smem + 1024))
+                grid = min(-(-work // pipes), sms * per_sm)
+                out[:19] = [nt, split, th, tw, chunk, stages, smem, grid, work,
+                            halo_h, halo_w, n_tiles, tiles_y, tiles_x, stage,
+                            self._align1k(halo_h * halo_w * chunk), resident,
+                            wchunk, vecs]
+                return 0
+        return 1003
+
+    @staticmethod
+    def int8_conv_error_string(rc):
+        return b"int8 conv geometry"
+
+
+def _int8_model_shapes():
+    import chip_smoke
+    from yolo_from_scratch_tpu_torch import YoloConfig
+
+    cfg = YoloConfig.from_size("s", num_classes=80, img_size=640,
+                               compute_dtype="bfloat16")
+    shapes = set(chip_smoke._int8_shapes(cfg)[0])
+    shapes |= set(chip_smoke._int8_shapes(cfg.with_(head_type="anchor_free"))[0])
+    return sorted(shapes)
+
+
+def test_q2_geometry_constants_are_the_kernels():
+    """The fake's constants are `csrc/int8_conv.cu`'s, so the geometry
+    tests below hold the kernel's own rule."""
+    text = INT8_SRC.read_text()
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([^;?]+);", text):
+        try:  # the namespace's integer constants, not a template's
+            consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))
+        except (NameError, SyntaxError):
+            pass
+    for name in ("kSmemLimit", "kSmemTwo", "kResidentMax", "kMinStages",
+                 "kMaxStages", "kBoxMax", "kFixed"):
+        assert consts[name] == getattr(_Q2Lib, name), name
+    # two consumer warpgroups and a producer warp
+    assert consts["kWarps"] == 8 and consts["kThreads"] == 288
+
+
+@pytest.mark.parametrize("b", [1, 32])
+def test_q2_geometry_at_every_model_shape(b):
+    """At every quantized conv of both heads ('s' @640), B=1 and B=32, on
+    132 SMs: N is cout (all are 16-256), at most 227 KB of shared memory,
+    three stages or more a ring, tiles of at most 64 pixels whose halos
+    fit a TMA box and that cover the output, a grid no larger than the
+    work that fills the card at B=32."""
+    shapes = _int8_model_shapes()
+    assert len(shapes) == 24
+    lib = _Q2Lib()
+    for k, s, cin, cout, h, w in shapes:
+        g = quant.conv_geometry(lib, b, h, w, quant.padded_channels(cin), cout,
+                                k, s, H100_SMS)
+        ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
+        assert g.nt == cout and g.n_tiles == 1, (k, s, cin, cout)
+        assert g.smem <= 232448 and g.stages >= 3
+        assert g.tile_h * g.tile_w <= 64 and max(g.halo_h, g.halo_w) <= 256
+        assert g.tiles_y * g.tile_h >= ho and g.tiles_x * g.tile_w >= wo
+        assert (g.tiles_y - 1) * g.tile_h < ho and (g.tiles_x - 1) * g.tile_w < wo
+        assert g.work == b * g.tiles_y * g.tiles_x
+        assert 1 <= g.grid <= g.work and g.grid * (1 if g.split else 2) >= min(
+            g.work, H100_SMS)
+        if b == 32:
+            assert g.grid >= H100_SMS
+        assert g.split == (cout == 256 or g.work < 2 * H100_SMS)
+        assert Q2_CHUNKS[g.chunk] and quant.padded_channels(cin) % g.chunk == 0
+        assert g.resident in (0, quant.padded_channels(cin) // g.chunk * g.chunk_wbytes)
+        assert g.resident <= 98304 and g.vec_bytes == -(-cout * 8 // 1024) * 1024
+
+
+Q2_CHUNKS = {16: True, 32: True, 64: True, 128: True}
+
+
+@pytest.mark.parametrize("cout,nt,n_tiles", [
+    (8, 16, 1), (16, 16, 1), (17, 32, 1), (48, 64, 1), (80, 128, 1),
+    (255, 256, 1), (256, 256, 1), (300, 256, 2), (1024, 256, 4)])
+def test_q2_geometry_n_rule(cout, nt, n_tiles):
+    """N is cout rounded up to 16, 32, 64, 128 or 256, 256-wide tiles past
+    that; weights stay resident only for one N tile within 96 KB."""
+    g = quant.conv_geometry(_Q2Lib(), 2, 20, 20, 64, cout, 3, 1, H100_SMS)
+    assert (g.nt, g.n_tiles) == (nt, n_tiles)
+    assert g.work == 2 * g.tiles_y * g.tiles_x * n_tiles
+    assert g.resident == (g.chunk_wbytes * 64 // g.chunk
+                          if n_tiles == 1 and g.chunk_wbytes * 64 // g.chunk <= 98304
+                          else 0)
+
+
+def test_q2_geometry_refuses():
+    """Shapes Q2 does not take come back as an error, which the reader
+    raises."""
+    with pytest.raises(RuntimeError, match="geometry"):
+        quant.conv_geometry(_Q2Lib(), 1, 20, 20, 64, 64, 5, 1, H100_SMS)
+    with pytest.raises(RuntimeError, match="geometry"):
+        quant.conv_geometry(_Q2Lib(), 1, 20, 20, 24, 64, 3, 1, H100_SMS)
+    # 2^22 work items and more: past the kernel's cheap division's range
+    with pytest.raises(RuntimeError, match="geometry"):
+        quant.conv_geometry(_Q2Lib(), 1 << 16, 64, 64, 32, 32, 1, 1, H100_SMS)
+
+
+@pytest.mark.parametrize("b", [1, 2, 32])
+def test_chip_smoke_q2_geometry_check_passes(b):
+    """`chip_smoke.py` phase 20 (a) holds the library's geometry to N, shared
+    memory, stages and cover at every model shape and its odd shapes; the
+    rule passes its own check at each batch."""
+    import chip_smoke
+
+    lib = _Q2Lib()
+    for k, s, cin, cout, h, w in (*_int8_model_shapes(),
+                                  *chip_smoke.INT8_ODD_SHAPES):
+        g = chip_smoke._q2_geometry(lib, b, k, s, cin, cout, h, w, H100_SMS)
+        assert g.nt * g.n_tiles >= cout
+
+
+@pytest.mark.parametrize("shape,want", [
+    # (k, s, cin, cout, h, w) at B=32 on 132 SMs -> (N, split, tile, chunk,
+    # stages, shared memory, grid) as the library gave them on the card
+    ((3, 2, 16, 32, 320, 320), (32, 0, (8, 8), 16, 8, 108368, 264)),
+    ((1, 1, 32, 16, 160, 160), (16, 0, (2, 32), 32, 8, 55120, 528)),
+    ((3, 2, 32, 64, 160, 160), (64, 0, (8, 8), 32, 3, 101200, 264)),
+    ((1, 1, 64, 64, 80, 80), (64, 0, (4, 16), 64, 8, 90960, 264)),
+])
+def test_q2_geometry_matches_the_library(shape, want):
+    k, s, cin, cout, h, w = shape
+    g = quant.conv_geometry(_Q2Lib(), 32, h, w, cin, cout, k, s, H100_SMS)
+    assert (g.nt, g.split, (g.tile_h, g.tile_w), g.chunk, g.stages, g.smem,
+            g.grid) == want

@@ -245,7 +245,8 @@ def test_ops_fake_and_real_agree():
                               (xq, w, vec, vec, 3, 2, bf16))
 
 
-@pytest.mark.parametrize("how", ["dtype", "layout", "epilogue", "device"])
+@pytest.mark.parametrize("how", ["dtype", "layout", "epilogue", "device",
+                                 "kernel", "packing", "align"])
 def test_kernel_wrappers_refuse_bad_tensors(how):
     """The wrappers raise, before the library is built or a launch made,
     on tensors their kernels cannot read; no copy, no fallback."""
@@ -264,6 +265,24 @@ def test_kernel_wrappers_refuse_bad_tensors(how):
     elif how == "epilogue":
         with pytest.raises(ValueError, match="float32 scale"):
             quant._launch_int8_conv(xq, w, vec.double(), vec, 1, 1, 1)
+    elif how == "kernel":  # Q2's tap table and stage sizes cover k 1 and 3
+        w5 = torch.zeros((8, 416), dtype=torch.int8)
+        with pytest.raises(ValueError, match="k 1 or 3"):
+            quant._launch_int8_conv(xq, w5, vec, vec, 5, 1, 1)
+        with pytest.raises(ValueError, match="stride"):
+            quant._launch_int8_conv(xq, w, vec, vec, 1, 0, 1)
+    elif how == "packing":  # w's K must be what pack_weights gives
+        with pytest.raises(ValueError, match="Kp"):
+            quant._launch_int8_conv(xq, w, vec, vec, 3, 1, 1)
+        with pytest.raises(ValueError, match="Cp"):
+            quant._launch_int8_conv(torch.zeros((1, 4, 4, 8),
+                                                dtype=torch.int8), w, vec,
+                                    vec, 1, 1, 1)
+    elif how == "align":  # TMA reads from 16-byte boundaries
+        flat = torch.zeros(xq.numel() + 1, dtype=torch.int8)
+        with pytest.raises(ValueError, match="16-byte"):
+            quant._launch_int8_conv(flat[1:].view(xq.shape), w, vec, vec, 1,
+                                    1, 1)
     else:
         with pytest.raises(ValueError, match="CPU or CUDA"):
             quant.int8_conv_acc(xq.to("meta"), w.to("meta"), 1, 1)

@@ -1,9 +1,9 @@
 // Hopper building blocks shared by the TMA-fed conv backward kernels
-// (conv_bwd.cu, conv_bwd_patch.cu, conv_bwd_tap.cu, chain_bwd.cu) and the
-// NMS scan (nms.cu), sm_90a: tensor maps, mbarriers, bulk and TMA loads
-// (multicast across a cluster too), wgmma descriptors and fences, and the
-// deterministic reduction of per-block dW partials across a thread-block
-// cluster.
+// (conv_bwd.cu, conv_bwd_patch.cu, conv_bwd_tap.cu, chain_bwd.cu), the int8
+// conv (int8_conv.cu) and the NMS scan (nms.cu), sm_90a: tensor maps,
+// mbarriers, bulk and TMA loads (multicast across a cluster too), wgmma
+// descriptors and fences, and the deterministic reduction of per-block dW
+// partials across a thread-block cluster.
 //
 // The tensor-map encoder is the driver's cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint so that the library links against the
@@ -66,6 +66,26 @@ inline int nhwc_map(CUtensorMap* map, const void* base, int b, int h, int w, int
   const cuuint64_t strides[3] = {128, 128ull * w, 128ull * w * h};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh), 1};
   return bf16_map(map, base, 4, dims, strides, box);
+}
+
+// An 8-bit tensor map (int8 data: the bits are the same) of `rank`
+// dimensions, innermost first, zero fill outside the tensor, with the
+// swizzle of rows of `row_bytes` (128, 64 or 32; 16: none): `dims` in
+// elements, `strides` in bytes for dimensions 1.., `box` in elements.
+// Returns a cudaError_t.
+inline int u8_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                  const cuuint64_t* strides, const cuuint32_t* box, int row_bytes) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : row_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                       : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(base), dims,
+                         strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launch `kernel` on `grid` blocks in clusters of `cluster` blocks.
@@ -257,6 +277,26 @@ __device__ __forceinline__ uint32_t swz(int row, int chunk) {
   return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
 }
 
+// `off` (a byte offset from a base aligned to 1024 bytes) as TMA's swizzle
+// of rows of `row_bytes` (128, 64, 32; 16: none) moves it: the 16-byte
+// chunk index XOR address bits 7.. (swz is the 128-byte case).
+__device__ __forceinline__ uint32_t swz_rows(uint32_t off, int row_bytes) {
+  return off ^ (((off >> 7) & static_cast<uint32_t>((row_bytes >> 4) - 1)) << 4);
+}
+
+// wgmma shared-memory descriptor of a K-major operand whose rows are
+// `row_bytes` wide: 128, 64 or 32 with TMA's swizzle of that width (8-row
+// groups 8 rows apart, the leading offset unused); 16 with no swizzle, core
+// matrices (8 rows x 16 bytes, 128 bytes) 128 bytes apart along M / N and
+// `lbo` bytes apart along K.
+__device__ __forceinline__ uint64_t wg_desc_rows(uint32_t addr, int row_bytes, uint32_t lbo) {
+  const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : row_bytes == 32 ? 3 : 0;
+  const uint64_t sbo = row_bytes == 16 ? 128 >> 4 : (8 * row_bytes) >> 4;
+  const uint64_t lead = row_bytes == 16 ? lbo >> 4 : 1;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (lead << 16) | (sbo << 32) |
+         (layout << 62);
+}
+
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand whose
 // 8-row groups lie 1024 bytes apart; both offset fields are set to that
 // stride, which is the only one an operand 64 elements wide uses.
@@ -283,6 +323,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // The deterministic cross-block reduction of dW partials. The blocks of a

@@ -144,6 +144,8 @@ def load_library() -> ctypes.CDLL:
     lib.chain_bwd.restype = i32
     lib.int8_conv.argtypes = [ptr] * 5 + [i32] * 12 + [ptr]
     lib.int8_conv.restype = i32
+    lib.int8_conv_geometry.argtypes = [i32] * 8 + [ptr]
+    lib.int8_conv_geometry.restype = i32
     lib.quant_input.argtypes = ([ptr, i32] + [ctypes.c_longlong] * 4
                                 + [i32] * 5 + [ctypes.c_float, ptr, ptr])
     lib.quant_input.restype = i32

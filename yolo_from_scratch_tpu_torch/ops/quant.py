@@ -35,6 +35,9 @@ counts).
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -175,6 +178,17 @@ def _launch_int8_conv(xq, w, scale, bias, k, stride, mode):
         raise ValueError("Q2 reads contiguous xq (B, H, W, Cp) and w (N, Kp)")
     b, h, wd, cp = xq.shape
     n = w.shape[0]
+    if k not in (1, 3) or stride < 1:
+        raise ValueError(f"Q2 takes k 1 or 3 and a stride of at least 1, got "
+                         f"k {k}, stride {stride}")
+    if cp % 16 or w.dim() != 2 or w.shape[1] != -(-k * k * cp // 32) * 32:
+        raise ValueError(f"Q2 reads xq with Cp a multiple of 16 and w (N, Kp) "
+                         f"with Kp = k*k*Cp rounded up to 32, got Cp {cp}, w "
+                         f"{tuple(w.shape)}")
+    if xq.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("Q2's TMA tensor maps need xq and w on 16-byte "
+                         f"boundaries, got {xq.data_ptr():#x}, "
+                         f"{w.data_ptr():#x}")
     if mode != _OUT_INT32 and (
             scale.dtype != torch.float32 or bias.dtype != torch.float32
             or scale.shape != (n,) or bias.shape != (n,)
@@ -196,6 +210,39 @@ def _launch_int8_conv(xq, w, scale, bias, k, stride, mode):
     _check(rc, lib, "Q2 (int8_conv)")
     conv_launches += 1
     return out
+
+
+class Q2Geometry(NamedTuple):
+    """Q2's launch geometry at one shape, as `int8_conv_geometry` in
+    `csrc/int8_conv.cu` (the one source of it) gives it."""
+    nt: int           # output channels a tile (NW, a warpgroup's, is N or N / 2)
+    split: int        # 1: the warpgroups share 64 pixels, N / 2 columns each
+    tile_h: int       # output pixels a tile: rows
+    tile_w: int       # and columns
+    chunk: int        # channel bytes a ring stage
+    stages: int
+    smem: int         # dynamic shared memory bytes
+    grid: int         # persistent blocks
+    work: int         # work items: pixel tiles x N tiles
+    halo_h: int
+    halo_w: int
+    n_tiles: int      # N tiles
+    tiles_y: int      # pixel tiles an image, down
+    tiles_x: int      # and across
+    stage_bytes: int
+    halo_bytes: int
+    resident: int     # weight bytes kept for a block's life (0: a stage each)
+    chunk_wbytes: int  # one channel chunk's weight boxes, bytes
+    vec_bytes: int    # the epilogue's scale and bias, every column, bytes
+
+
+def conv_geometry(lib, b, h, w, cp, n, k, stride, sms):
+    """Q2's geometry for xq (B, H, W, Cp), `n` output channels, a k x k
+    kernel at `stride` on a card of `sms` SMs, read from the library."""
+    out = (ctypes.c_int * len(Q2Geometry._fields))()
+    rc = lib.int8_conv_geometry(b, h, w, cp, n, k, stride, sms, out)
+    _check(rc, lib, "Q2 geometry")
+    return Q2Geometry(*out)
 
 
 def _device_of(*tensors):
