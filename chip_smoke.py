@@ -180,7 +180,22 @@ and prints no result):
    artifact served in a fresh interpreter that loads no model module,
    K1's, Q1's and Q2's launches in one call counted there by the
    profiler, its detections equal to the live `BatchPredictor`'s on the
-   same staged batch (rtol 1e-5, atol 1e-4).
+   same staged batch (rtol 1e-5, atol 1e-4);
+21. data parallelism, 's' @640 nc=80 on phase 16's data: (b) the CLI's
+   `--distributed --num-processes 1` (NCCL) with `--val-det`, K2 on,
+   against the same command line without it, deterministic as in phase
+   18: the checkpoints bit-equal, K1's and K2's launches counted; (c) two
+   ranks on the one card (`gloo` on CUDA tensors, float32, TF32 off, 4
+   images each, one process each) against one process on the global
+   batch of 8: one step's loss and gradients within phase 8's
+   tolerances, the BatchNorm statistics within the CPU tests' tolerance
+   and equal on both ranks, K2's launches on each rank the gated convs x
+   2, and the sharded `--val-det` counts on a split of 7 images equal to
+   one process's. (a), the native loader against PIL, is not here: the
+   card's machine has no libjpeg or libpng headers (nor their shared
+   libraries), so the library does not build there, and the dataset's
+   `auto` backend falls back to PIL as the JAX package's does; the CPU
+   tests hold the loader (`tests/test_torch_native.py`).
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
@@ -189,7 +204,8 @@ there is one, and the H100 bound with what bounds it, all at the same
 inputs; the NMS kernel also its launches, device ms and bound on phase
 13's batch, both kernels their launches on phase 16's anchor-free paths,
 on phase 17's compact paths, on phase 18's stream paths, on phase
-19's recipe paths and on phase 20's int8 and artifact paths; Q1 and Q2
+19's recipe paths, on phase 20's int8 and artifact paths and on phase
+21's data-parallel paths; Q1 and Q2
 their launches on phase 20's main path and in the artifacts, with their
 times, bounds and yardsticks summed over the 24 shapes at B=32); the last
 line is `{"ok": true, "device": {...}}`.
@@ -204,6 +220,7 @@ import io
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -416,6 +433,15 @@ INT8_ODD_SHAPES = ((3, 1, 24, 17, 9, 13), (1, 1, 48, 40, 7, 11),
 INT8_PROB_TOL = 2e-3  # int8 vs float probabilities (test_quantize.py's)
 EXPORT_BATCH = 8      # --export-batch's default
 ARTIFACT_RTOL, ARTIFACT_ATOL = 1e-5, 1e-4  # tests/test_export.py's
+
+# phase 21: data parallelism
+DP_WORLD = 2          # (c): ranks on the one card
+DP_BATCH = 4          # (c): images a rank
+DP_VAL = 7            # (c): the odd val split of --val-det
+DP_LR = 1e-3
+DP_BN_RTOL = 1e-3     # (c): BatchNorm statistics, the CPU tests' tolerance
+DP_BN_ATOL = 1e-4     # ... of each tensor's largest magnitude
+DP_JOIN_S = 600       # (c): the ranks' time limit, then they are killed
 
 
 def log(msg):
@@ -3592,6 +3618,263 @@ def phase_export(dev, ckpts, yaml_path, workdir):
     return counts
 
 
+def _free_port():
+    """A free TCP port on localhost for a coordinator."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dp_world1(dev, workdir, yaml_path):
+    """(b) `--distributed` at a world of one over NCCL through the CLI
+    (`--val-det`, K2 on) against the same command line without it, both
+    deterministic as in phase 18: the checkpoints bit-equal. Returns K1's
+    and K2's launches in the distributed run."""
+    args = [str(yaml_path), "--epochs", "1", "--batch-size", "8", "--size",
+            "s", "--img-size", str(IMG_SIZE), "--val-det"]
+    world1 = ["--distributed", "--coordinator", f"127.0.0.1:{_free_port()}",
+              "--num-processes", "1", "--process-id", "0"]
+    gated = sum(_gated_convs(YoloConfig.from_size(
+        "s", num_classes=AF_NC, img_size=IMG_SIZE,
+        compute_dtype="bfloat16")).values())
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    ckpts, launches = {}, {}
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        for name, extra in (("flagless", []), ("world1", world1)):
+            (workdir / f"dp_{name}").mkdir()
+            os.chdir(workdir / f"dp_{name}")
+            conv_bwd.launches = 0
+            nms_cuda.launches = 0
+            with _deterministic():
+                rc, out = _cli(args + extra)
+            launches[name] = (nms_cuda.launches, conv_bwd.launches)
+            epoch = EPOCH_LINE.search(out)
+            if rc != 0 or not epoch or " | Det: P " not in epoch.group(0):
+                raise AssertionError(f"phase 21 (b) {name} CLI: rc {rc}, "
+                                     f"output:\n{out}")
+            if name == "world1" and (
+                    "Distributed: process 0/1, backend nccl" not in out
+                    or "Data-parallel mesh over 1 process(es)" not in out):
+                raise AssertionError(f"phase 21 (b): no NCCL group of one:\n"
+                                     f"{out}")
+            ckpts[name] = _flat_tree(read_payload(_saved(out, name)))
+    finally:
+        os.chdir(cwd)
+    a, b = ckpts["world1"], ckpts["flagless"]
+    differ = sorted(k for k in b if k not in a or not np.array_equal(a[k],
+                                                                     b[k]))
+    want_k2 = gated * TRAIN_STEPS * conv_bwd.LAUNCHES_PER_CALL
+    log(f"phase 21 (b) --distributed --num-processes 1 (NCCL) vs no flag, "
+        f"deterministic, 's' @{IMG_SIZE} nc={AF_NC} b8 bf16, 1 epoch of "
+        f"{TRAIN_STEPS} steps + --val-det: checkpoints "
+        f"{len(b) - len(differ)} / {len(b)} leaves bit-equal; (K1, K2) "
+        f"launches {launches['world1']} against {launches['flagless']} "
+        f"(K2 want {want_k2}); {time.perf_counter() - t0:.1f} s")
+    if differ or set(a) != set(b):
+        raise AssertionError(f"world 1 differs from the flagless run: "
+                             f"{differ[:8]}")
+    if launches["world1"][1] != want_k2 or launches["world1"][0] < 1:
+        raise AssertionError(f"phase 21 (b) launches {launches['world1']}")
+    return launches["world1"]
+
+
+DP_RANK_SCRIPT = r"""
+import os
+import sys
+
+import numpy as np
+import torch
+
+from yolo_from_scratch_tpu_torch import YoloConfig, cli
+from yolo_from_scratch_tpu_torch.data import YoloDataset
+from yolo_from_scratch_tpu_torch.device import tf32_disabled
+from yolo_from_scratch_tpu_torch.models.yolo import YOLO
+from yolo_from_scratch_tpu_torch.ops import conv_bwd, nms_cuda
+from yolo_from_scratch_tpu_torch.parallel.distributed import (
+    init_distributed, shutdown)
+from yolo_from_scratch_tpu_torch.parallel.mesh import make_mesh
+from yolo_from_scratch_tpu_torch.train import metrics, steps
+
+rank, coordinator, job_path, out_path = sys.argv[1:5]
+rank = int(rank)
+init_distributed(coordinator, 2, rank, backend="gloo", device="cuda")
+mesh = make_mesh("cuda")
+job = torch.load(job_path, weights_only=False)
+cfg = YoloConfig(**job["cfg"])
+model = YOLO(cfg)
+model.load_state_dict(job["state"])
+model.to(mesh.device)
+state = steps.TrainState(model, steps.make_optimizer(model.parameters(),
+                                                     job["lr"]))
+clip = steps.clip_by_global_norm_
+seen = {}
+
+
+def recording_clip(grads, *a, **kw):
+    seen["grads"] = [g.detach().cpu() for g in grads]
+    return clip(grads, *a, **kw)
+
+
+steps.clip_by_global_norm_ = recording_clip
+b = job["images"].shape[0] // 2
+rows = slice(rank * b, (rank + 1) * b)
+images = torch.from_numpy(job["images"][rows]).to(mesh.device)
+targets = [torch.from_numpy(t[rows]).to(mesh.device) for t in job["targets"]]
+conv_bwd.launches = 0
+with tf32_disabled():
+    state, m = steps.make_train_step(cfg, device=mesh.device, mesh=mesh)(
+        state, images, targets)
+torch.cuda.synchronize()
+k2 = conv_bwd.launches
+names = [n for n, _ in model.named_parameters()]
+# --val-det's counts on the odd split (prf1 reports them unchanged here)
+metrics.prf1 = lambda tp, fp, fn: (tp, fp, fn)
+ds = YoloDataset(job["val"], cfg.num_classes, cfg.anchors_array,
+                 cfg.img_size, backend="pil")
+ds.imgs, ds.labels = ds.imgs[:job["n_val"]], ds.labels[:job["n_val"]]
+nms_cuda.launches = 0
+counts = cli._det_eval(cfg, model, ds, mesh.device, mesh)(model)
+torch.cuda.synchronize()
+torch.save({"metrics": {k: v.item() for k, v in m.items()},
+            "grads": dict(zip(names, seen["grads"])),
+            "state": {k: v.cpu() for k, v in model.state_dict().items()},
+            "k2": k2, "k1": nms_cuda.launches, "counts": counts,
+            "device": str(mesh.device)}, out_path)
+shutdown()
+"""
+
+
+def phase_dp_two_ranks(dev, workdir, yaml_path):
+    """(c) two ranks on the one card (`gloo` on CUDA tensors, float32, TF32
+    off, 4 images each) against one process on the global batch of 8:
+    one step's global loss and summed gradient before the clip within
+    phase 8's tolerances, the BatchNorm statistics within the CPU tests'
+    and equal on both ranks, K2's launches on each rank held to the gated
+    convs; `--val-det`'s counts on an odd split of DP_VAL images summed
+    over the ranks equal one process's. Returns (K1, K2) launches summed
+    over the ranks."""
+    from yolo_from_scratch_tpu_torch.train import steps
+    from yolo_from_scratch_tpu_torch.train.map_eval import (
+        evaluate_det_counts,
+    )
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE,
+                               compute_dtype="float32")
+    config = load_dataset_yaml(yaml_path)
+    loader = DataLoader(YoloDataset(config["train"], AF_NC, cfg.anchors_array,
+                                    IMG_SIZE, backend="pil"),
+                        batch_size=DP_WORLD * DP_BATCH, prefetch=0)
+    images, targets = next(iter(loader))
+    state = YOLO(cfg).reset_parameters(
+        torch.Generator().manual_seed(SEED)).state_dict()
+    for head in ("head_p3", "head_p4", "head_p5"):
+        # objectness and class scores up, so that detections pass
+        # --val-det's gate of 0.5
+        state[f"{head}.pred.bias"].view(3, -1)[:, 4] += 10.0
+        state[f"{head}.pred.bias"].view(3, -1)[:, 5:] += 6.0
+    job = dict(cfg=dict(num_classes=AF_NC, img_size=IMG_SIZE,
+                        width_mult=cfg.width_mult, depth_mult=cfg.depth_mult,
+                        compute_dtype="float32"),
+               state=state, lr=DP_LR, images=images, targets=targets,
+               val=config["val"], n_val=DP_VAL)
+    torch.save(job, workdir / "dp_job.pt")
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    coordinator = f"127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DP_RANK_SCRIPT, str(r), coordinator,
+         str(workdir / "dp_job.pt"), str(workdir / f"dp_rank{r}.pt")],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(DP_WORLD)]
+    try:
+        results = [p.communicate(timeout=DP_JOIN_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, results):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 21 (c) rank exited {p.returncode}:"
+                                 f"\n{err[-4000:]}")
+    ranks = [torch.load(workdir / f"dp_rank{r}.pt", weights_only=False)
+             for r in range(DP_WORLD)]
+    rank_s = time.perf_counter() - t0
+
+    # one process on the global batch, the same weights and settings
+    model = YOLO(cfg)
+    model.load_state_dict(state)
+    model.to(dev)
+    single = steps.TrainState(model, steps.make_optimizer(model.parameters(),
+                                                          DP_LR))
+    clip, seen = steps.clip_by_global_norm_, {}
+
+    def recording_clip(grads, *a, **kw):
+        seen["grads"] = [g.detach().cpu() for g in grads]
+        return clip(grads, *a, **kw)
+
+    steps.clip_by_global_norm_ = recording_clip
+    try:
+        with tf32_disabled():
+            single, m = steps.make_train_step(cfg, device=dev)(
+                single, torch.from_numpy(images).to(dev),
+                [torch.from_numpy(t).to(dev) for t in targets])
+        torch.cuda.synchronize()
+    finally:
+        steps.clip_by_global_norm_ = clip
+    want_grads = dict(zip([n for n, _ in model.named_parameters()],
+                          seen["grads"]))
+    want_state = {k: v.cpu() for k, v in model.state_dict().items()}
+    loss = sum(r["metrics"]["loss"] for r in ranks)
+    rel_loss = abs(loss - m["loss"].item()) / abs(m["loss"].item())
+    worst = max(((ranks[0]["grads"][k] - g).abs().max().item()
+                 / g.abs().max().clamp(min=1e-30).item(), k)
+                for k, g in want_grads.items() if k not in PRE_BN_BIASES)
+    bn = [k for k in want_state if k.endswith((".bn.mean", ".bn.var"))]
+    bn_bad = [k for k in bn if not np.allclose(
+        ranks[0]["state"][k].numpy(), want_state[k].numpy(), rtol=DP_BN_RTOL,
+        atol=DP_BN_ATOL * want_state[k].abs().max().item())]
+    bn_worst = max((ranks[0]["state"][k] - want_state[k]).abs().max().item()
+                   / want_state[k].abs().max().clamp(min=1e-30).item()
+                   for k in bn)
+    across = [k for k in ranks[0]["state"]
+              if not torch.equal(ranks[0]["state"][k], ranks[1]["state"][k])]
+    gated = sum(_gated_convs(cfg).values()) * conv_bwd.LAUNCHES_PER_CALL
+
+    ds = YoloDataset(config["val"], AF_NC, cfg.anchors_array, IMG_SIZE,
+                     backend="pil")
+    ds.imgs, ds.labels = ds.imgs[:DP_VAL], ds.labels[:DP_VAL]
+    counts = evaluate_det_counts(BatchPredictor(state, cfg,
+                                                conf_threshold=0.5,
+                                                device=dev), ds)
+    log(f"phase 21 (c) 2 ranks on one card (gloo on CUDA tensors, "
+        f"{ranks[0]['device']} each; {rank_s:.1f} s with start-up), 's' "
+        f"@{IMG_SIZE} nc={AF_NC} float32 TF32 off, {DP_BATCH} images a rank, "
+        f"vs one process on the {DP_WORLD * DP_BATCH}: loss "
+        f"{loss:.6f} vs {m['loss'].item():.6f} ({rel_loss:.2e} relative, tol "
+        f"{PARITY_LOSS_TOL}); worst gradient {worst[0]:.2e} of its tensor's "
+        f"max ({worst[1]}; tol {PARITY_GRAD_TOL}); BatchNorm statistics "
+        f"worst {bn_worst:.2e} of the tensor's max, {len(bn) - len(bn_bad)} "
+        f"/ {len(bn)} within rtol {DP_BN_RTOL} + {DP_BN_ATOL} of the max; "
+        f"state tensors differing between the ranks: {len(across)}; K2 "
+        f"launches a rank {[r['k2'] for r in ranks]} (want {gated}); "
+        f"--val-det on {DP_VAL} images: ranks' (tp, fp, fn) "
+        f"{[r['counts'] for r in ranks]} vs one process {counts}, K1 "
+        f"launches a rank {[r['k1'] for r in ranks]}")
+    if (rel_loss > PARITY_LOSS_TOL or worst[0] > PARITY_GRAD_TOL or bn_bad
+            or across):
+        raise AssertionError("two ranks differ from one process")
+    if any(r["k2"] != gated for r in ranks) or any(r["k1"] < 1
+                                                   for r in ranks):
+        raise AssertionError("phase 21 (c): kernel launches")
+    if any(tuple(r["counts"]) != tuple(counts) for r in ranks) or \
+            sum(counts) == 0:
+        raise AssertionError("phase 21 (c): sharded --val-det counts differ "
+                             "from one process's")
+    return (sum(r["k1"] for r in ranks), sum(r["k2"] for r in ranks))
+
+
 def main():
     t_main = time.perf_counter()
 
@@ -3763,6 +4046,15 @@ def main():
             f"call of each artifact (profiler) {artifact_counts}")
         done(20)
 
+        # 21. data parallelism: a world of one over NCCL through the CLI
+        # bit for bit, two gloo ranks on the card against one process
+        dp1 = phase_dp_world1(dev, Path(tmp), af_yaml)
+        dp2 = phase_dp_two_ranks(dev, Path(tmp), af_yaml)
+        log(f"data-parallel paths' kernel launches: NMS {dp1[0]} (world 1, "
+            f"--val-det) + {dp2[0]} (two ranks, --val-det); conv backward "
+            f"{dp1[1]} (world 1) + {dp2[1]} (two ranks, one step each)")
+        done(21)
+
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
         "route": "cuda",
@@ -3793,6 +4085,7 @@ def main():
         "int8_launches": sum(c[2] for c in int8_counts.values()),
         "artifact_launches": sum(c["mask"] for c in
                                  artifact_counts.values()),
+        "dp_launches": dp1[0] + dp2[0],
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
@@ -3813,6 +4106,7 @@ def main():
         "multiscale_launches": [ms_k2[s] for s in ms_sizes],
         "accum_launches": accum_k2,
         "recipe_graph_launches": recipe_k2,
+        "dp_launches": dp1[1] + dp2[1],
     }, *({
         "name": name,
         "route": "cuda",

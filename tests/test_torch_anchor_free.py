@@ -392,7 +392,8 @@ def test_dataset_loader_and_queue_carry_af_targets(cfg_af,
     to the JAX dataset's; the loader and DeviceQueue stack (B, gs, gs,
     5+nc) maps as they stack the anchor head's (B, gs, gs, 3, 5+nc)."""
     img_dir = str(temp_dataset_multiclass / "train" / "images")
-    port = YoloDataset(img_dir, NC, img_size=IMG, head_type="anchor_free")
+    port = YoloDataset(img_dir, NC, img_size=IMG, backend="pil",
+                       head_type="anchor_free")
     jds = JaxDataset(img_dir, NC, img_size=IMG, backend="pil",
                      head_type="anchor_free")
     got, want = port.load_batch([0, 1, 2]), jds.load_batch([0, 1, 2])

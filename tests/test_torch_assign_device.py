@@ -199,7 +199,7 @@ def test_load_batch_compact_and_loader_match_jax(crowded_dir):
     DeviceQueue carry (uint8 images, [labels, counts]) over two shuffled
     epochs like JAX's loader, and the device assignment of the batch
     equals the dense batch's targets."""
-    port = YoloDataset(crowded_dir, 3, img_size=64)
+    port = YoloDataset(crowded_dir, 3, img_size=64, backend="pil")
     jds = JaxDataset(crowded_dir, 3, img_size=64, backend="pil")
     err = io.StringIO()
     with contextlib.redirect_stderr(err):

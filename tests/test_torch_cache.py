@@ -23,7 +23,7 @@ IMG, K = 64, 8
 
 def _datasets(split_dir):
     images = str(split_dir / "images")
-    return (YoloDataset(images, 3, img_size=IMG),
+    return (YoloDataset(images, 3, img_size=IMG, backend="pil"),
             JaxDataset(images, 3, img_size=IMG, backend="pil"))
 
 

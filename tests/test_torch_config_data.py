@@ -5,7 +5,9 @@
 imports nothing of the JAX package; these tests hold them to the JAX
 originals. Everything here is exact on both sides (numpy and PIL on the
 same inputs), so every comparison is bit for bit. The native JPEG loader
-and compact targets are not ported and must say so.
+and compact targets are ported: `backend="native"` is accepted, and
+`auto` resolves as the JAX package's does (`tests/test_torch_native.py`
+holds the native path to the JAX package's).
 """
 
 import dataclasses
@@ -151,11 +153,14 @@ def test_loader_batches_bit_equal(cfg, temp_dataset_dir, shuffle, prefetch,
 
 
 def test_unported_paths_raise(cfg, temp_dataset_dir):
+    """Once 'not ported' assertions, now the ported behaviour: the native
+    backend is accepted, `auto` resolves as the JAX package's, compact
+    targets load, and only an unknown backend raises."""
     split = str(temp_dataset_dir / "train" / "images")
-    with pytest.raises(NotImplementedError, match="native JPEG loader"):
-        port_dataset.YoloDataset(split, backend="native")
+    assert port_dataset.YoloDataset(split, backend="native").backend == \
+        "native"
     ds = port_dataset.YoloDataset(split, backend="auto")
-    assert ds.backend == "pil"
+    assert ds.backend == jax_dataset.YoloDataset(split).backend
     # compact targets are ported: (uint8 images, labels, counts)
     images, labels, counts = ds.load_batch_compact([0, 1])
     assert images.dtype == np.uint8 and labels.shape == (2, 64, 5)

@@ -193,14 +193,16 @@ def test_cli_trains_evaluates_and_jax_reads_the_checkpoint(
 
 # --ema, --resume, --multi-scale and --augment are ported
 # (tests/test_torch_cli_recipe.py), as are --int8 and --export*
-# (tests/test_torch_export.py); these are not yet
-@pytest.mark.parametrize("args", [["--distributed"], ["--spatial", "2"],
-                                  ["--coordinator", "localhost:1234"],
+# (tests/test_torch_export.py) and --data-parallel, --distributed,
+# --coordinator, --num-processes and --process-id
+# (tests/test_torch_parallel.py); these are not yet
+@pytest.mark.parametrize("args", [["--packed-stem"], ["--spatial", "2"],
+                                  ["--spatial", "4", "--data-parallel"],
                                   ["--packed", "p3"],
                                   ["--model-parallel", "2"],
-                                  ["--num-processes", "2"],
-                                  ["--process-id", "0"],
-                                  ["--data-parallel"]])
+                                  ["--packed-interior"],
+                                  ["--packed-p3"],
+                                  ["--model-parallel", "4", "--distributed"]])
 def test_cli_unported_flags_exit_2(args, capsys):
     assert cli.main(["data.yaml", *args]) == 2
     assert args[0] in capsys.readouterr().out

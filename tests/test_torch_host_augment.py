@@ -78,7 +78,7 @@ def _datasets(root, head, seed):
     anchors = np.asarray(jax_dataset.YoloDataset(images).anchors)
     kw = dict(num_classes=1, anchors=anchors, img_size=64, head_type=head,
               augment=True, seed=seed)
-    return (port_dataset.YoloDataset(images, **kw),
+    return (port_dataset.YoloDataset(images, backend="pil", **kw),
             jax_dataset.YoloDataset(images, backend="pil", **kw))
 
 

@@ -275,12 +275,12 @@ def test_cli_inspect_and_unported_modes(jax_checkpoint, cfg):
     n = sum(p.numel() for p in YOLO(cfg, device="meta").parameters())
     assert f"Total parameters: {n:,}" in result.stdout
     assert "Model architecture:" in result.stdout
-    # training, evaluation and --compute-anchors are ported
-    # (tests/test_torch_eval.py, tests/test_torch_anchors.py); data-parallel
-    # training is not yet
-    result = _run_port_cli(["data.yaml", "--data-parallel"])
+    # training, evaluation, --compute-anchors and data-parallel training
+    # are ported (tests/test_torch_eval.py, tests/test_torch_anchors.py,
+    # tests/test_torch_parallel.py); spatial partitioning is not yet
+    result = _run_port_cli(["data.yaml", "--spatial", "2"])
     assert result.returncode == 2
-    assert "--data-parallel is not ported yet" in result.stdout
+    assert "--spatial is not ported yet" in result.stdout
 
 
 def test_train_torch_script_and_device_letterbox_inference(

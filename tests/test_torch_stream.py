@@ -65,7 +65,7 @@ def caches(temp_dataset_dir, tmp_path_factory):
     tests/test_torch_cache.py)."""
     images = str(temp_dataset_dir / "train" / "images")
     root = tmp_path_factory.mktemp("stream_caches")
-    port = build_cache(YoloDataset(images, 1, img_size=IMG),
+    port = build_cache(YoloDataset(images, 1, img_size=IMG, backend="pil"),
                        str(root / "port"), capacity=K, log=None)
     jax_cache = jax_build_cache(
         JaxDataset(images, 1, img_size=IMG, backend="pil"),

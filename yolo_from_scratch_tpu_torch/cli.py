@@ -37,8 +37,16 @@ quantize.py`) for inference (calibrated on the image) and `--map`
 (calibrated on 16 train-split images); `--export OUT.yexp` freezes the
 batched serving program with its weights (`infer/export.py`, one platform:
 `--export-platforms cuda` or `cpu`, by default `--device`'s), and a
-`.yexp` alone is inspected, beside an image served. A JAX-CLI flag the
-port does not have yet exits with status 2 and names the flag, as does
+`.yexp` alone is inspected, beside an image served.
+`--data-parallel` trains over the processes of a `torch.distributed`
+group (`parallel/`): `--distributed` connects this process first, through
+`--coordinator HOST:PORT --num-processes N --process-id I` or torchrun's
+environment (`nccl` on the card, `gloo` on the CPU); `--batch-size` is
+then per process, and each step is the JAX package's data-parallel step
+over the global batch. Without a process group `--data-parallel` is a
+world of one. A JAX-CLI flag the port does not have yet (`--spatial`,
+`--model-parallel`, `--packed*`), and a composition not ported at a world
+of more than one process, exits with status 2 and names the flag, as does
 any other mode.
 """
 
@@ -57,14 +65,17 @@ YAML_EXTS = (".yaml", ".yml")
 ART_EXTS = (".yexp",)  # frozen serving artifacts (infer/export.py)
 
 # JAX-CLI flags with no port yet
-UNPORTED_FLAGS = (
-    "--data-parallel", "--spatial", "--model-parallel", "--distributed",
-    "--coordinator", "--num-processes", "--process-id",
-)
+UNPORTED_FLAGS = ("--spatial", "--model-parallel")
 UNPORTED_PREFIXES = ("--packed",)
 # unported JAX-CLI flags that --stream refuses (exit 1, before "not
-# ported"); _train refuses the ported --augment, --ema and --multi-scale
-STREAM_EXCLUSIVE = ("--distributed", "--spatial", "--model-parallel")
+# ported"); _train refuses the ported --augment, --ema, --multi-scale and
+# --distributed
+STREAM_EXCLUSIVE = ("--spatial", "--model-parallel")
+# flags whose composition with a world of more than one process is not
+# ported yet (exit 2): the device mosaic gathers partners from other
+# ranks' images, --stream's CUDA graphs would hold collectives, and the
+# multi-scale buckets are untried across ranks
+WORLD_UNPORTED = ("device_mosaic", "stream", "stream_pool", "multi_scale")
 # --multi-scale's resolution factors, each rounded to a multiple of 32
 MULTI_SCALE_FACTORS = (0.75, 1.0, 1.25)
 # --ema's decay (fit's default, as the JAX CLI leaves it)
@@ -175,6 +186,24 @@ def build_parser():
                              "mosaic (p=0.5), hflip (p=0.5) and "
                              "brightness/contrast jitter (the reference "
                              "has none)")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="Shard batches over the processes of the "
+                             "torch.distributed group (one process a "
+                             "rank; without a group a world of one)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="Multi-process training: connect this process "
+                             "via torch.distributed before building the "
+                             "mesh (torchrun's environment when nothing "
+                             "else is given; otherwise give --coordinator/"
+                             "--num-processes/--process-id). --batch-size "
+                             "is PER PROCESS; implies --data-parallel")
+    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="With --distributed outside torchrun: the "
+                             "coordinator address")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="With --distributed: total process count")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="With --distributed: this process's id")
     parser.add_argument("--weight-decay", type=float, default=0.0,
                         metavar="W",
                         help="AdamW decoupled weight decay (default 0 = "
@@ -392,7 +421,7 @@ def _compute_anchors(args, yaml_file):
 
 
 def _loader(config, split, cfg, batch_size, shuffle=False, seed=0,
-            compact=0, augment=False):
+            compact=0, augment=False, process_shard=None, pad_shard=True):
     from yolo_from_scratch_tpu_torch.data import DataLoader, YoloDataset
 
     return DataLoader(YoloDataset(config[split], cfg.num_classes,
@@ -400,7 +429,8 @@ def _loader(config, split, cfg, batch_size, shuffle=False, seed=0,
                                   head_type=cfg.head_type, augment=augment,
                                   seed=seed),
                       batch_size=batch_size, shuffle=shuffle, seed=seed,
-                      compact=compact)
+                      compact=compact, process_shard=process_shard,
+                      pad_shard=pad_shard)
 
 
 def multi_scale_sizes(img_size):
@@ -474,12 +504,19 @@ def _print_map(predictor, dataset, cfg, config):
             print(f"    {label}: {ap * 100:.2f}%")
 
 
-def _det_eval(cfg, model, dataset, device):
+def _det_eval(cfg, model, dataset, device, mesh=None):
     """fit()'s `det_eval`: one BatchPredictor at conf 0.5 with a model of
     its own, into which each epoch copies the live float32 master weights
     (the predictor casts its convs to the compute dtype; the training
-    model's must stay float32)."""
+    model's must stay float32). With a `mesh` of several processes each
+    rank scores its unpadded strided slice of the split, idx[rank::size],
+    and the counts are summed over the ranks: they equal one process's
+    (the JAX CLI wrap-pads the slices and counts up to size - 1 images
+    twice)."""
     from yolo_from_scratch_tpu_torch.infer.predict import BatchPredictor
+    from yolo_from_scratch_tpu_torch.parallel.distributed import (
+        global_eval_reduce,
+    )
     from yolo_from_scratch_tpu_torch.train.map_eval import (
         evaluate_det_counts,
     )
@@ -487,15 +524,23 @@ def _det_eval(cfg, model, dataset, device):
 
     predictor = BatchPredictor(model.state_dict(), cfg, conf_threshold=0.5,
                                device=device)
+    sharded = mesh is not None and mesh.size > 1
+    indices = (list(range(len(dataset)))[mesh.rank::mesh.size] if sharded
+               else None)
 
     def det_eval(live_model):
         predictor.load_weights(live_model.state_dict())
-        return prf1(*evaluate_det_counts(predictor, dataset))
+        counts = ((0, 0, 0) if indices == [] else
+                  evaluate_det_counts(predictor, dataset, indices=indices))
+        if sharded:
+            counts = global_eval_reduce(*counts, 0.0, 0)[:3]
+        return prf1(*counts)
 
     return det_eval
 
 
 def _train(args, config):
+    from yolo_from_scratch_tpu_torch.parallel.mesh import make_mesh
     from yolo_from_scratch_tpu_torch.train.loop import (
         fit,
         restore_train_state,
@@ -509,6 +554,21 @@ def _train(args, config):
     )
 
     device = _device(args.device)
+    mesh = None
+    if args.data_parallel:
+        mesh = make_mesh(device)
+        device = mesh.device
+        print(f"Data-parallel mesh over {mesh.size} process(es)"
+              + ("" if mesh.group is not None else
+                 " (no process group: a world of one)"))
+        if mesh.size > 1:
+            for name in WORLD_UNPORTED:
+                if getattr(args, name):
+                    flag = "--" + name.replace("_", "-")
+                    print(f"ERROR: {flag} at a world of {mesh.size} "
+                          f"processes is not ported yet; use `python "
+                          f"train.py` for it")
+                    return 2
     dtype = args.dtype
     if dtype == "auto":
         dtype = "bfloat16" if device.type == "cuda" else "float32"
@@ -536,12 +596,18 @@ def _train(args, config):
                                    compute_dtype=dtype, head_type=args.head)
     if args.stream:
         for flag, bad in (("--augment", args.augment), ("--ema", args.ema),
-                          ("--multi-scale", args.multi_scale)):
+                          ("--multi-scale", args.multi_scale),
+                          ("--distributed", args.distributed)):
             if bad:
                 print(f"ERROR: --stream does not compose with {flag}; use "
                       f"--device-augment/--device-mosaic for augmentation "
                       f"on the stream path")
                 return 1
+        if args.stream_pool and mesh is not None:
+            print("ERROR: --stream-pool is single-device (the pool gather "
+                  "does not shard); use --stream with --data-parallel "
+                  "instead")
+            return 1
     elif args.stream_pool or args.cache_dir:
         print("ERROR: --stream-pool/--cache-dir require --stream")
         return 1
@@ -565,15 +631,22 @@ def _train(args, config):
         state = create_train_state(cfg, args.lr, seed=args.seed,
                                    device=device,
                                    weight_decay=args.weight_decay)
+    # several processes: each loads its strided slice of every epoch
+    # permutation (identical shuffle seed on every rank keeps the slices
+    # disjoint); --batch-size is per process. The val slices are not
+    # padded: evaluation runs no collective a batch
+    shard = ((mesh.rank, mesh.size) if mesh is not None and mesh.size > 1
+             else None)
     # both heads build their eval targets on the device from compact
     # labels (anchor: data/assign_device.py; anchor-free:
     # models/anchor_free.py::assign_targets_anchor_free_device_batch)
     train_loader = _loader(config, "train", cfg, args.batch_size,
                            shuffle=True, seed=args.seed,
                            compact=args.compact_targets,
-                           augment=args.augment)
+                           augment=args.augment, process_shard=shard)
     val_loader = _loader(config, "val", cfg, args.batch_size,
-                         compact=args.compact_targets)
+                         compact=args.compact_targets, process_shard=shard,
+                         pad_shard=False)
     if len(train_loader.dataset) == 0:
         print(f"ERROR: no images found in {config['train']} "
               f"(expected *.jpg / *.jpeg / *.png)")
@@ -588,15 +661,15 @@ def _train(args, config):
     print(f"  Minimum LR: {args.min_lr}")
     print(f"  Warmup epochs: {args.warmup_epochs}")
     print(f"  Total epochs: {args.epochs}")
-    det_eval = (_det_eval(cfg, state.model, val_loader.dataset, device)
-                if args.val_det else None)
+    det_eval = (_det_eval(cfg, state.model, val_loader.dataset, device,
+                          mesh) if args.val_det else None)
     step_kw = dict(device_augment=args.device_augment,
                    augment_seed=args.seed,
                    compact_targets=bool(args.compact_targets),
                    device_mosaic=args.device_mosaic,
                    sparse_loss=args.sparse_loss)
     train_step = make_train_step(cfg, args.reference_quirks, device,
-                                 **step_kw)
+                                 mesh=mesh, **step_kw)
     eval_step = make_eval_step(cfg, quirk_640=args.reference_quirks,
                                device=device,
                                compact_targets=bool(args.compact_targets))
@@ -659,7 +732,7 @@ def _train(args, config):
         warmup_epochs=args.warmup_epochs, metrics_path=args.metrics_jsonl,
         det_eval=det_eval, stream=stream, start_epoch=start_epoch,
         save_path=save_path, use_ema=args.ema, ema_decay=EMA_DECAY,
-        initial_ema=resume_ema, multi_scale=multi_scale)
+        initial_ema=resume_ema, multi_scale=multi_scale, mesh=mesh)
     print(f"\nTraining complete. Model saved to {save_path}")
     return 0
 
@@ -677,6 +750,32 @@ def main(argv=None):
               f"for it")
         return 2
     args = build_parser().parse_args(argv)
+    if not args.distributed:
+        return _run(args)
+    # before any mode: afterwards the group spans every process
+    from yolo_from_scratch_tpu_torch.parallel.distributed import (
+        init_distributed,
+        shutdown,
+    )
+
+    try:
+        pi, pc = init_distributed(args.coordinator, args.num_processes,
+                                  args.process_id, device=args.device)
+    except ValueError as e:
+        print(f"ERROR: {e}")
+        return 1
+    import torch.distributed as dist
+
+    print(f"Distributed: process {pi}/{pc}, backend {dist.get_backend()}")
+    args.data_parallel = True
+    try:
+        return _run(args)
+    finally:
+        shutdown()
+
+
+def _run(args):
+    """main() after the flags are parsed (and the process group made)."""
     if args.img_size % 32 != 0:
         print(f"ERROR: --img-size must be divisible by 32, got "
               f"{args.img_size}")

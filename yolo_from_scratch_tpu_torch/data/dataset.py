@@ -27,8 +27,13 @@ seed. The JAX mosaic resizes its quadrants with OpenCV's
 `resize_linear` computes the same half-pixel, non-antialiased bilinear in
 numpy float32 (the images agree within 1e-6).
 
-Not ported yet, and an error that names it when asked for: the native
-C++ JPEG loader (`backend="native"`, `yolo_from_scratch_tpu/native/`).
+`backend="native"` decodes and letterboxes a batch with the port's
+C++ libjpeg/libpng loader (`yolo_from_scratch_tpu_torch/native/`), in
+`load_batch` and `load_batch_compact`; `backend="auto"` takes it whenever
+it builds, else PIL, as the JAX package resolves it. Its triangle filter
+differs from PIL's by less than one 8-bit step when it resizes; it is held
+bit for bit to the JAX package's native library
+(`tests/test_torch_native.py`).
 """
 
 from __future__ import annotations
@@ -49,11 +54,6 @@ from yolo_from_scratch_tpu_torch.data.letterbox import (
     adjust_boxes_for_letterbox,
     letterbox_image,
 )
-
-NATIVE_NOT_PORTED = ("the native JPEG loader (backend='native', "
-                     "yolo_from_scratch_tpu/native) is not ported yet; use "
-                     "backend='pil'")
-
 
 def parse_label_file(path) -> np.ndarray:
     """Parse a YOLO label txt -> (N, 5) array [class, cx, cy, w, h].
@@ -236,10 +236,16 @@ def augment_image_and_boxes(img, boxes, rng):
 
 
 class YoloDataset:
-    """Filesystem YOLO dataset: images dir + sibling labels dir, decoded
-    with PIL (`backend` 'pil', or 'auto', which is 'pil' here since the
-    native loader is not ported). `head_type` picks the target assignment
-    ('anchor' or 'anchor_free').
+    """Filesystem YOLO dataset: images dir + sibling labels dir.
+
+    `backend`: 'pil' (reference-parity PIL decode), 'native' (the C++
+    libjpeg/libpng loader of `yolo_from_scratch_tpu_torch/native`,
+    threaded batch decode + letterbox; a failed build raises with the
+    compiler's stderr at the first batch), or 'auto' (native when it
+    builds, else PIL). The native bilinear filter differs from PIL's by
+    less than 1 LSB on typical photos when resizing; use 'pil' for
+    bit-parity runs. `head_type` picks the target assignment ('anchor' or
+    'anchor_free').
 
     `augment`: the 4-image mosaic (p=0.5, dataset of 4 or more), hflip and
     colour jitter at load time, drawn from `np.random.default_rng(seed)`
@@ -247,9 +253,7 @@ class YoloDataset:
 
     def __init__(self, img_dir, num_classes=1, anchors=None, img_size=640,
                  backend="auto", head_type="anchor", augment=False, seed=0):
-        if backend == "native":
-            raise NotImplementedError(NATIVE_NOT_PORTED)
-        if backend not in ("auto", "pil"):
+        if backend not in ("auto", "pil", "native"):
             raise ValueError(f"unknown backend {backend!r}")
         # the reference globs only *.jpg + *.png (train.py:62); we also
         # accept .jpeg and uppercase variants (the CLI always accepted
@@ -268,7 +272,11 @@ class YoloDataset:
         self.grid_sizes = [img_size // s for s in STRIDES]
         self.num_anchors_per_scale = NUM_ANCHORS_PER_SCALE
         self.output_dim = 5 + num_classes
-        self.backend = "pil"
+        if backend == "auto":
+            from yolo_from_scratch_tpu_torch import native
+
+            backend = "native" if native.available() else "pil"
+        self.backend = backend
         self.head_type = head_type
         self.augment = augment
         self._aug_rng = np.random.default_rng(seed)
@@ -321,7 +329,37 @@ class YoloDataset:
             img, boxes = augment_image_and_boxes(img, boxes, self._aug_rng)
         return img, self._assign(boxes, classes)
 
-    def load_batch_compact(self, indices, capacity=64, image_dtype="uint8"):
+    def _boxes_for(self, idx, scale, pad_top, pad_left):
+        """Letterboxed boxes + class ids for image idx given its letterbox
+        geometry. A failed decode (scale == 0) yields no boxes."""
+        if scale <= 0:
+            return np.zeros((0, 4), np.float32), np.zeros(0, np.int64)
+        rows = parse_label_file(self.labels[idx])
+        from PIL import Image  # geometry needs original dims; read header only
+
+        with Image.open(self.imgs[idx]) as im:
+            orig_w, orig_h = im.size
+        boxes = adjust_boxes_for_letterbox(
+            rows[:, 1:5], orig_w, orig_h, scale, pad_top, pad_left,
+            self.img_size,
+        )
+        return boxes, rows[:, 0].astype(np.int64)
+
+    def _native_batch(self, indices, n_threads):
+        """The native loader's (images (B, S, S, 3) float32, [(boxes,
+        class ids)]) for `indices`."""
+        from yolo_from_scratch_tpu_torch import native
+
+        images, scales, pad_tops, pad_lefts, _ = native.decode_letterbox_batch(
+            [self.imgs[i] for i in indices], self.img_size,
+            n_threads=n_threads)
+        return images, [
+            self._boxes_for(i, float(scales[k]), int(pad_tops[k]),
+                            int(pad_lefts[k]))
+            for k, i in enumerate(indices)]
+
+    def load_batch_compact(self, indices, capacity=64, image_dtype="uint8",
+                           n_threads=4):
         """The compact path's batch (`data/assign_device.py`): images and
         padded raw labels, no dense maps (the step builds them on the
         device).
@@ -330,27 +368,39 @@ class YoloDataset:
         INV255) for `image_dtype` "float32", labels (B, K, 5) f32 [class,
         cx, cy, w, h], counts (B,) int32). An image with more than K =
         `capacity` boxes keeps its first K (file order), with one warning
-        on stderr for the dataset.
+        on stderr for the dataset. The native backend decodes the batch on
+        `n_threads` threads and rounds its float32 pixels to uint8 as the
+        JAX package does, `clip(round(x * 255), 0, 255)`; PIL's uint8
+        pixels become float32 as `x * INV255`.
         """
-        from PIL import Image
-
         from yolo_from_scratch_tpu_torch.data.assign_device import pack_labels
 
-        imgs_u8, boxes_list, class_list = [], [], []
-        for i in (int(i) for i in indices):
-            pil = Image.open(self.imgs[i]).convert("RGB")
-            orig_w, orig_h = pil.size
-            img_u8, scale, pad_top, pad_left = letterbox_image(
-                pil, self.img_size)
-            imgs_u8.append(img_u8)
-            rows = parse_label_file(self.labels[i])
-            boxes_list.append(adjust_boxes_for_letterbox(
-                rows[:, 1:5], orig_w, orig_h, scale, pad_top, pad_left,
-                self.img_size))
-            class_list.append(rows[:, 0].astype(np.int64))
-        images = np.stack(imgs_u8)
-        if image_dtype != "uint8":
-            images = images.astype(np.float32) * INV255
+        indices = [int(i) for i in indices]
+        if self.backend == "native":
+            images, boxed = self._native_batch(indices, n_threads)
+            boxes_list = [b for b, _ in boxed]
+            class_list = [c for _, c in boxed]
+            if image_dtype == "uint8":
+                images = np.clip(np.round(images * 255.0), 0, 255).astype(
+                    np.uint8)
+        else:
+            from PIL import Image
+
+            imgs_u8, boxes_list, class_list = [], [], []
+            for i in indices:
+                pil = Image.open(self.imgs[i]).convert("RGB")
+                orig_w, orig_h = pil.size
+                img_u8, scale, pad_top, pad_left = letterbox_image(
+                    pil, self.img_size)
+                imgs_u8.append(img_u8)
+                rows = parse_label_file(self.labels[i])
+                boxes_list.append(adjust_boxes_for_letterbox(
+                    rows[:, 1:5], orig_w, orig_h, scale, pad_top, pad_left,
+                    self.img_size))
+                class_list.append(rows[:, 0].astype(np.int64))
+            images = np.stack(imgs_u8)
+            if image_dtype != "uint8":
+                images = images.astype(np.float32) * INV255
         over = max((len(b) for b in boxes_list), default=0)
         if over > capacity and not self._warned_capacity:
             print(f"WARNING: image with {over} boxes exceeds the "
@@ -361,12 +411,19 @@ class YoloDataset:
         labels, counts = pack_labels(boxes_list, class_list, capacity)
         return images, labels, counts
 
-    def load_batch(self, indices):
-        """(images (B,S,S,3) f32, [t_p3,t_p4,t_p5]) for `indices`, item by
-        item through PIL (with `augment`, each item's mosaic and jitter in
-        index order)."""
-        imgs, tgts = zip(*(self[int(i)] for i in indices))
-        images = np.stack(imgs).astype(np.float32)
+    def load_batch(self, indices, n_threads=4):
+        """(images (B,S,S,3) f32, [t_p3,t_p4,t_p5]) for `indices`: the
+        native loader's threaded batch decode when the backend is native,
+        else item by item through PIL. Augmented loading (the mosaic needs
+        sibling samples) always goes item by item, each item's mosaic and
+        jitter in index order."""
+        indices = [int(i) for i in indices]
+        if self.backend == "native" and not self.augment:
+            images, boxed = self._native_batch(indices, n_threads)
+            tgts = [self._assign(b, c) for b, c in boxed]
+        else:
+            imgs, tgts = zip(*(self[i] for i in indices))
+            images = np.stack(imgs).astype(np.float32)
         targets = [
             np.stack([t[s] for t in tgts]).astype(np.float32)
             for s in range(3)

@@ -1,10 +1,14 @@
 """Batched data loader with background prefetch: the port's copy of
-`yolo_from_scratch_tpu/data/loader.py` (`DataLoader`), single-process.
+`yolo_from_scratch_tpu/data/loader.py` (`shard_indices`, `DataLoader`),
+held bit-equal to it (`tests/test_torch_parallel.py`).
 
 A background thread prepares the next batch (decode, letterbox, dense
-target assignment or compact labels, stacking) while the card runs the
-current step. Batches are numpy; `data/device_queue.py` moves them to the
-device.
+target assignment or compact labels, stacking; the dataset's batch fast
+path, the native loader's threaded decode when its backend is native)
+while the card runs the current step. Batches are numpy;
+`data/device_queue.py` moves them to the device. With `process_shard`
+each process of a data-parallel run loads its strided slice of every
+epoch permutation (`parallel/distributed.py`).
 """
 
 from __future__ import annotations
@@ -13,6 +17,24 @@ import queue
 import threading
 
 import numpy as np
+
+
+def shard_indices(idx: np.ndarray, process_index: int,
+                  process_count: int) -> np.ndarray:
+    """This process's strided slice of an epoch permutation, padded (by
+    wrapping) so EVERY process gets exactly ceil(n / pc) items.
+
+    Strided (not contiguous) so that with a shuffle seed shared across
+    processes every process permutes identically and the shards stay
+    disjoint. The wrap-pad matters in a data-parallel run: every process
+    must issue the same number of identically-shaped steps or the
+    gradient collectives deadlock; a bare [pi::pc] slice gives shards
+    whose sizes differ by one when pc does not divide n."""
+    n, pc = len(idx), process_count
+    per = -(-n // pc)  # ceil
+    if n % pc:
+        idx = np.resize(idx, pc * per)  # cyclic tile
+    return idx[process_index::pc]
 
 
 class DataLoader:
@@ -25,24 +47,53 @@ class DataLoader:
     on-device assignment path (~1.3 KB of labels an image at K=64 instead
     of the dense maps). The final partial batch is kept (reference
     DataLoader default drop_last=False).
+
+    `process_shard` = (process_index, process_count): this loader yields
+    only the strided slice [pi::pc] of each (identically seeded, hence
+    identically shuffled) epoch permutation, so `batch_size` is the
+    per-process batch; the slice is wrap-padded to equal sizes and
+    cyclically tiled to a full last batch, so that every process takes
+    the same number of equal steps. `pad_shard=False` keeps the bare
+    slice instead (evaluation, where no collective runs a batch and a
+    padded image would be counted twice).
     """
 
     def __init__(self, dataset, batch_size=8, shuffle=False, seed=0,
-                 prefetch=2, compact=0):
+                 prefetch=2, compact=0, process_shard=None, pad_shard=True):
         self.compact = compact
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.prefetch = prefetch
+        self.process_shard = process_shard
+        self.pad_shard = pad_shard
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self._epoch_indices(shuffled=False))
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _epoch_indices(self, shuffled=True):
+        idx = np.arange(len(self.dataset))
+        if self.shuffle and shuffled:
+            self._rng.shuffle(idx)
+        if self.process_shard is not None:
+            pi, pc = self.process_shard
+            if not self.pad_shard:
+                return idx[pi::pc]
+            # equal shard sizes AND a full final batch on every process:
+            # data-parallel steps are collective, so all processes must
+            # yield the same number of identically-sized batches
+            idx = shard_indices(idx, pi, pc)
+            if len(idx) % self.batch_size:
+                # np.resize tiles cyclically: handles shards smaller than
+                # a single batch too
+                idx = np.resize(
+                    idx, -(-len(idx) // self.batch_size) * self.batch_size)
+        return idx
 
     def _batch_indices(self):
-        idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            self._rng.shuffle(idx)
+        idx = self._epoch_indices()
         for i in range(0, len(idx), self.batch_size):
             yield idx[i : i + self.batch_size]
 

@@ -49,6 +49,11 @@ from yolo_from_scratch_tpu_torch.models.blocks import (
     uniform_fan_in_,
 )
 from yolo_from_scratch_tpu_torch.ops.ciou import ciou
+from yolo_from_scratch_tpu_torch.parallel.mesh import (
+    global_count,
+    global_max,
+    global_sum,
+)
 
 REG_MAX = 16      # DFL bins per edge distance (v8 default)
 MAX_GT = 32       # padded GT slots per image in the TAL loss
@@ -366,34 +371,47 @@ def _tal_assign(pred_scores, pred_xyxy, anchor_pts, gt_boxes, gt_cls,
     out = {"fg": fg, "target_boxes": target_boxes,
            "target_scores": target_scores}
     if with_stats:
-        n_gt = gt_valid.sum().clamp(min=1.0)
-        n_img = float(gt_valid.shape[0])
+        # inside parallel/mesh.py::data_parallel the global batch's: the
+        # sums and counts over the ranks in one all-reduce, the maxima by
+        # another; the p99 stays this rank's
         per_gt_in = in_gt.sum(dim=2)
         per_gt_sel = cand.to(align.dtype).sum(dim=2)
         per_gt_asn = assigned.sum(dim=1)                  # (B, M)
         starved = (gt_valid > 0) & (per_gt_asn < 0.5)
         max_iou_gt = (iou * in_gt).amax(dim=2)            # (B, M)
-        n_fg = fg.sum().clamp(min=1.0)
+        (gt_sum, fg_sum, in_sum, sel_sum, asn_sum, starved_sum, iou_sum,
+         align_sum, score_sum, cls_fg_sum) = global_sum(torch.stack([
+             gt_valid.sum(), fg.sum(), (per_gt_in * gt_valid).sum(),
+             (per_gt_sel * gt_valid).sum(), (per_gt_asn * gt_valid).sum(),
+             starved.to(dtype).sum(), (max_iou_gt * gt_valid).sum(),
+             best_val.sum(), target_scores.sum(),
+             # sigmoid score of the assigned class at fg cells against the
+             # background ceiling
+             torch.einsum("bac,bac->ba", pred_scores,
+                          target_cls_onehot).sum()])).unbind()
+        align_max, tgt_score_max, cls_max = global_max(torch.stack([
+            best_val.max(), target_scores.max(), pred_scores.max()
+        ])).unbind()
+        n_gt = gt_sum.clamp(min=1.0)
+        n_img = float(global_count(gt_valid.shape[0]))
+        n_fg = fg_sum.clamp(min=1.0)
         out["stats"] = {
-            "fg_per_img": fg.sum() / n_img,
-            "gt_per_img": gt_valid.sum() / n_img,
-            "cand_in_per_gt": (per_gt_in * gt_valid).sum() / n_gt,
-            "cand_sel_per_gt": (per_gt_sel * gt_valid).sum() / n_gt,
-            "assigned_per_gt": (per_gt_asn * gt_valid).sum() / n_gt,
-            "starved_gt_frac": starved.sum() / n_gt,
-            "gt_best_iou": (max_iou_gt * gt_valid).sum() / n_gt,
-            "align_fg_mean": best_val.sum() / n_fg,
-            "align_max": best_val.max(),
-            "tgt_score_sum": target_scores.sum(),
-            "tgt_score_max": target_scores.max(),
-            # sigmoid score of the assigned class at fg cells against the
-            # background ceiling
-            "cls_fg_mean": torch.einsum("bac,bac->ba", pred_scores,
-                                        target_cls_onehot).sum() / n_fg,
+            "fg_per_img": fg_sum / n_img,
+            "gt_per_img": gt_sum / n_img,
+            "cand_in_per_gt": in_sum / n_gt,
+            "cand_sel_per_gt": sel_sum / n_gt,
+            "assigned_per_gt": asn_sum / n_gt,
+            "starved_gt_frac": starved_sum / n_gt,
+            "gt_best_iou": iou_sum / n_gt,
+            "align_fg_mean": align_sum / n_fg,
+            "align_max": align_max,
+            "tgt_score_sum": score_sum,
+            "tgt_score_max": tgt_score_max,
+            "cls_fg_mean": cls_fg_sum / n_fg,
             # jnp.percentile's default is the linear interpolation
             "cls_bg_p99": torch.quantile(
                 (pred_scores.amax(dim=-1) * (1.0 - fg)).flatten(), 0.99),
-            "cls_max": pred_scores.max(),
+            "cls_max": cls_max,
         }
     return out
 
@@ -487,7 +505,8 @@ def yolo_loss_anchor_free_from_gt(predictions, gt_boxes, gt_cls, gt_valid,
                          gt_valid, topk=topk, alpha=alpha, beta=beta)
     fg = asn["fg"]
     target_scores = asn["target_scores"]
-    score_sum = target_scores.sum().clamp(min=1.0)
+    # the global batch's inside parallel/mesh.py::data_parallel
+    score_sum = global_sum(target_scores.sum()).clamp(min=1.0)
 
     # classification: BCE against the soft targets over every cell.
     # binary_cross_entropy_with_logits is optax's sigmoid_binary_cross_

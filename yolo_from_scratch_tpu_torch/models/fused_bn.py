@@ -17,6 +17,16 @@ chain,
 with the SiLU gradient `s * (1 + z * (1 - s))` in the compute dtype. The
 running statistics move with momentum 0.9 towards the BIASED batch
 variance, as flax does; `nn.BatchNorm2d` would use the unbiased one.
+
+Inside `parallel/mesh.py::data_parallel` the statistics are the global
+batch's, as BatchNorm over a batch sharded on the JAX mesh's data axis
+computes them: each rank's per-channel means of x and x^2, times its
+share of the global batch, are summed over the ranks in one all-reduce
+before the variance is formed, and the backward sums the per-channel
+sums behind mean(dz) and mean(dz * xhat) over the ranks (the gradients of
+scale and bias stay this rank's part; the step sums them with the rest).
+The running statistics then move by the global mean and variance, equal
+on every rank. Without an active mesh no collective is issued.
 """
 
 from __future__ import annotations
@@ -25,16 +35,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolo_from_scratch_tpu_torch.parallel.mesh import active_mesh, all_reduce
+
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 _C = (1, -1, 1, 1)  # a per-channel vector against an NCHW tensor
 
 
-def _stats(x):
-    """float32 fast-variance batch statistics per channel of NCHW x."""
+def _stats(x, mesh=None):
+    """float32 fast-variance batch statistics per channel of NCHW x, over
+    `mesh`'s global batch when one is given (equal local batches)."""
     xf = x.float()
     mu = xf.mean(dim=(0, 2, 3))
     mu2 = torch.square(xf).mean(dim=(0, 2, 3))
+    if mesh is not None:
+        # a local mean times the local share, summed: at one rank the
+        # product by 1.0 and the sum of one are exact, so the statistics
+        # stay those of the run without a group bit for bit
+        mu, mu2 = all_reduce(torch.stack([mu, mu2]) * (1.0 / mesh.size),
+                             mesh).unbind()
     return mu, torch.clamp(mu2 - torch.square(mu), min=0.0)
 
 
@@ -47,7 +66,8 @@ def _affine_silu(x, mu, var, scale, bias, eps):
 class _BNSiLUTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        mu, var = _stats(x)
+        ctx.mesh = active_mesh()
+        mu, var = _stats(x, ctx.mesh)
         ctx.save_for_backward(x, mu, var, scale, bias)
         ctx.eps = eps
         ctx.mark_non_differentiable(mu, var)
@@ -64,8 +84,15 @@ class _BNSiLUTrain(torch.autograd.Function):
         m = x.numel() // x.shape[1]
         dbeta = dz.sum(dim=(0, 2, 3))
         dgamma = (dz * xhat).sum(dim=(0, 2, 3))
-        dx = (scale * r).view(_C) * (dz - (dbeta / m).view(_C)
-                                     - xhat * (dgamma / m).view(_C))
+        sum_dz, sum_dzx = dbeta, dgamma
+        if ctx.mesh is not None:
+            # the global means of dz and dz * xhat (the backward's
+            # all-reduces run in the same order on every rank)
+            sum_dz, sum_dzx = all_reduce(torch.stack([dbeta, dgamma]),
+                                         ctx.mesh).unbind()
+            m = m * ctx.mesh.size
+        dx = (scale * r).view(_C) * (dz - (sum_dz / m).view(_C)
+                                     - xhat * (sum_dzx / m).view(_C))
         return dx.to(x.dtype), dgamma, dbeta, None
 
 

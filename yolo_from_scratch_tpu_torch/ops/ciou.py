@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from yolo_from_scratch_tpu_torch.parallel.mesh import global_mean, global_sum
+
 
 def ciou(pred_boxes, target_boxes, eps=1e-7):
     """Elementwise CIoU for center-format boxes. (..., 4) -> (...)."""
@@ -43,9 +45,10 @@ def ciou(pred_boxes, target_boxes, eps=1e-7):
 
 def ciou_loss(pred_boxes, target_boxes, mask=None, eps=1e-7):
     """Mean (1 - CIoU), optionally over a boolean/float mask (sum over the
-    masked cells / max(count, 1))."""
+    masked cells / max(count, 1)); inside `parallel/mesh.py::
+    data_parallel` the global batch's (the global count)."""
     loss = 1.0 - ciou(pred_boxes, target_boxes, eps=eps)
     if mask is None:
-        return loss.mean()
+        return global_mean(loss)
     mask = mask.to(loss.dtype)
-    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (loss * mask).sum() / torch.clamp(global_sum(mask.sum()), min=1.0)

@@ -9,6 +9,11 @@
 
 `quirk_640=True` decodes with the reference's fixed 640 denominator at
 any resolution, as the JAX package's `--reference-quirks` does.
+
+Inside `parallel/mesh.py::data_parallel` the means are the global
+batch's: a masked mean divides by the global count (a detached
+all-reduce), a plain mean is this rank's part of the global one, so the
+ranks' losses sum to the loss of the global batch.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from yolo_from_scratch_tpu_torch.ops.ciou import ciou_loss
 from yolo_from_scratch_tpu_torch.ops.decode import decode_predictions
+from yolo_from_scratch_tpu_torch.parallel.mesh import global_mean, global_sum
 
 BOX_WEIGHT = 0.05
 CLS_WEIGHT = 0.5
@@ -35,9 +41,9 @@ def _bce_mean(logits, labels, mask=None):
     """Mean BCE-with-logits; optional dense mask for a masked mean."""
     bce = sigmoid_bce(logits, labels)
     if mask is None:
-        return bce.mean()
+        return global_mean(bce)
     mask = torch.broadcast_to(mask, bce.shape).to(bce.dtype)
-    return (bce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (bce * mask).sum() / torch.clamp(global_sum(mask.sum()), min=1.0)
 
 
 def yolo_loss(predictions, targets, anchors, num_classes=1, img_size=640):

@@ -18,6 +18,10 @@ labels:
   winners of l / N: one reduction over the objectness channel and a
   gathered correction, no target grid.
 
+Inside `parallel/mesh.py::data_parallel` the winner count, the cell
+count N and the objectness mean are the global batch's, as in
+`ops/losses.py`.
+
 Equal to the dense path up to summation order, with gradients that agree
 (d/dl of the objectness rewrite is (sigmoid(l) - [winner]) / N, the dense
 gradient); pinned by `tests/test_torch_sparse_loss.py`.
@@ -38,6 +42,11 @@ from yolo_from_scratch_tpu_torch.ops.losses import (
     OBJ_SCALE_WEIGHTS,
     sigmoid_bce,
 )
+from yolo_from_scratch_tpu_torch.parallel.mesh import (
+    global_count,
+    global_mean,
+    global_sum,
+)
 
 
 def _scale_loss(pred, gt_boxes, onehot, win, slot, anchors, num_classes,
@@ -48,7 +57,7 @@ def _scale_loss(pred, gt_boxes, onehot, win, slot, anchors, num_classes,
     [cx, cy, w, h]; onehot (B, K, nc); win (B, K) bool; slot (B, K) flat
     (gy*gs + gx)*A + anchor; anchors (A, 2) pixels."""
     b, gs, _, na, d = pred.shape
-    n_cells = float(b * gs * gs * na)
+    n_cells = float(global_count(b * gs * gs * na))
     flat = pred.reshape(b, gs * gs * na, d)
 
     idx = torch.where(win, slot, 0)
@@ -69,7 +78,7 @@ def _scale_loss(pred, gt_boxes, onehot, win, slot, anchors, num_classes,
     pred_boxes = torch.stack([bx, by, bw, bh], dim=-1)
 
     winf = win.to(pred.dtype)
-    count = winf.sum()
+    count = global_sum(winf.sum())
 
     # bbox: masked mean of (1 - CIoU), the dense ciou_loss(mask=obj_mask)
     bbox = (((1.0 - ciou(pred_boxes, gt_boxes)) * winf).sum()
@@ -78,7 +87,7 @@ def _scale_loss(pred, gt_boxes, onehot, win, slot, anchors, num_classes,
     # objectness against the {0, 1} winner grid, via BCE(l, 1) = BCE(l, 0)
     # - l: no scattered target grid
     logit = pred[..., 4]
-    obj_all = sigmoid_bce(logit, torch.zeros_like(logit)).mean()
+    obj_all = global_mean(sigmoid_bce(logit, torch.zeros_like(logit)))
     obj = obj_all - (g[..., 4] * winf).sum() / n_cells
 
     # class: masked mean over the nc channels of the winners' cells

@@ -15,7 +15,15 @@ BatchNorm statistics (`train/ema.py`, `--ema`), with which evaluation and
 `det_eval` run and which the checkpoint's `model` holds, the raw weights
 and the step riding in `extra` as the JAX package writes them;
 `multi_scale` rotates (train_step, loader) buckets per epoch
-(`--multi-scale`). Not ported: multi-host.
+(`--multi-scale`).
+
+With a `mesh` of several processes (`parallel/`, `--distributed`) every
+rank starts from rank 0's weights (a broadcast), trains on its shard of
+each global batch and prints the global loss (the ranks' per-step losses
+summed, one all-reduce an epoch) and the global P/R/F1 (each rank
+evaluates its own unpadded slice of the val split,
+`parallel/distributed.py::global_eval_reduce`); only rank 0 appends to
+the JSONL and writes checkpoints, as the JAX loop does.
 """
 
 from __future__ import annotations
@@ -27,6 +35,10 @@ import numpy as np
 import torch
 
 from yolo_from_scratch_tpu_torch.data.device_queue import DeviceQueue
+from yolo_from_scratch_tpu_torch.parallel.distributed import (
+    global_eval_reduce,
+)
+from yolo_from_scratch_tpu_torch.parallel.mesh import all_reduce
 from yolo_from_scratch_tpu_torch.train.ema import (
     ema_init,
     wrap_train_step_with_ema,
@@ -51,9 +63,11 @@ from yolo_from_scratch_tpu_torch.utils.convert import (
 from yolo_from_scratch_tpu_torch.utils.metrics_log import MetricsLogger
 
 
-def train_epoch(train_step, state, loader, device):
+def train_epoch(train_step, state, loader, device, mesh=None):
     """One epoch. Returns (state, mean_total, mean_bbox, mean_obj, mean_cls,
-    images_seen, seconds)."""
+    images_seen, seconds). With a `mesh` each step's metrics are this
+    rank's parts of the global batch's, summed over the ranks here (the
+    images seen stay this rank's)."""
     per_step = []
     n_images = 0
     t0 = time.perf_counter()
@@ -62,7 +76,12 @@ def train_epoch(train_step, state, loader, device):
         state, metrics = train_step(state, images, targets)
         per_step.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
     # single host sync at epoch end
-    rows = torch.stack(per_step).cpu().numpy() if per_step else None
+    rows = None
+    if per_step:
+        rows = torch.stack(per_step)
+        if mesh is not None and mesh.group is not None:
+            all_reduce(rows, mesh)
+        rows = rows.cpu().numpy()
     dt = time.perf_counter() - t0
     n = max(len(per_step), 1)
     # float32 running sums, as the JAX loop adds its float32 scalars
@@ -71,9 +90,11 @@ def train_epoch(train_step, state, loader, device):
     return (state, *means, n_images, dt)
 
 
-def eval_epoch(eval_step, model, loader, device):
+def eval_epoch(eval_step, model, loader, device, mesh=None):
     """Loss + grid-aligned P/R/F1 over a loader. Returns (loss, P%, R%,
-    F1%)."""
+    F1%). With a `mesh` of several processes each rank counts its own
+    shard of the split (the loader's) and the five sums are reduced over
+    the ranks, so every rank returns the global values."""
     per_batch = [(*eval_step(model, images, targets), valid)
                  for images, targets, valid in DeviceQueue(loader, device)]
     losses, tps, fps, fns = [], 0, 0, 0
@@ -83,7 +104,12 @@ def eval_epoch(eval_step, model, loader, device):
         tps += int(tp[:valid].sum())
         fps += int(fp[:valid].sum())
         fns += int(fn[:valid].sum())
-    avg_loss = float(np.mean(losses)) if losses else 0.0
+    if mesh is not None and mesh.size > 1:
+        tps, fps, fns, loss_sum, n_batches = global_eval_reduce(
+            tps, fps, fns, float(np.sum(losses)), len(losses))
+        avg_loss = loss_sum / n_batches if n_batches else 0.0
+    else:
+        avg_loss = float(np.mean(losses)) if losses else 0.0
     return (avg_loss, *prf1(tps, fps, fns))
 
 
@@ -91,7 +117,7 @@ def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
         device, epochs=100, initial_lr=1e-2, min_lr=1e-4, warmup_epochs=3,
         save_path=None, log=print, metrics_path=None, det_eval=None,
         stream=None, start_epoch=0, use_ema=False, ema_decay=0.9999,
-        initial_ema=None, multi_scale=None):
+        initial_ema=None, multi_scale=None, mesh=None):
     """Train + eval + checkpoint + LR step per epoch, epochs `start_epoch`
     to `epochs` - 1. Returns (state, save_path); the checkpoint goes to
     `yolo_<timestamp>.ckpt` in the working directory unless `save_path`
@@ -119,7 +145,15 @@ def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
     `stream`: a `ChunkStream` or `PoolStream` whose `run_epoch` trains
     each epoch with `train_step`, a scanned trainer, in place of
     `train_loader` (not with `use_ema` or `multi_scale`: the CLI refuses
-    them); it is stopped when fit returns or raises."""
+    them); it is stopped when fit returns or raises.
+
+    `mesh`: the data-parallel run's (`parallel/mesh.py`), with train
+    steps made for it; the state's model is first set to rank 0's (a
+    broadcast of every weight and BatchNorm statistic)."""
+    if mesh is not None and mesh.group is not None:
+        with torch.no_grad():
+            for t in state.model.state_dict().values():
+                torch.distributed.broadcast(t, 0, group=mesh.group)
     schedule = (list(multi_scale) if multi_scale
                 else [(train_step, train_loader)])
     ema = None
@@ -135,7 +169,7 @@ def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
         return _fit_epochs(state, ema, schedule, eval_step, val_loader, cfg,
                            device, start_epoch, epochs, initial_lr, min_lr,
                            warmup_epochs, save_path, log, metrics_path,
-                           det_eval, stream)
+                           det_eval, stream, mesh)
     finally:
         if stream is not None and hasattr(stream, "stop"):
             # a pool stream's persistent refresher must not stage uploads
@@ -145,12 +179,15 @@ def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
 
 def _fit_epochs(state, ema, schedule, eval_step, val_loader, cfg, device,
                 start_epoch, epochs, initial_lr, min_lr, warmup_epochs,
-                save_path, log, metrics_path, det_eval, stream):
+                save_path, log, metrics_path, det_eval, stream, mesh):
     """fit()'s epoch loop, apart so that the stream's shutdown wraps it."""
     if save_path is None:
         timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
         save_path = f"yolo_{timestamp}.ckpt"
-    metrics_logger = MetricsLogger(metrics_path)
+    # only rank 0 appends the (possibly shared) JSONL and writes the
+    # (identical) checkpoint: concurrent writers would race
+    writer = mesh is None or mesh.rank == 0
+    metrics_logger = MetricsLogger(metrics_path if writer else None)
     for epoch in range(start_epoch, epochs):
         lr = lr_at_epoch(epoch, warmup_epochs, epochs, initial_lr, min_lr)
         state = set_learning_rate(state, lr)
@@ -162,13 +199,13 @@ def _fit_epochs(state, ema, schedule, eval_step, val_loader, cfg, device,
             ingest_img_s = means.get("ingest_img_s")
         elif ema is not None:
             (state, ema), loss, bbox, obj, cls, n_imgs, dt = train_epoch(
-                epoch_step, (state, ema), epoch_loader, device)
+                epoch_step, (state, ema), epoch_loader, device, mesh)
         else:
             state, loss, bbox, obj, cls, n_imgs, dt = train_epoch(
-                epoch_step, state, epoch_loader, device)
+                epoch_step, state, epoch_loader, device, mesh)
         evaluated = ema if ema is not None else state.model
         val_loss, val_p, val_r, val_f1 = eval_epoch(
-            eval_step, evaluated, val_loader, device)
+            eval_step, evaluated, val_loader, device, mesh)
         det = det_eval(evaluated) if det_eval is not None else None
         det_str = (f" | Det: P {det[0]:.1f}%, R {det[1]:.1f}%, "
                    f"F1 {det[2]:.1f}%" if det is not None else "")
@@ -192,6 +229,8 @@ def _fit_epochs(state, ema, schedule, eval_step, val_loader, cfg, device,
         if ingest_img_s is not None:
             record["ingest_images_per_sec"] = ingest_img_s
         metrics_logger.log(record)
+        if not writer:
+            continue
         # 'model' holds the weights to serve (the EMA when kept); the raw
         # weights and the step ride in extra, and Adam's state in the JAX
         # package's optax layout, so that either package's --resume

@@ -46,6 +46,17 @@ each step writes its own learning rate into the optimizer's lr tensor
 before its update and takes its own EMA decay after it.
 `make_train_step_accum` takes one update from the mean gradient of
 `n_accum` micro-batches.
+
+With a `mesh` (`parallel/mesh.py`, one process a rank) `make_train_step`
+and `make_train_step_accum` are the JAX package's data-parallel step over
+the global batch: the loss and train-mode BatchNorm run inside
+`data_parallel(mesh)` (global statistics and normalizers, each rank's
+loss its part of the global one), and the gradients are summed over the
+ranks in one flattened all-reduce before the clip, whose norm is then the
+global gradient's. A step's random draws are those of the global batch
+(B x size rows, from the same generators), of which each rank takes its
+rows [rank * B, (rank + 1) * B). The device mosaic, whose partners come
+from the whole global batch, is not ported at a world larger than one.
 """
 
 from __future__ import annotations
@@ -82,6 +93,10 @@ from yolo_from_scratch_tpu_torch.ops.losses_sparse import (
 from yolo_from_scratch_tpu_torch.ops.mosaic_device import (
     mosaic_compact_batch,
     mosaic_draws,
+)
+from yolo_from_scratch_tpu_torch.parallel.mesh import (
+    all_reduce_grads_,
+    data_parallel,
 )
 from yolo_from_scratch_tpu_torch.train.ema import ema_update
 from yolo_from_scratch_tpu_torch.train.metrics import (
@@ -365,6 +380,25 @@ def _upload_draws(draws: dict, device) -> dict:
     return {k: tuple(upload(t, device) for t in v) for k, v in draws.items()}
 
 
+MOSAIC_NOT_PORTED = ("the device mosaic at a world of more than one process "
+                     "(its partners come from other ranks' images) is not "
+                     "ported yet")
+
+
+def _rank_draws(spec: DrawSpec, step: int, b: int, mesh) -> dict:
+    """One step's draws for this rank's b rows: the draws of the global
+    batch of b x size rows, as one process draws them, and this rank's
+    rows [rank * b, (rank + 1) * b) of them."""
+    if mesh is None or mesh.size == 1:
+        return spec.draw(step, b)
+    if spec.mosaic:
+        raise NotImplementedError(MOSAIC_NOT_PORTED)
+    rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    return {k: v if k == "step" else tuple(
+        t if t is None else t[rows] for t in v)
+        for k, v in spec.draw(step, b * mesh.size).items()}
+
+
 class ChunkDraws:
     """The draws of N consecutive steps [s, s + N) for a batch of B, in
     static device tensors that a CUDA graph reads (row i for its step i).
@@ -480,13 +514,15 @@ def _make_expand(cfg: YoloConfig, compact_targets: bool, device=None, *,
 def _make_step_body(cfg: YoloConfig, quirk_640: bool, device, *,
                     device_augment, augment_seed: int, compact_targets: bool,
                     device_mosaic: bool, sparse_loss: bool, af_hp=None,
-                    step_lr=None, ema_decay=None):
+                    step_lr=None, ema_decay=None, mesh=None):
     """(spec, body): body(state, images, targets, draws, ema=None) ->
     (total, bbox, obj, cls) runs one optimizer update with `draws`
     (`spec.draw`'s layout, on the images' device) and leaves `state.step`
     to its caller. With `step_lr` the update first takes the learning rate
     of the draws' step; with `ema_decay` the EMA model `ema` is updated
-    after it, at the step the update has advanced to."""
+    after it, at the step the update has advanced to. With `mesh` the loss
+    is this rank's part of the global batch's, and the gradients are
+    summed over the ranks before the clip."""
     af_compact = compact_targets and cfg.head_type == "anchor_free"
     sparse_loss = sparse_loss and compact_targets and not af_compact
     loss_fn = make_loss_fn(cfg, quirk_640, device, af_compact=af_compact,
@@ -516,9 +552,12 @@ def _make_step_body(cfg: YoloConfig, quirk_640: bool, device, *,
             images, targets = aug(state.step, images, targets,
                                   draws["augment"])
         state.optimizer.zero_grad(set_to_none=True)
-        total, (bbox, obj, cls) = loss_fn(state.model, images, targets)
-        total.backward()
-        clip_by_global_norm_([p.grad for p in state.model.parameters()])
+        with data_parallel(mesh):
+            total, (bbox, obj, cls) = loss_fn(state.model, images, targets)
+            total.backward()
+        grads = [p.grad for p in state.model.parameters()]
+        all_reduce_grads_(grads, mesh)
+        clip_by_global_norm_(grads)
         state.optimizer.step()
         if ema_decay is not None:
             ema_update(ema, state.model, draws["step"][0] + 1, ema_decay)
@@ -530,11 +569,15 @@ def _make_step_body(cfg: YoloConfig, quirk_640: bool, device, *,
 def make_train_step(cfg: YoloConfig, quirk_640: bool = False, device=None, *,
                     device_augment=False, augment_seed: int = 0,
                     compact_targets: bool = False, device_mosaic: bool = False,
-                    sparse_loss: bool = False, af_hp: dict | None = None):
+                    sparse_loss: bool = False, af_hp: dict | None = None,
+                    mesh=None):
     """train_step(state, images, targets) -> (state, metrics): images
     (B, S, S, 3) float32 in [0, 1] or uint8, targets [P3, P4, P5] dense, or
     with `compact_targets` (labels (B, K, 5), counts (B,)), all on
-    `device`; metrics are 0-dim device tensors under METRIC_KEYS.
+    `device`; metrics are 0-dim device tensors under METRIC_KEYS. With
+    `mesh` the batch is this rank's part of the global batch (equal on
+    every rank), and the metrics are its parts of the global batch's (the
+    sum over the ranks is the global loss).
 
     `device_augment` (False, True / 'full', 'flip'): random hflip and
     photometric jitter on the device; `device_mosaic` (compact only): the
@@ -544,11 +587,12 @@ def make_train_step(cfg: YoloConfig, quirk_640: bool = False, device=None, *,
     spec, body = _make_step_body(
         cfg, quirk_640, device, device_augment=device_augment,
         augment_seed=augment_seed, compact_targets=compact_targets,
-        device_mosaic=device_mosaic, sparse_loss=sparse_loss, af_hp=af_hp)
+        device_mosaic=device_mosaic, sparse_loss=sparse_loss, af_hp=af_hp,
+        mesh=mesh)
 
     def train_step(state: TrainState, images, targets):
-        draws = _upload_draws(spec.draw(state.step, images.shape[0]),
-                              images.device)
+        draws = _upload_draws(_rank_draws(spec, state.step, images.shape[0],
+                                          mesh), images.device)
         metrics = body(state, images, targets, draws)
         state.step += 1
         return state, dict(zip(METRIC_KEYS, metrics))
@@ -725,7 +769,8 @@ def make_train_step_multi_pool(cfg: YoloConfig, quirk_640: bool = False,
 
 def make_train_step_accum(cfg: YoloConfig, n_accum: int,
                           quirk_640: bool = False, device=None, *,
-                          device_augment=False, augment_seed: int = 0):
+                          device_augment=False, augment_seed: int = 0,
+                          mesh=None):
     """Gradient accumulation on dense targets (the JAX package's
     `make_train_step_accum`): train_step(state, images (n_accum, B, S, S,
     3), t3, t4, t5 (n_accum, B, ...)) -> (state, metrics averaged over the
@@ -734,7 +779,10 @@ def make_train_step_accum(cfg: YoloConfig, n_accum: int,
     n_accum), the BatchNorm statistics carried from micro-batch to
     micro-batch, `state.step` advancing by one. Only one micro-batch's
     activations are alive at a time. `device_augment`: the dense-level
-    hook, its draws keyed by step * n_accum + micro."""
+    hook, its draws keyed by step * n_accum + micro. With `mesh` each
+    micro-batch is this rank's part of a global one, as in
+    `make_train_step`: the mean gradient is summed over the ranks before
+    the clip."""
     if n_accum < 1:
         raise ValueError(f"n_accum must be >= 1, got {n_accum}")
     loss_fn = make_loss_fn(cfg, quirk_640, device)
@@ -752,15 +800,17 @@ def make_train_step_accum(cfg: YoloConfig, n_accum: int,
             targets = [t3[micro], t4[micro], t5[micro]]
             if aug is not None:
                 key = state.step * n_accum + micro
-                draws = _upload_draws(spec.draw(key, imgs.shape[0]),
-                                      imgs.device)
+                draws = _upload_draws(_rank_draws(spec, key, imgs.shape[0],
+                                                  mesh), imgs.device)
                 imgs, targets = aug(key, imgs, targets, draws["augment"])
-            total, (bbox, obj, cls) = loss_fn(state.model, imgs, targets)
-            total.backward()  # .grad holds the running sum
+            with data_parallel(mesh):
+                total, (bbox, obj, cls) = loss_fn(state.model, imgs, targets)
+                total.backward()  # .grad holds the running sum
             per.append(torch.stack([t.detach()
                                     for t in (total, bbox, obj, cls)]))
         grads = [p.grad for p in state.model.parameters()]
         torch._foreach_div_(grads, float(n_accum))
+        all_reduce_grads_(grads, mesh)
         clip_by_global_norm_(grads)
         state.optimizer.step()
         state.step += 1
