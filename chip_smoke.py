@@ -195,7 +195,26 @@ and prints no result):
    card's machine has no libjpeg or libpng headers (nor their shared
    libraries), so the library does not build there, and the dataset's
    `auto` backend falls back to PIL as the JAX package's does; the CPU
-   tests hold the loader (`tests/test_torch_native.py`).
+   tests hold the loader (`tests/test_torch_native.py`);
+22. spatial partitioning (`--spatial`), 's' @640 nc=80 on phase 16's
+   data: (a) two ranks on the one card (`gloo` on CUDA tensors, one
+   process each), each holding half the rows of a global batch of 4,
+   float32 TF32 off, against one process on the batch, for the anchor
+   head (dense targets) and the anchor-free head (compact labels, on the
+   first batch whose foreground masks agree): one step's loss (the
+   ranks' parts summed) within 1e-6 relative (the anchor-free loss 1e-5:
+   SP_LOSS_RTOL says why), gradients within phase 8's
+   tolerance, BatchNorm statistics within 1e-5 of the largest magnitude,
+   the ranks' weights bit-equal; (b) the same step in bf16 with
+   YOLO_FUSED_CONV_BWD=1, K2's launches a rank held to the gated convs
+   (8 and 10), and K2 at the haloed tiles of --spatial 2 (B=4 42x80 and
+   22x40) against its plain version, two runs bit-equal, with its device
+   ms, its plain version's, the one-call library backward's and the H100
+   bound; (c) the CLI's `--data-parallel --distributed --spatial 2` with
+   `--val-det`, one epoch of 2 steps, each head in two processes and the
+   anchor head in four (2 x 2): the same epoch line on every rank, K1's
+   launches on every rank, K2's held to the gated convs, rank 0's
+   checkpoint served.
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
@@ -204,8 +223,9 @@ there is one, and the H100 bound with what bounds it, all at the same
 inputs; the NMS kernel also its launches, device ms and bound on phase
 13's batch, both kernels their launches on phase 16's anchor-free paths,
 on phase 17's compact paths, on phase 18's stream paths, on phase
-19's recipe paths, on phase 20's int8 and artifact paths and on phase
-21's data-parallel paths; Q1 and Q2
+19's recipe paths, on phase 20's int8 and artifact paths, on phase
+21's data-parallel paths and on phase 22's spatial paths, K2 also its
+times and bounds at phase 22's haloed tiles; Q1 and Q2
 their launches on phase 20's main path and in the artifacts, with their
 times, bounds and yardsticks summed over the 24 shapes at B=32); the last
 line is `{"ok": true, "device": {...}}`.
@@ -442,6 +462,20 @@ DP_LR = 1e-3
 DP_BN_RTOL = 1e-3     # (c): BatchNorm statistics, the CPU tests' tolerance
 DP_BN_ATOL = 1e-4     # ... of each tensor's largest magnitude
 DP_JOIN_S = 600       # (c): the ranks' time limit, then they are killed
+# phase 22: spatial partitioning
+SP_SPACE = 2          # ranks a space group (--spatial 2)
+SP_BATCH = 4          # (a), (b): the global batch, held by both ranks
+# (a): the ranks' loss parts summed vs one process, relative: the anchor
+# head's; the anchor-free loss weighs its terms by TAL's targets, powers of
+# the predicted scores and IoUs (IoU^6) renormalized by their maxima, which
+# magnify rounding-level differences of the head outputs: 1.86e-6 in a
+# float32 CPU rehearsal of this step at 128 px
+SP_LOSS_RTOL = {"anchor": 1e-6, "anchor_free": 1e-5}
+SP_BN_TOL = 1e-5      # (a): BatchNorm statistics, of the largest magnitude
+# (b): K2 on the haloed tiles of --spatial 2 at 640, B=4 a rank: the 80x80
+# and 40x40 grids' blocks of 40 and 20 rows, one halo row on each side
+SP_K2_CASES = ((4, 42, 80, torch.bfloat16), (4, 22, 40, torch.bfloat16))
+SP_JOIN_S = 600       # the ranks' time limit, then they are killed
 
 
 def log(msg):
@@ -3875,6 +3909,370 @@ def phase_dp_two_ranks(dev, workdir, yaml_path):
     return (sum(r["k1"] for r in ranks), sum(r["k2"] for r in ranks))
 
 
+SP_RANK_SCRIPT = r"""
+import os
+import sys
+
+import numpy as np
+import torch
+
+from yolo_from_scratch_tpu_torch import YoloConfig
+from yolo_from_scratch_tpu_torch.device import tf32_disabled
+from yolo_from_scratch_tpu_torch.models import anchor_free
+from yolo_from_scratch_tpu_torch.models.yolo import YOLO
+from yolo_from_scratch_tpu_torch.ops import conv_bwd
+from yolo_from_scratch_tpu_torch.parallel.distributed import (
+    init_distributed, shutdown)
+from yolo_from_scratch_tpu_torch.parallel.mesh import (
+    batch_sharding_for, image_sharding, make_mesh_2d)
+from yolo_from_scratch_tpu_torch.train import steps
+
+rank, world, coordinator, job_path, out_path = sys.argv[1:6]
+rank, world = int(rank), int(world)
+# a loopback coordinator with more ranks than cards: gloo
+init_distributed(coordinator, world, rank, device="cuda")
+job = torch.load(job_path, weights_only=False)
+mesh = make_mesh_2d(job["n_space"], "cuda")
+seen = {}
+clip, tal = steps.clip_by_global_norm_, anchor_free.tal_assign
+
+
+def recording_clip(grads, *a, **kw):
+    seen["grads"] = [g.detach().cpu() for g in grads]
+    return clip(grads, *a, **kw)
+
+
+def recording_tal(*a, **kw):
+    out = tal(*a, **kw)
+    seen["fg"] = out["fg"].cpu()
+    return out
+
+
+steps.clip_by_global_norm_ = recording_clip
+anchor_free.tal_assign = recording_tal
+out = {"backend": torch.distributed.get_backend(), "device": str(mesh.device)}
+for run in job["runs"]:
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1" if run["fused"] else "0"
+    cfg = YoloConfig(**run["cfg"])
+    model = YOLO(cfg)
+    model.load_state_dict(job["states"][cfg.head_type])
+    model.to(mesh.device)
+    state = steps.TrainState(model, steps.make_optimizer(model.parameters(),
+                                                         job["lr"]))
+    images = image_sharding(mesh, run["images"])
+    targets = [batch_sharding_for(mesh, t) for t in run["targets"]]
+    images = torch.from_numpy(np.ascontiguousarray(images)).to(mesh.device)
+    targets = [torch.from_numpy(np.ascontiguousarray(t)).to(mesh.device)
+               for t in targets]
+    step = steps.make_train_step(cfg, device=mesh.device, mesh=mesh,
+                                 **run["kw"])
+    seen.pop("fg", None)
+    torch.cuda.synchronize()
+    conv_bwd.launches = 0
+    with tf32_disabled():
+        state, m = step(state, images, targets)
+    torch.cuda.synchronize()
+    k2 = conv_bwd.launches
+    out[run["name"]] = {
+        "metrics": {k: v.item() for k, v in m.items()},
+        "grads": dict(zip([n for n, _ in model.named_parameters()],
+                          seen["grads"])),
+        "state": {k: v.cpu() for k, v in model.state_dict().items()},
+        "fg": seen.get("fg"), "k2": k2}
+torch.save(out, out_path)
+shutdown()
+"""
+
+
+def _run_ranks(script, args, world, workdir, what, env=None):
+    """`script` in `world` processes on the card, rank r with (r, world,
+    a loopback coordinator, *args); raises unless every rank exits 0.
+    Returns their stdouts."""
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, str(r), str(world), coordinator,
+         *args(r)], cwd=workdir, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env) for r in range(world)]
+    try:
+        results = [p.communicate(timeout=SP_JOIN_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, results):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: a rank exited {p.returncode}:\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+    return [out for out, _ in results]
+
+
+def _sp_runs(yaml_path):
+    """Phase 22's steps: the anchor head on dense host targets and the
+    anchor-free head on compact labels (one candidate batch of
+    SP_BATCH images each of its AF_TRIES), float32 for (a), then bf16
+    with K2 on for (b), and the heads' seeded weights."""
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    train = load_dataset_yaml(yaml_path)["train"]
+    runs, states = [], {}
+    for head in ("anchor", "anchor_free"):
+        cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE,
+                                   head_type=head)
+        states[head] = YOLO(cfg).reset_parameters(
+            torch.Generator().manual_seed(SEED)).state_dict()
+        ds = YoloDataset(train, AF_NC, cfg.anchors_array, IMG_SIZE,
+                         backend="pil", head_type=head)
+        tries = 1 if head == "anchor" else AF_TRIES
+        for t in range(tries):
+            idx = range(t * SP_BATCH, (t + 1) * SP_BATCH)
+            if head == "anchor":
+                images, targets = ds.load_batch(idx)
+                kw = {}
+            else:
+                images, labels, counts = ds.load_batch_compact(
+                    idx, capacity=COMPACT_K)
+                targets, kw = [labels, counts], dict(compact_targets=True)
+            for dtype in ("float32", "bfloat16"):
+                if dtype == "bfloat16" and t:
+                    continue  # (b) takes the first batch
+                runs.append(dict(
+                    name=(head, dtype, t), cfg=dict(
+                        num_classes=AF_NC, img_size=IMG_SIZE,
+                        width_mult=cfg.width_mult, depth_mult=cfg.depth_mult,
+                        head_type=head, compute_dtype=dtype),
+                    images=images, targets=targets, kw=kw,
+                    fused=dtype == "bfloat16"))
+    return runs, states
+
+
+def _single_step(dev, run, state_dict):
+    """One process's step on the whole batch of `run`, float32 TF32 off:
+    (loss, gradients, state, TAL's foreground mask or None)."""
+    from yolo_from_scratch_tpu_torch.train import steps
+
+    os.environ["YOLO_FUSED_CONV_BWD"] = "0"
+    cfg = YoloConfig(**run["cfg"])
+    model = YOLO(cfg)
+    model.load_state_dict(state_dict)
+    model.to(dev)
+    state = steps.TrainState(model, steps.make_optimizer(model.parameters(),
+                                                         DP_LR))
+    seen = {}
+    clip, tal = steps.clip_by_global_norm_, anchor_free.tal_assign
+
+    def recording_clip(grads, *a, **kw):
+        seen["grads"] = [g.detach().cpu() for g in grads]
+        return clip(grads, *a, **kw)
+
+    def recording_tal(*a, **kw):
+        out = tal(*a, **kw)
+        seen["fg"] = out["fg"].cpu()
+        return out
+
+    steps.clip_by_global_norm_ = recording_clip
+    anchor_free.tal_assign = recording_tal
+    try:
+        with tf32_disabled():
+            state, m = steps.make_train_step(cfg, device=dev, **run["kw"])(
+                state, torch.from_numpy(run["images"]).to(dev),
+                [torch.from_numpy(t).to(dev) for t in run["targets"]])
+        torch.cuda.synchronize()
+    finally:
+        steps.clip_by_global_norm_ = clip
+        anchor_free.tal_assign = tal
+    return (m["loss"].item(),
+            dict(zip([n for n, _ in model.named_parameters()],
+                     seen["grads"])),
+            {k: v.cpu() for k, v in model.state_dict().items()},
+            seen.get("fg"))
+
+
+def phase_spatial_step(dev, workdir, yaml_path, card):
+    """(a) two ranks on the one card, 1 x 2 (`gloo` on CUDA tensors), 's'
+    @640 nc=80 float32 TF32 off, the global batch of SP_BATCH held by both
+    as row halves, against one process on the same batch, both heads:
+    loss, gradients and BatchNorm statistics, the ranks' weights bit for
+    bit (the anchor-free head on the first batch whose foreground masks
+    agree); (b) the same in bf16 with YOLO_FUSED_CONV_BWD=1: K2's
+    launches a rank held to the gated convs. Returns K2's launches summed
+    over the ranks in (b)."""
+    runs, states = _sp_runs(yaml_path)
+    torch.save({"runs": runs, "states": states, "lr": DP_LR,
+                "n_space": SP_SPACE}, workdir / "sp_job.pt")
+    t0 = time.perf_counter()
+    _run_ranks(SP_RANK_SCRIPT, lambda r: (str(workdir / "sp_job.pt"),
+                                          str(workdir / f"sp_rank{r}.pt")),
+               SP_SPACE, Path(__file__).resolve().parent, "phase 22 (a)")
+    ranks = [torch.load(workdir / f"sp_rank{r}.pt", weights_only=False)
+             for r in range(SP_SPACE)]
+    rank_s = time.perf_counter() - t0
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError("phase 22: the ranks sharing the card are not "
+                             "on gloo")
+    k2_total = 0
+    for head in ("anchor", "anchor_free"):
+        for t in range(1 if head == "anchor" else AF_TRIES):
+            run = next(r for r in runs if r["name"] == (head, "float32", t))
+            loss, grads, state, fg = _single_step(dev, run, states[head])
+            got = [r[run["name"]] for r in ranks]
+            n_diff = 0 if fg is None else int((got[0]["fg"] != fg).sum())
+            if n_diff == 0:
+                break
+            log(f"phase 22 (a) {head}: images {t * SP_BATCH}-"
+                f"{(t + 1) * SP_BATCH - 1}: {n_diff} of {int(fg.sum())} "
+                f"fg cells differ from one process's; the next batch")
+        else:
+            raise AssertionError(f"phase 22 (a): {head} fg masks differ on "
+                                 f"all {AF_TRIES} batches")
+        total = sum(r["metrics"]["loss"] for r in got)
+        rel_loss = abs(total - loss) / abs(loss)
+        worst = max(((got[0]["grads"][k] - g).abs().max().item()
+                     / g.abs().max().clamp(min=1e-30).item(), k)
+                    for k, g in grads.items() if k not in PRE_BN_BIASES)
+        bn = [k for k in state if k.endswith((".bn.mean", ".bn.var"))]
+        bn_worst = max(((got[0]["state"][k] - state[k]).abs().max().item()
+                        / state[k].abs().max().clamp(min=1e-30).item(), k)
+                       for k in bn)
+        across = [k for k in got[0]["state"]
+                  if not torch.equal(got[0]["state"][k], got[1]["state"][k])]
+        log(f"phase 22 (a) {head}, 2 ranks x {SP_SPACE} row blocks on one "
+            f"card ({card}; gloo on CUDA tensors; {rank_s:.1f} s for both "
+            f"ranks' (a) and (b) with start-up), 's' @{IMG_SIZE} nc={AF_NC} "
+            f"float32 TF32 off, a global batch of {SP_BATCH} (images "
+            f"{t * SP_BATCH}-{(t + 1) * SP_BATCH - 1}) vs one process: loss "
+            f"{total:.7f} vs {loss:.7f} ({rel_loss:.2e} relative, tol "
+            f"{SP_LOSS_RTOL[head]}); worst gradient {worst[0]:.2e} of its tensor's "
+            f"max ({worst[1]}; tol {PARITY_GRAD_TOL}); BatchNorm statistics "
+            f"worst {bn_worst[0]:.2e} of the tensor's max ({bn_worst[1]}; "
+            f"tol {SP_BN_TOL}); state tensors differing between the ranks: "
+            f"{len(across)}")
+        if (rel_loss > SP_LOSS_RTOL[head] or worst[0] > PARITY_GRAD_TOL
+                or bn_worst[0] > SP_BN_TOL or across):
+            raise AssertionError(f"phase 22 (a) {head}: the spatial step "
+                                 f"differs from one process's")
+        # (b) bf16, K2 on: its launches on each rank
+        bf16 = [r[(head, "bfloat16", 0)] for r in ranks]
+        cfg = YoloConfig(**next(r["cfg"] for r in runs
+                                if r["name"] == (head, "bfloat16", 0)))
+        gated = sum(_gated_convs(cfg).values())
+        want = gated * conv_bwd.LAUNCHES_PER_CALL
+        across = [k for k in bf16[0]["state"]
+                  if not torch.equal(bf16[0]["state"][k], bf16[1]["state"][k])]
+        log(f"phase 22 (b) {head} bf16, YOLO_FUSED_CONV_BWD=1 ({card}): K2 "
+            f"launches a rank {[r['k2'] for r in bf16]} for one step (want "
+            f"{gated} gated convs x {conv_bwd.LAUNCHES_PER_CALL} = {want}); "
+            f"losses {[round(r['metrics']['loss'], 6) for r in bf16]}; state "
+            f"tensors differing between the ranks: {len(across)}")
+        if any(r["k2"] != want for r in bf16) or across or not all(
+                np.isfinite(r["metrics"]["loss"]) for r in bf16):
+            raise AssertionError(f"phase 22 (b) {head}: K2 launches or "
+                                 f"ranks differ")
+        k2_total += sum(r["k2"] for r in bf16)
+    return k2_total
+
+
+def phase_spatial_k2(dev, card):
+    """(b) K2 at the haloed tiles of --spatial 2 against its plain version,
+    two runs bit-equal; device ms of the kernel, its plain version and the
+    one-call library backward beside the H100 bound. Returns (largest
+    absolute error, {case: (kernel, plain, library, bound)})."""
+    err, times = 0.0, {}
+    for i, (b, h, w, dtype) in enumerate(SP_K2_CASES):
+        (x, dy, wt), e, rel_dx, rel_dw = _k2_held(b, h, w, dtype, dev,
+                                                  SEED + 40 + i)
+        err = max(err, e)
+        ms = [device_ms(f) for f in (
+            lambda: conv_bwd._launch(x, dy, wt),
+            lambda: conv_bwd.fused_bwd_plain(x, dy, wt),
+            lambda: bwdproto.library_bwd(x, dy, wt))]
+        bound = _bound(b, h, w, dtype)
+        times[(b, h, w)] = (*ms, bound[0])
+        log(f"phase 22 (b) K2 at the haloed tile {_case_name(b, h, w, dtype)} "
+            f"({card}): dx err {rel_dx:.3e}, dW err {rel_dw:.3e} of max (tol "
+            f"{K2_TOL[dtype][0]:.1e} / {K2_TOL[dtype][1]:.1e}), 2 runs "
+            f"bit-equal; device ms (profiler, {TIMING_RUNS} calls): kernel "
+            f"{ms[0]:.4f}, plain {ms[1]:.4f}, library convolution_backward "
+            f"{ms[2]:.4f}, H100 bound {bound[0]:.4f} ({bound[1]}; kernel at "
+            f"{bound[0] / ms[0]:.1%} of it)")
+    return err, times
+
+
+SP_CLI_SCRIPT = r"""
+import sys
+
+from yolo_from_scratch_tpu_torch import cli
+from yolo_from_scratch_tpu_torch.ops import conv_bwd, nms_cuda
+
+rank, world, coordinator, *args = sys.argv[1:]
+rc = cli.main(args + ["--distributed", "--coordinator", coordinator,
+                      "--num-processes", world, "--process-id", rank])
+print(f"LAUNCHES K1 {nms_cuda.launches} K2 {conv_bwd.launches}", flush=True)
+sys.exit(rc)
+"""
+
+
+def phase_spatial_cli(dev, workdir, yaml_path, card):
+    """(c) `--data-parallel --distributed --spatial 2` through the CLI, one
+    epoch of 2 steps with --val-det, K2 on: each head in two processes on
+    the card (1 x 2), then the anchor head in four (2 x 2). Every rank
+    prints the 2-D banner and the same epoch line, K1's launches rise on
+    every rank and K2's equal the gated convs; rank 0's checkpoint serves
+    one request. Returns (K1, K2) launches summed over every rank."""
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, YOLO_FUSED_CONV_BWD="1", PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    k1_total = k2_total = 0
+    for head, n_data in (("anchor", 1), ("anchor_free", 1), ("anchor", 2)):
+        world = n_data * SP_SPACE
+        run_dir = workdir / f"sp_cli_{head}_{n_data}x{SP_SPACE}"
+        run_dir.mkdir()
+        batch = 8 // n_data  # 16 train images: 2 steps
+        args = [str(yaml_path), "--epochs", "1", "--batch-size", str(batch),
+                "--size", "s", "--img-size", str(IMG_SIZE), "--val-det",
+                "--head", head, "--data-parallel", "--spatial",
+                str(SP_SPACE)]
+        t0 = time.perf_counter()
+        outs = _run_ranks(SP_CLI_SCRIPT, lambda r: args, world, run_dir,
+                          f"phase 22 (c) {head} {n_data}x{SP_SPACE}", env)
+        wall = time.perf_counter() - t0
+        cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE,
+                                   compute_dtype="bfloat16", head_type=head)
+        want_k2 = (sum(_gated_convs(cfg).values()) * TRAIN_STEPS
+                   * conv_bwd.LAUNCHES_PER_CALL)
+        epochs, launches = [], []
+        for r, out in enumerate(outs):
+            epoch = re.search(r"Epoch 1: .* \| LR: ", out)
+            counts = re.search(r"LAUNCHES K1 (\d+) K2 (\d+)", out)
+            banner = (f"2-D mesh: data={n_data} x space={SP_SPACE} over "
+                      f"{world} process(es)")
+            if (not epoch or " | Det: P " not in epoch.group(0) or not counts
+                    or banner not in out or "backend gloo" not in out):
+                raise AssertionError(f"phase 22 (c) {head} rank {r}:\n{out}")
+            epochs.append(epoch.group(0))
+            launches.append((int(counts.group(1)), int(counts.group(2))))
+        ckpt = sorted(run_dir.glob("yolo_*.ckpt"))
+        if len(ckpt) != 1:
+            raise AssertionError(f"phase 22 (c): checkpoints {ckpt}")
+        sd, ckpt_cfg, _ = load_checkpoint(ckpt[0])
+        img = np.random.default_rng(SEED).integers(
+            0, 256, (IMG_SIZE, IMG_SIZE, 3), dtype=np.uint8)
+        dets = Predictor(sd, ckpt_cfg, conf_threshold=1e-6, device=dev)(img)
+        log(f"phase 22 (c) {head} CLI --distributed --spatial {SP_SPACE} over "
+            f"{world} processes ({n_data} x {SP_SPACE}) on one card ({card}),"
+            f" 1 epoch of {TRAIN_STEPS} steps + --val-det, K2 on: {wall:.1f} "
+            f"s; epoch lines equal on every rank: {len(set(epochs)) == 1}; "
+            f"(K1, K2) launches a rank {launches} (K2 want {want_k2}); rank "
+            f"0's checkpoint ({ckpt_cfg.head_type}) served {len(dets)} "
+            f"detections")
+        if (len(set(epochs)) != 1 or any(k1 < 1 or k2 != want_k2
+                                         for k1, k2 in launches)
+                or ckpt_cfg.head_type != head or not dets):
+            raise AssertionError(f"phase 22 (c) {head}: the ranks differ, "
+                                 f"or a kernel's launches, or the request")
+        k1_total += sum(k1 for k1, _ in launches)
+        k2_total += sum(k2 for _, k2 in launches)
+    return k1_total, k2_total
+
+
 def main():
     t_main = time.perf_counter()
 
@@ -4055,6 +4453,20 @@ def main():
             f"{dp1[1]} (world 1) + {dp2[1]} (two ranks, one step each)")
         done(21)
 
+        # 22. spatial partitioning: two ranks' row blocks on the card
+        # against one process, K2 on the haloed tiles, the CLI's
+        # --spatial 2 in two and four processes
+        card = _smi("name,power.limit")
+        t22 = time.perf_counter()
+        sp_k2_step = phase_spatial_step(dev, Path(tmp), af_yaml, card)
+        sp_err, sp_times = phase_spatial_k2(dev, card)
+        sp_k1, sp_k2_cli = phase_spatial_cli(dev, Path(tmp), af_yaml, card)
+        log(f"spatial paths' kernel launches: NMS {sp_k1} (--val-det, every "
+            f"rank of the three CLI runs); conv backward {sp_k2_step} (one "
+            f"bf16 step a rank, both heads) + {sp_k2_cli} (the CLI runs); "
+            f"phase 22 took {time.perf_counter() - t22:.1f} s ({card})")
+        done(22)
+
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
         "route": "cuda",
@@ -4086,13 +4498,14 @@ def main():
         "artifact_launches": sum(c["mask"] for c in
                                  artifact_counts.values()),
         "dp_launches": dp1[0] + dp2[0],
+        "spatial_launches": sp_k1,
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
         "source": "yolo_from_scratch_tpu_torch/csrc/conv_bwd.cu",
         "replaces": "yolo_from_scratch_tpu/ops/conv_bwd.py:89",
         "launches": k2_launches,
-        "max_abs_err": max(k2_err, ms_err),
+        "max_abs_err": max(k2_err, ms_err, sp_err),
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound[0],
@@ -4107,6 +4520,12 @@ def main():
         "accum_launches": accum_k2,
         "recipe_graph_launches": recipe_k2,
         "dp_launches": dp1[1] + dp2[1],
+        "spatial_launches": sp_k2_step + sp_k2_cli,
+        # K2 at the haloed tiles of --spatial 2 (phase 22 (b))
+        "spatial_tiles": [{"shape": [b, h, w, 64], "ms": t[0],
+                           "plain_ms": t[1], "library_ms": t[2],
+                           "bound_ms": t[3]}
+                          for (b, h, w), t in sp_times.items()],
     }, *({
         "name": name,
         "route": "cuda",

@@ -195,9 +195,10 @@ def test_cli_trains_evaluates_and_jax_reads_the_checkpoint(
 # (tests/test_torch_cli_recipe.py), as are --int8 and --export*
 # (tests/test_torch_export.py) and --data-parallel, --distributed,
 # --coordinator, --num-processes and --process-id
-# (tests/test_torch_parallel.py); these are not yet
-@pytest.mark.parametrize("args", [["--packed-stem"], ["--spatial", "2"],
-                                  ["--spatial", "4", "--data-parallel"],
+# (tests/test_torch_parallel.py), as is --spatial
+# (tests/test_torch_spatial.py); these are not yet
+@pytest.mark.parametrize("args", [["--packed-stem"], ["--model-parallel", "8"],
+                                  ["--packed-stem", "--data-parallel"],
                                   ["--packed", "p3"],
                                   ["--model-parallel", "2"],
                                   ["--packed-interior"],

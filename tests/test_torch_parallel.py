@@ -147,7 +147,7 @@ def test_pad_and_shard_batch():
     np.testing.assert_array_equal(t, arr[2:4] * 2)
     with pytest.raises(ValueError, match="does not divide"):
         port_mesh.shard_batch(mesh, arr, [arr])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="1 devices do not divide"):
         port_mesh.make_mesh_2d(2)
 
 
@@ -180,7 +180,7 @@ def test_world_of_one_without_a_group(monkeypatch):
     (["--distributed", "--coordinator", "127.0.0.1:1"], 1, "together"),
     (["--distributed", "--num-processes", "2"], 1, "together"),
     (["--distributed"], 1, "torchrun"),
-    (["--spatial", "2", "--data-parallel"], 2, "--spatial is not ported"),
+    (["--packed-stem", "--data-parallel"], 2, "--packed-stem is not ported"),
     (["--model-parallel", "2"], 2, "--model-parallel is not ported"),
 ])
 def test_cli_flag_rules(argv, rc, says, capsys, monkeypatch):

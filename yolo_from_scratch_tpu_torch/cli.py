@@ -44,10 +44,16 @@ group (`parallel/`): `--distributed` connects this process first, through
 environment (`nccl` on the card, `gloo` on the CPU); `--batch-size` is
 then per process, and each step is the JAX package's data-parallel step
 over the global batch. Without a process group `--data-parallel` is a
-world of one. A JAX-CLI flag the port does not have yet (`--spatial`,
-`--model-parallel`, `--packed*`), and a composition not ported at a world
-of more than one process, exits with status 2 and names the flag, as does
-any other mode.
+world of one. `--spatial N` makes the mesh 2-D, `data x space` (JAX's
+layout: rank r holds rows r % N of data shard r // N): every image's
+rows are split N ways over the ranks of a space group, for training and
+evaluation, both heads; the JAX CLI's rules hold (exit 1 without
+`--data-parallel`, with `--model-parallel` or with `--stream`), and an
+`--img-size` whose P5 grid (img_size / 32) does not divide by N exits 1
+(JAX pads such shards; the port does not). A JAX-CLI flag the port does
+not have yet (`--model-parallel`, `--packed*`), and a composition not
+ported at a world of more than one process, exits with status 2 and names
+the flag, as does any other mode.
 """
 
 from __future__ import annotations
@@ -65,12 +71,14 @@ YAML_EXTS = (".yaml", ".yml")
 ART_EXTS = (".yexp",)  # frozen serving artifacts (infer/export.py)
 
 # JAX-CLI flags with no port yet
-UNPORTED_FLAGS = ("--spatial", "--model-parallel")
+UNPORTED_FLAGS = ("--model-parallel",)
 UNPORTED_PREFIXES = ("--packed",)
-# unported JAX-CLI flags that --stream refuses (exit 1, before "not
+# the secondary mesh axes, which --stream refuses (exit 1, before "not
 # ported"); _train refuses the ported --augment, --ema, --multi-scale and
 # --distributed
 STREAM_EXCLUSIVE = ("--spatial", "--model-parallel")
+# the P5 grid's stride: --spatial N splits it N ways
+P5_STRIDE = 32
 # flags whose composition with a world of more than one process is not
 # ported yet (exit 2): the device mosaic gathers partners from other
 # ranks' images, --stream's CUDA graphs would hold collectives, and the
@@ -190,6 +198,12 @@ def build_parser():
                         help="Shard batches over the processes of the "
                              "torch.distributed group (one process a "
                              "rank; without a group a world of one)")
+    parser.add_argument("--spatial", type=int, default=1, metavar="N",
+                        help="With --data-parallel: split each image's "
+                             "rows N ways over the ranks (2-D data x space "
+                             "mesh; spatial partitioning for high "
+                             "resolutions). The P5 grid (--img-size / 32) "
+                             "must divide by N")
     parser.add_argument("--distributed", action="store_true",
                         help="Multi-process training: connect this process "
                              "via torch.distributed before building the "
@@ -440,6 +454,60 @@ def multi_scale_sizes(img_size):
                    for f in MULTI_SCALE_FACTORS})
 
 
+def _run_mesh(args, device):
+    """--data-parallel's mesh, 2-D with --spatial N, and its banner, as the
+    JAX CLI prints it: (mesh, None), or (None, exit status) for a world
+    that does not divide by N or a composition not ported at a world of
+    more than one process."""
+    from yolo_from_scratch_tpu_torch.parallel.mesh import (
+        make_mesh,
+        make_mesh_2d,
+    )
+
+    if args.spatial > 1:
+        try:
+            mesh = make_mesh_2d(args.spatial, device)
+        except ValueError as e:
+            print(f"ERROR: {e}")
+            return None, 1
+        print(f"2-D mesh: data={mesh.n_data} x space={mesh.n_space} over "
+              f"{mesh.size} process(es)")
+    else:
+        mesh = make_mesh(device)
+        print(f"Data-parallel mesh over {mesh.size} process(es)"
+              + ("" if mesh.group is not None else
+                 " (no process group: a world of one)"))
+    if mesh.size > 1:
+        for name in WORLD_UNPORTED:
+            if getattr(args, name):
+                flag = "--" + name.replace("_", "-")
+                print(f"ERROR: {flag} at a world of {mesh.size} processes "
+                      f"is not ported yet; use `python train.py` for it")
+                return None, 2
+    return mesh, None
+
+
+def _spatial_refused(args, cfg):
+    """True (after the message) when --spatial N cannot split cfg's P5
+    grid into equal row blocks."""
+    rows = cfg.img_size // P5_STRIDE
+    if args.spatial > 1 and rows % args.spatial:
+        print(f"ERROR: --spatial {args.spatial} needs the P5 grid (img_size "
+              f"/ {P5_STRIDE} = {rows} rows at {cfg.img_size}) to divide by "
+              f"{args.spatial}; other sizes are not ported yet (the JAX CLI "
+              f"pads the shards): use `python train.py` for them")
+        return True
+    return False
+
+
+def _data_shard(mesh):
+    """A loader's process_shard: the data shard of this rank (the ranks of
+    a space group load the same images), None for one data shard."""
+    if mesh is None or mesh.n_data == 1:
+        return None
+    return (mesh.data_index, mesh.n_data)
+
+
 def _evaluate(args, config, ckpt_file):
     from yolo_from_scratch_tpu_torch.models.yolo import YOLO
     from yolo_from_scratch_tpu_torch.train.loop import eval_epoch
@@ -447,9 +515,17 @@ def _evaluate(args, config, ckpt_file):
     from yolo_from_scratch_tpu_torch.utils.checkpoint import load_checkpoint
 
     device = _device(args.device)
+    mesh = None
+    if args.data_parallel:
+        mesh, rc = _run_mesh(args, device)
+        if mesh is None:
+            return rc
+        device = mesh.device
     state_dict, cfg, _ = load_checkpoint(ckpt_file)
     if args.dtype != "auto":
         cfg = cfg.with_(compute_dtype=args.dtype)
+    if _spatial_refused(args, cfg):
+        return 1
     print(f"Evaluating model from {ckpt_file}")
     print(f"Number of classes: {cfg.num_classes}")
     print(f"Image size: {cfg.img_size}")
@@ -462,7 +538,8 @@ def _evaluate(args, config, ckpt_file):
     if args.compact_targets and not compact:
         print("NOTE: --compact-targets ignored (anchor head only)")
     eval_step = make_eval_step(cfg, quirk_640=args.reference_quirks,
-                               device=device, compact_targets=bool(compact))
+                               device=device, compact_targets=bool(compact),
+                               mesh=mesh)
     predictor = None
     if args.map:
         from yolo_from_scratch_tpu_torch.infer.predict import BatchPredictor
@@ -475,10 +552,13 @@ def _evaluate(args, config, ckpt_file):
             device_letterbox=args.device_letterbox, device=device,
             quantize_calib=(_train_calibration_images(config, cfg)
                             if args.int8 else None))
+    # several processes: each counts its data shard's unpadded slice of
+    # each split, the ranks of a space group their rows of it
     for title, split in (("Training", "train"), ("Validation", "val")):
         loader = _loader(config, split, cfg, args.batch_size,
-                         compact=compact)
-        loss, p, r, f1 = eval_epoch(eval_step, model, loader, device)
+                         compact=compact, process_shard=_data_shard(mesh),
+                         pad_shard=False)
+        loss, p, r, f1 = eval_epoch(eval_step, model, loader, device, mesh)
         print(f"\n{title} Set:")
         print(f"  Loss: {loss:.4f}")
         print(f"  Precision: {p:.2f}%")
@@ -486,6 +566,7 @@ def _evaluate(args, config, ckpt_file):
         print(f"  F1 Score: {f1:.2f}%")
         if predictor is not None:
             _print_map(predictor, loader.dataset, cfg, config)
+    return 0
 
 
 def _print_map(predictor, dataset, cfg, config):
@@ -540,7 +621,6 @@ def _det_eval(cfg, model, dataset, device, mesh=None):
 
 
 def _train(args, config):
-    from yolo_from_scratch_tpu_torch.parallel.mesh import make_mesh
     from yolo_from_scratch_tpu_torch.train.loop import (
         fit,
         restore_train_state,
@@ -556,19 +636,10 @@ def _train(args, config):
     device = _device(args.device)
     mesh = None
     if args.data_parallel:
-        mesh = make_mesh(device)
+        mesh, rc = _run_mesh(args, device)
+        if mesh is None:
+            return rc
         device = mesh.device
-        print(f"Data-parallel mesh over {mesh.size} process(es)"
-              + ("" if mesh.group is not None else
-                 " (no process group: a world of one)"))
-        if mesh.size > 1:
-            for name in WORLD_UNPORTED:
-                if getattr(args, name):
-                    flag = "--" + name.replace("_", "-")
-                    print(f"ERROR: {flag} at a world of {mesh.size} "
-                          f"processes is not ported yet; use `python "
-                          f"train.py` for it")
-                    return 2
     dtype = args.dtype
     if dtype == "auto":
         dtype = "bfloat16" if device.type == "cuda" else "float32"
@@ -594,6 +665,8 @@ def _train(args, config):
                                    num_classes=config.get("nc", 1),
                                    img_size=args.img_size,
                                    compute_dtype=dtype, head_type=args.head)
+    if _spatial_refused(args, cfg):
+        return 1
     if args.stream:
         for flag, bad in (("--augment", args.augment), ("--ema", args.ema),
                           ("--multi-scale", args.multi_scale),
@@ -631,12 +704,12 @@ def _train(args, config):
         state = create_train_state(cfg, args.lr, seed=args.seed,
                                    device=device,
                                    weight_decay=args.weight_decay)
-    # several processes: each loads its strided slice of every epoch
-    # permutation (identical shuffle seed on every rank keeps the slices
-    # disjoint); --batch-size is per process. The val slices are not
-    # padded: evaluation runs no collective a batch
-    shard = ((mesh.rank, mesh.size) if mesh is not None and mesh.size > 1
-             else None)
+    # several processes: each data shard loads its strided slice of every
+    # epoch permutation (identical shuffle seed on every rank keeps the
+    # slices disjoint, and a space group's ranks on the same images, drawn
+    # alike by --augment); --batch-size is per data shard. The val slices
+    # are not padded: no collective spans the data shards in evaluation
+    shard = _data_shard(mesh)
     # both heads build their eval targets on the device from compact
     # labels (anchor: data/assign_device.py; anchor-free:
     # models/anchor_free.py::assign_targets_anchor_free_device_batch)
@@ -672,7 +745,8 @@ def _train(args, config):
                                  mesh=mesh, **step_kw)
     eval_step = make_eval_step(cfg, quirk_640=args.reference_quirks,
                                device=device,
-                               compact_targets=bool(args.compact_targets))
+                               compact_targets=bool(args.compact_targets),
+                               mesh=mesh)
     stream = None
     if args.stream:
         from yolo_from_scratch_tpu_torch.data.cache import ensure_cache
@@ -739,17 +813,27 @@ def _train(args, config):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    flag = _unported_flag(argv)
-    if flag in STREAM_EXCLUSIVE and "--stream" in argv:
-        print(f"ERROR: --stream does not compose with {flag}; use "
+    names = {arg.split("=", 1)[0] for arg in argv}
+    axes = [f for f in STREAM_EXCLUSIVE if f in names]
+    if axes and "--stream" in names:
+        print(f"ERROR: --stream does not compose with {axes[0]}; use "
               f"--device-augment/--device-mosaic for augmentation on the "
               f"stream path")
         return 1
+    if len(axes) == 2:
+        print("ERROR: --spatial and --model-parallel are mutually "
+              "exclusive (pick one secondary mesh axis)")
+        return 1
+    flag = _unported_flag(argv)
     if flag:
         print(f"ERROR: {flag} is not ported yet; use `python train.py` "
               f"for it")
         return 2
     args = build_parser().parse_args(argv)
+    if args.spatial > 1 and not (args.data_parallel or args.distributed):
+        print("ERROR: --spatial/--model-parallel require --data-parallel "
+              "(they are secondary mesh axes)")
+        return 1
     if not args.distributed:
         return _run(args)
     # before any mode: afterwards the group spans every process
@@ -829,8 +913,7 @@ def _run(args):
               f"(width={size_cfg['width_mult']}, "
               f"depth={size_cfg['depth_mult']})")
         if ckpt_file:
-            _evaluate(args, config, ckpt_file)
-            return 0
+            return _evaluate(args, config, ckpt_file)
         return _train(args, config)
     print("This mode is not ported yet: use `python train.py` for it.")
     return 2

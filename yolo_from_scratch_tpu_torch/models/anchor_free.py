@@ -22,6 +22,21 @@ Every shape is static: the assignment is a dense (B, M, A) tensor program
 losses are autograd on plain tensors, as in the JAX package; the head's
 3x3 convs take the fused conv backward where `ConvBNSiLU`'s gate selects
 them.
+
+The loss is not local to a row block: TAL ranks every cell of an image.
+On a 2-D mesh (`--spatial`, inside `parallel/mesh.py::data_parallel`)
+the loss and `af_assignment_stats` first gather the head outputs (and
+the dense transport maps; the GT set is whole on every rank) over the
+space group (`parallel/spatial.py::gather_rows`), so every rank of a
+space group computes the same loss of its data shard's whole images.
+Its counts and means are normalized over the data group alone
+(`Mesh.data_view`): the data shards' losses then sum to the global
+batch's, L = sum_d L_d, which each space rank of shard d holds whole.
+The gather's backward keeps each rank's own rows of dL_d / dP, so the
+parameter gradients summed over every rank (the step's all-reduce) are
+sum_d dL_d / dtheta, the global batch's gradient. The loss value itself
+is held n_space times; the steps report 1 / n_space of it a rank
+(`train/steps.py`), so that the ranks' parts sum to L.
 """
 
 from __future__ import annotations
@@ -50,10 +65,13 @@ from yolo_from_scratch_tpu_torch.models.blocks import (
 )
 from yolo_from_scratch_tpu_torch.ops.ciou import ciou
 from yolo_from_scratch_tpu_torch.parallel.mesh import (
+    data_parallel,
     global_count,
     global_max,
     global_sum,
+    spatial_mesh,
 )
+from yolo_from_scratch_tpu_torch.parallel.spatial import gather_rows
 
 REG_MAX = 16      # DFL bins per edge distance (v8 default)
 MAX_GT = 32       # padded GT slots per image in the TAL loss
@@ -133,12 +151,14 @@ def dfl_expectation(dist_logits):
     return torch.sum(probs * bins, dim=-1)
 
 
-def decode_anchor_free(raw, stride, img_size):
+def decode_anchor_free(raw, stride, img_size, row_offset: int = 0):
     """(B, H, W, 4*REG_MAX + nc) raw head output -> (B, H, W, 4 + nc):
     normalised centre-format boxes, then the class logits unchanged.
 
     ltrb = the DFL expectation in stride units; the box spans
-    [centre - (l, t), centre + (r, b)]."""
+    [centre - (l, t), centre + (r, b)]. `row_offset`: the global row of
+    the first of the H rows (a row block, `--spatial`); the unit
+    stride / img_size is the global grid's already."""
     b, h, w, _ = raw.shape
     dtype, device = raw.dtype, raw.device
     unit = stride / img_size
@@ -146,8 +166,8 @@ def decode_anchor_free(raw, stride, img_size):
     ltrb = dfl_expectation(dist) * unit
     cx = ((torch.arange(w, dtype=dtype, device=device) + 0.5) * unit).view(
         1, 1, w)
-    cy = ((torch.arange(h, dtype=dtype, device=device) + 0.5) * unit).view(
-        1, h, 1)
+    cy = ((torch.arange(row_offset, row_offset + h, dtype=dtype,
+                        device=device) + 0.5) * unit).view(1, h, 1)
     x1 = cx - ltrb[..., 0]
     y1 = cy - ltrb[..., 1]
     x2 = cx + ltrb[..., 2]
@@ -476,6 +496,9 @@ def yolo_loss_anchor_free(predictions, targets, num_classes, img_size,
     assignment from the current predictions, then BCE on soft class
     targets over ALL cells + CIoU + DFL on assigned cells, all weighted by
     the alignment scores. Returns (total, bbox, cls)."""
+    mesh = spatial_mesh()
+    if mesh is not None:
+        targets = [gather_rows(t, mesh) for t in targets]
     gt_boxes, gt_cls, gt_valid = _gather_gt(targets, num_classes)
     return yolo_loss_anchor_free_from_gt(
         predictions, gt_boxes, gt_cls, gt_valid, num_classes, img_size,
@@ -490,7 +513,24 @@ def yolo_loss_anchor_free_from_gt(predictions, gt_boxes, gt_cls, gt_valid,
                                   beta=TAL_BETA):
     """The anchor-free loss on an explicit padded GT set: gt_boxes (B, M,
     4) cxcywh normalised, gt_cls (B, M, nc) one-hot (zero rows where
-    invalid), gt_valid (B, M) 0/1. Returns (total, bbox, cls)."""
+    invalid), gt_valid (B, M) 0/1. Returns (total, bbox, cls). On a row
+    block, the loss of the gathered images over the data group (module
+    docstring)."""
+    mesh = spatial_mesh()
+    if mesh is not None:
+        predictions = [gather_rows(p, mesh) for p in predictions]
+        with data_parallel(mesh.data_view()):
+            return _loss_from_gt(predictions, gt_boxes, gt_cls, gt_valid,
+                                 num_classes, img_size, box_weight,
+                                 cls_weight, dfl_weight, topk, alpha, beta)
+    return _loss_from_gt(predictions, gt_boxes, gt_cls, gt_valid,
+                         num_classes, img_size, box_weight, cls_weight,
+                         dfl_weight, topk, alpha, beta)
+
+
+def _loss_from_gt(predictions, gt_boxes, gt_cls, gt_valid, num_classes,
+                  img_size, box_weight, cls_weight, dfl_weight, topk, alpha,
+                  beta):
     dist, cls_logits, boxes_cxcywh, boxes_xyxy, anchor_pts, strides = (
         _flatten_af_preds(predictions, num_classes, img_size)
     )
@@ -535,7 +575,16 @@ def af_assignment_stats(predictions, gt_boxes, gt_cls, gt_valid,
     """TAL diagnostics on one batch: the `tal_assign` stats plus the
     per-scale foreground split and the DFL target-clipping fraction (fg
     cells whose true edge distance exceeds REG_MAX - 1 stride units, which
-    the DFL head cannot regress to). A dict of 0-d tensors."""
+    the DFL head cannot regress to). A dict of 0-d tensors. On a row block,
+    the statistics of the gathered images over the data group, the same
+    on every rank of a space group."""
+    mesh = spatial_mesh()
+    if mesh is not None:
+        predictions = [gather_rows(p, mesh) for p in predictions]
+        with data_parallel(mesh.data_view()):
+            return af_assignment_stats(predictions, gt_boxes, gt_cls,
+                                       gt_valid, num_classes, img_size,
+                                       topk, alpha, beta)
     _, cls_logits, _, boxes_xyxy, anchor_pts, strides = (
         _flatten_af_preds(predictions, num_classes, img_size)
     )

@@ -7,6 +7,15 @@ Every parameter is float32 (the master weights an optimizer updates); the
 convolutions cast weight and bias to the compute dtype at use, as flax's
 `promote_dtype` does (a no-op in float32). `Predictor` casts its conv
 weights once at load instead, so serving launches no cast.
+
+Inside `parallel/mesh.py::data_parallel` with a 2-D mesh each tensor is
+this rank's block of rows (`--spatial`), and every op that reads across
+rows takes its neighbours' rows first (`parallel/spatial.py::
+halo_rows`): a 3x3 conv 1 row above and 1 below (at stride 2, 1 above
+only: its symmetric padding of 1 reads rows 2i-1 .. 2i+1, and the local
+heights are even), each 5x5 pool of SPPF 2 and 2 of -inf. The conv then
+pads the columns alone. Upsample, concat and 1x1 convs stay local.
+Without a space axis nothing changes.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ from yolo_from_scratch_tpu_torch.ops.conv_bwd import (
     conv3x3_same,
     use_fused_bwd,
 )
+from yolo_from_scratch_tpu_torch.parallel.mesh import spatial_mesh
+from yolo_from_scratch_tpu_torch.parallel.spatial import halo_rows
 
 
 def cast(t, dtype):
@@ -48,7 +59,12 @@ class ConvBNSiLU(nn.Module):
     keep the (redundant) conv bias before BN. `dtype` is the compute dtype;
     `self.conv` holds the float32 parameters and their stride and padding.
     A conv that `use_fused_bwd` selects runs `conv3x3_same`: the same
-    forward, the fused backward.
+    forward, the fused backward. On a row block (`--spatial`) the gate
+    reads the global height, so that the same convs are selected as in
+    one process, and `conv3x3_same` runs unchanged on the haloed tile
+    (h + 2 rows) of which the first and last output rows are dropped: its
+    backward then gets zero dy there, so its dW is exact, and the halo
+    rows' dx goes back through the exchange.
     """
 
     def __init__(self, cin, features, kernel=1, stride=1, use_bias=False,
@@ -71,13 +87,26 @@ class ConvBNSiLU(nn.Module):
     def forward(self, x, train: bool = False):
         conv = self.conv
         w = cast(conv.weight, self.dtype)
+        k, stride, pad = conv.kernel_size[0], conv.stride[0], conv.padding[0]
+        mesh = spatial_mesh()
+        n = mesh.n_space if mesh is not None else 1
         if conv.bias is None and use_fused_bwd(
-                conv.kernel_size[0], conv.stride[0], x.shape[1],
-                conv.out_channels, x.shape[2], x.shape[3], self.dtype):
-            y = conv3x3_same(x, w)
-        else:
+                k, stride, x.shape[1], conv.out_channels, x.shape[2] * n,
+                x.shape[3], self.dtype):
+            if mesh is None:
+                y = conv3x3_same(x, w)
+            else:
+                y = conv3x3_same(halo_rows(x, 1, 1, 0.0, mesh), w)[:, :, 1:-1]
+        elif mesh is None or k == 1:
             y = F.conv2d(x, w, cast(conv.bias, self.dtype), conv.stride,
                          conv.padding)
+        else:
+            # output row o reads input rows o*stride - pad .. + k - 1: the
+            # block's outputs read `pad` rows above it and k - stride - pad
+            # below
+            x = halo_rows(x, pad, k - stride - pad, 0.0, mesh)
+            y = F.conv2d(x, w, cast(conv.bias, self.dtype), conv.stride,
+                         (0, conv.padding[1]))
         return self.bn(y, train)
 
 
@@ -121,8 +150,14 @@ class C3(nn.Module):
 
 def maxpool_same(x, k: int):
     """k x k stride-1 SAME max pool with -inf padding; `F.max_pool2d`
-    pads with -inf, so this is the forward of the JAX `_maxpool_same`."""
-    return F.max_pool2d(x, k, 1, k // 2)
+    pads with -inf, so this is the forward of the JAX `_maxpool_same`. On
+    a row block the k // 2 rows above and below come from the neighbours
+    (-inf beyond the image), and only the columns are padded."""
+    mesh = spatial_mesh()
+    if mesh is None:
+        return F.max_pool2d(x, k, 1, k // 2)
+    x = halo_rows(x, k // 2, k // 2, -torch.inf, mesh)
+    return F.max_pool2d(x, k, 1, (0, k // 2))
 
 
 class SPPF(nn.Module):

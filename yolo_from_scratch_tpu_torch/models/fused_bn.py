@@ -26,7 +26,11 @@ before the variance is formed, and the backward sums the per-channel
 sums behind mean(dz) and mean(dz * xhat) over the ranks (the gradients of
 scale and bias stay this rank's part; the step sums them with the rest).
 The running statistics then move by the global mean and variance, equal
-on every rank. Without an active mesh no collective is issued.
+on every rank. On a 2-D mesh (`--spatial`) each rank holds a block of
+rows of its data shard's batch; the blocks are equal, so the same shares
+of 1 / world over the world group give the statistics of the whole
+global batch, data x space (`tests/test_torch_spatial.py` holds them).
+Without an active mesh no collective is issued.
 """
 
 from __future__ import annotations

@@ -43,6 +43,7 @@ from yolo_from_scratch_tpu_torch.models.blocks import (
     uniform_fan_in_,
     upsample_nearest_2x,
 )
+from yolo_from_scratch_tpu_torch.parallel.mesh import spatial_mesh
 
 HEAD_PRIOR = 0.01  # objectness prior of a fresh head: bias -log((1-p)/p)
 
@@ -179,8 +180,12 @@ class YOLO(nn.Module):
     def forward(self, x, train: bool = False):
         """Head outputs for NHWC x at any multiple of 32 (the multi-scale
         trainer's buckets share one model); their grids must be the
-        input's size / stride."""
-        size = x.shape[1]
+        input's size / stride. On a row block (`--spatial N`, inside
+        `data_parallel` with a 2-D mesh) x holds size / N of the image's
+        rows, and each grid gs / N of its rows."""
+        size = x.shape[2]
+        mesh = spatial_mesh()
+        n_space = mesh.n_space if mesh is not None else 1
         x = x.to(compute_dtype(self.cfg)).permute(0, 3, 1, 2)  # NHWC -> NCHW
 
         x = self.stem1(self.stem0(x, train), train)
@@ -213,9 +218,10 @@ class YOLO(nn.Module):
                 self.head_p5(p5_panet, train)]
         for out, stride in zip(outs, STRIDES):
             gs = size // stride
-            if out.shape[1:3] != (gs, gs):
+            if out.shape[1:3] != (gs // n_space, gs):
                 raise ValueError(f"head grid {tuple(out.shape[1:3])} != "
-                                 f"({gs}, {gs}) for an input of {size}")
+                                 f"({gs // n_space}, {gs}) for an input of "
+                                 f"{size} over space={n_space}")
         # heads return float32 so decode runs in full precision even when
         # the convs compute in bfloat16
         return [out.float() for out in outs]

@@ -13,7 +13,10 @@ any resolution, as the JAX package's `--reference-quirks` does.
 Inside `parallel/mesh.py::data_parallel` the means are the global
 batch's: a masked mean divides by the global count (a detached
 all-reduce), a plain mean is this rank's part of the global one, so the
-ranks' losses sum to the loss of the global batch.
+ranks' losses sum to the loss of the global batch. On a 2-D mesh every
+term stays local to the rank's rows (each cell's loss reads that cell
+alone), decoded with the block's row offset (`parallel/mesh.py::
+local_rows`); the normalizers already span every rank.
 """
 
 from __future__ import annotations
@@ -22,7 +25,11 @@ import torch
 
 from yolo_from_scratch_tpu_torch.ops.ciou import ciou_loss
 from yolo_from_scratch_tpu_torch.ops.decode import decode_predictions
-from yolo_from_scratch_tpu_torch.parallel.mesh import global_mean, global_sum
+from yolo_from_scratch_tpu_torch.parallel.mesh import (
+    global_mean,
+    global_sum,
+    local_rows,
+)
 
 BOX_WEIGHT = 0.05
 CLS_WEIGHT = 0.5
@@ -51,7 +58,8 @@ def yolo_loss(predictions, targets, anchors, num_classes=1, img_size=640):
     logits and dense targets (channel 4 is objectness in {0, 1}); anchors
     (A, 2) pixels (a tensor on the predictions' device avoids a copy).
     Returns (total, bbox, obj, cls), total weighted 0.05 / 1.0 / 0.5."""
-    decoded = decode_predictions(predictions, anchors, img_size)
+    decoded = decode_predictions(predictions, anchors, img_size,
+                                 *local_rows(predictions.shape[1]))
     obj_mask = targets[..., 4] > 0.5
 
     bbox = ciou_loss(decoded[..., 0:4], targets[..., 0:4], mask=obj_mask)

@@ -20,7 +20,11 @@ labels:
 
 Inside `parallel/mesh.py::data_parallel` the winner count, the cell
 count N and the objectness mean are the global batch's, as in
-`ops/losses.py`.
+`ops/losses.py`. On a 2-D mesh the labels are whole on every rank of a
+space group and the predictions its row block: each rank keeps the
+winners whose slot lies in its rows, gathers them at their local index
+and decodes them at their global row; the counts are summed over every
+rank, so each winner counts once.
 
 Equal to the dense path up to summation order, with gradients that agree
 (d/dl of the objectness rewrite is (sigmoid(l) - [winner]) / N, the dense
@@ -46,6 +50,7 @@ from yolo_from_scratch_tpu_torch.parallel.mesh import (
     global_count,
     global_mean,
     global_sum,
+    local_rows,
 )
 
 
@@ -53,19 +58,23 @@ def _scale_loss(pred, gt_boxes, onehot, win, slot, anchors, num_classes,
                 decode_size):
     """One scale's (bbox, obj, cls) from the winners' gathered rows.
 
-    pred (B, gs, gs, A, 5+nc) raw logits; gt_boxes (B, K, 4) normalized
-    [cx, cy, w, h]; onehot (B, K, nc); win (B, K) bool; slot (B, K) flat
-    (gy*gs + gx)*A + anchor; anchors (A, 2) pixels."""
-    b, gs, _, na, d = pred.shape
-    n_cells = float(global_count(b * gs * gs * na))
-    flat = pred.reshape(b, gs * gs * na, d)
+    pred (B, h, gs, A, 5+nc) raw logits, h = gs or a row block's rows;
+    gt_boxes (B, K, 4) normalized [cx, cy, w, h]; onehot (B, K, nc); win
+    (B, K) bool; slot (B, K) global flat (gy*gs + gx)*A + anchor; anchors
+    (A, 2) pixels."""
+    b, h, gs, na, d = pred.shape
+    n_cells = float(global_count(b * h * gs * na))
+    flat = pred.reshape(b, h * gs * na, d)
 
-    idx = torch.where(win, slot, 0)
+    # the winners in this rank's rows (all of them without a space axis)
+    off = local_rows(h)[0] * gs * na
+    win = win & (slot >= off) & (slot < off + h * gs * na)
+    idx = torch.where(win, slot - off, 0)
     g = torch.gather(flat, 1, idx[..., None].expand(b, idx.shape[1], d))
 
     # decode the gathered rows as ops/decode.py decodes those cells
     anchor_i = idx % na
-    cell = idx // na
+    cell = (idx + off) // na
     gx = (cell % gs).to(pred.dtype)
     gy = (cell // gs).to(pred.dtype)
     sxy = torch.sigmoid(g[..., 0:2])

@@ -1,23 +1,49 @@
-"""Data parallelism over `torch.distributed` (counterpart of
-`yolo_from_scratch_tpu/parallel/`): the process-group view and the
-collectives of the data-parallel step (`mesh.py`), and the multi-process
+"""Data and spatial parallelism over `torch.distributed` (counterpart of
+`yolo_from_scratch_tpu/parallel/`): the process-group view, the 1-D data
+mesh and the 2-D `data x space` mesh with this rank's slices of a host
+batch, and the collectives of the step (`mesh.py`); the halo exchange and
+row gather of a row-sharded tensor (`spatial.py`); the multi-process
 start-up, sharding and evaluation reduce (`distributed.py`). Not ported
-yet: the 2-D spatial mesh and tensor parallelism (`parallel/tensor.py`)."""
+yet: tensor parallelism (`parallel/tensor.py`)."""
 
 from yolo_from_scratch_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    SPACE_AXIS,
     Mesh,
+    batch_sharding,
+    batch_sharding_for,
+    data_parallel,
+    image_sharding,
+    local_rows,
     make_mesh,
     make_mesh_2d,
     pad_batch_to_multiple,
+    replicated_sharding,
     shard_batch,
+    space_rows,
+    target_sharding,
+)
+from yolo_from_scratch_tpu_torch.parallel.spatial import (
+    gather_rows,
+    halo_rows,
 )
 
 __all__ = [
-    "DATA_AXIS",
-    "Mesh",
     "make_mesh",
     "make_mesh_2d",
-    "pad_batch_to_multiple",
+    "batch_sharding",
+    "image_sharding",
+    "target_sharding",
+    "replicated_sharding",
     "shard_batch",
+    "pad_batch_to_multiple",
+    "DATA_AXIS",
+    "SPACE_AXIS",
+    "Mesh",
+    "batch_sharding_for",
+    "data_parallel",
+    "gather_rows",
+    "halo_rows",
+    "local_rows",
+    "space_rows",
 ]

@@ -6,9 +6,12 @@
   process's id, else from `torchrun`'s environment (MASTER_ADDR,
   MASTER_PORT, RANK, WORLD_SIZE), as JAX auto-detects on TPU pods. The
   backend follows the device: `nccl` on a CUDA device, `gloo` on the CPU
-  (JAX's plugin sniffing for its CPU backend is not copied). One tiny
-  all-reduce right after the connection pins the rendezvous to start-up,
-  as JAX's start-up barrier does.
+  (JAX's plugin sniffing for its CPU backend is not copied), and `gloo`
+  too where this host's ranks outnumber its cards, so that they share
+  them (NCCL refuses two ranks on one card; `gloo` runs the step's
+  collectives on CUDA tensors). One tiny all-reduce right after the
+  connection pins the rendezvous to start-up, as JAX's start-up barrier
+  does.
 - Each process loads its own strided slice of every epoch permutation
   (`local_shard_indices`; `data/loader.py::shard_indices`, wrap-padded so
   every rank takes the same steps), and `--batch-size` is per process.
@@ -45,7 +48,9 @@ def init_distributed(coordinator: str | None = None,
     environment; anything in between is refused (ValueError), as is a
     missing environment. `backend` defaults to `nccl` when `device` is a
     CUDA device (each rank then takes `cuda:{rank % device_count}` as its
-    current device) and to `gloo` otherwise."""
+    current device) and to `gloo` otherwise, or where more ranks than
+    cards run on this host (torchrun's LOCAL_WORLD_SIZE, or every
+    process when the coordinator is a loopback address)."""
     given = [a is not None for a in (coordinator, num_processes, process_id)]
     if any(given) and not all(given):
         raise ValueError("--distributed takes --coordinator, "
@@ -59,21 +64,31 @@ def init_distributed(coordinator: str | None = None,
                              f"not set")
         init_method = "env://"
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        host_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", 0))
     else:
         if not 0 <= process_id < num_processes:
             raise ValueError(f"--process-id {process_id} is not in [0, "
                              f"{num_processes})")
         init_method = f"tcp://{coordinator}"
         rank, world = process_id, num_processes
+        host_ranks = world if _on_this_host(coordinator) else 0
     cuda = torch.device(device).type == "cuda"
     if backend is None:
-        backend = "nccl" if cuda else "gloo"
+        shared = cuda and host_ranks > torch.cuda.device_count()
+        backend = "nccl" if cuda and not shared else "gloo"
     if cuda:
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world)
     _startup_barrier(cuda)
     return dist.get_rank(), dist.get_world_size()
+
+
+def _on_this_host(coordinator: str) -> bool:
+    """Whether a "host:port" coordinator is this host (a loopback
+    address): then every process of the job runs here."""
+    host = coordinator.rsplit(":", 1)[0].strip("[]")
+    return host in ("localhost", "::1") or host.startswith("127.")
 
 
 def _startup_barrier(cuda: bool):

@@ -1,5 +1,5 @@
-"""The process-group view of a data-parallel run (counterpart of
-`yolo_from_scratch_tpu/parallel/mesh.py`, its data axis).
+"""The process-group view of a data-parallel or spatial run (counterpart
+of `yolo_from_scratch_tpu/parallel/mesh.py`).
 
 The JAX package's data-parallel step is one SPMD program over the global
 batch, sharded on the mesh's `data` axis: BatchNorm's statistics are the
@@ -21,6 +21,16 @@ of per-rank losses):
 - the step (`train/steps.py`) then sums the gradients over the ranks in
   one flattened all-reduce (`all_reduce_grads_`) before the clip.
 
+The 2-D `data x space` mesh of `--spatial N` (`make_mesh_2d`) lays the
+ranks out as JAX reshapes its devices, `(world / N, N)`: rank r holds
+rows [s * H / N, (s + 1) * H / N) (s = r % N) of the images of data shard
+r // N. Every element of the global batch still lives on exactly one
+rank, so the rules above hold unchanged over the world group (equal local
+element counts). What GSPMD adds for the rows, the port adds by hand
+(`parallel/spatial.py`): the halo rows of every 3x3 conv and pool, the
+gather of the anchor-free head's outputs over the space group, and the
+row offset of every decode (`local_rows`).
+
 Only `all_reduce`, `broadcast` and `barrier` are used: the collectives
 that `gloo` runs on CUDA tensors too, so that two ranks can share one
 card. The local batches must be equal (the sharded loader makes them so,
@@ -28,9 +38,6 @@ card. The local batches must be equal (the sharded loader makes them so,
 an identity, and a mean's share is 1.0, so such a run equals the run
 without one bit for bit; without a process group (`--data-parallel`
 alone: a world of one) no collective is issued at all.
-
-Not ported yet: the 2-D `data x space` mesh (`make_mesh_2d`,
-`--spatial`) and the spatial rule of `batch_sharding_for`.
 """
 
 from __future__ import annotations
@@ -42,22 +49,67 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-DATA_AXIS = "data"  # the JAX mesh's one axis here: the ranks
-SPATIAL_NOT_PORTED = ("the 2-D data x space mesh (--spatial, make_mesh_2d) "
-                      "is not ported yet")
+DATA_AXIS = "data"    # the JAX mesh's first axis: the data shards
+SPACE_AXIS = "space"  # its second on a 2-D mesh: the row shards
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This process's place in the run: its rank, the world size (`size`,
-    the JAX mesh's device count on its DATA_AXIS), the device its tensors
-    live on and the process group (None for a world of one without
-    one)."""
+    the JAX mesh's device count), the device its tensors live on and the
+    process group (None for a world of one without one). On a 2-D mesh
+    `n_space` > 1 ranks share each data shard, one block of rows each;
+    `space_group` joins them, `data_group` joins the ranks that hold the
+    same rows of the other data shards (None where such a group would
+    hold this rank alone)."""
 
     rank: int
     size: int
     device: torch.device
     group: object = None
+    n_space: int = 1
+    space_group: object = None
+    data_group: object = None
+
+    @property
+    def n_data(self) -> int:
+        return self.size // self.n_space
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_space
+
+    @property
+    def space_index(self) -> int:
+        return self.rank % self.n_space
+
+    @property
+    def spatial(self) -> bool:
+        return self.n_space > 1
+
+    def data_view(self) -> Mesh:
+        """The data axis alone, as the ranks of this rank's row block see
+        it: the mesh of a computation that every rank of a space group
+        repeats on the whole images of its data shard (the mesh itself
+        without a space axis)."""
+        if not self.spatial:
+            return self
+        return Mesh(self.data_index, self.n_data, self.device,
+                    self.data_group)
+
+    def space_view(self) -> Mesh:
+        """The space axis alone: this rank's space group, the mesh of a
+        computation on one data shard's batch (evaluation, whose shards
+        hold different numbers of batches)."""
+        return Mesh(self.space_index, self.n_space, self.device,
+                    self.space_group, self.n_space, self.space_group)
+
+
+def _rank_device(device, rank):
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    return device
 
 
 def make_mesh(device="cpu") -> Mesh:
@@ -70,17 +122,93 @@ def make_mesh(device="cpu") -> Mesh:
     if not dist.is_initialized():
         return Mesh(0, 1, device)
     rank, size = dist.get_rank(), dist.get_world_size()
-    if device.type == "cuda":
-        device = torch.device("cuda", rank % torch.cuda.device_count())
-    return Mesh(rank, size, device, dist.group.WORLD)
+    return Mesh(rank, size, _rank_device(device, rank), dist.group.WORLD)
 
 
-def make_mesh_2d(n_space: int, devices=None):
-    raise NotImplementedError(SPATIAL_NOT_PORTED)
+def make_mesh_2d(n_space: int, device="cpu") -> Mesh:
+    """The 2-D (data, space) mesh over the processes of the process group
+    (a world of one without one): data parallelism over groups of
+    `n_space` ranks, each group splitting the image height `n_space`
+    ways. Rank r is at (r // n_space, r % n_space), JAX's
+    `reshape(world // n_space, n_space)` of its device list. Every rank
+    creates every subgroup, in one order (`dist.new_group` is
+    collective): first the space groups, then the data groups; a group of
+    one rank is not made. Raises JAX's ValueError when the world does not
+    divide."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_space < 1 or world % n_space:
+        raise ValueError(
+            f"{world} devices do not divide into space={n_space}")
+    if not dist.is_initialized():
+        return Mesh(0, 1, torch.device(device))
+    rank, n_data = dist.get_rank(), world // n_space
+    space_group = data_group = None
+    if n_space > 1:
+        for d in range(n_data):
+            g = dist.new_group([d * n_space + s for s in range(n_space)])
+            if d == rank // n_space:
+                space_group = g
+    if n_data > 1:
+        data_group = dist.group.WORLD
+        if n_space > 1:
+            for s in range(n_space):
+                g = dist.new_group([d * n_space + s for d in range(n_data)])
+                if s == rank % n_space:
+                    data_group = g
+    return Mesh(rank, world, _rank_device(device, rank), dist.group.WORLD,
+                n_space, space_group, data_group)
 
 
-def batch_sharding_for(mesh, arr):
-    raise NotImplementedError(SPATIAL_NOT_PORTED)
+def batch_sharding(mesh: Mesh, arr):
+    """This rank's slice of a host array's batch dimension: the rows
+    [d * b, (d + 1) * b) of data shard d (b = B / n_data), as the JAX
+    mesh places a batch on its data axis. A view."""
+    b, rem = divmod(arr.shape[0], mesh.n_data)
+    if rem:
+        raise ValueError(f"a batch of {arr.shape[0]} does not divide "
+                         f"over {mesh.n_data} data shards "
+                         f"(pad_batch_to_multiple)")
+    return arr[mesh.data_index * b:(mesh.data_index + 1) * b]
+
+
+def space_rows(mesh: Mesh, arr):
+    """This rank's block of dimension 1 (image or grid rows) of a batch
+    held whole by its space group: rows [s * H / N, (s + 1) * H / N). A
+    view; the array itself without a space axis."""
+    if not mesh.spatial:
+        return arr
+    h, rem = divmod(arr.shape[1], mesh.n_space)
+    if rem:
+        raise ValueError(f"{arr.shape[1]} rows do not divide over "
+                         f"space={mesh.n_space}")
+    return arr[:, mesh.space_index * h:(mesh.space_index + 1) * h]
+
+
+def image_sharding(mesh: Mesh, arr):
+    """This rank's part of an NHWC image batch: its data shard's images,
+    and on a 2-D mesh its block of their rows."""
+    return space_rows(mesh, batch_sharding(mesh, arr))
+
+
+def target_sharding(mesh: Mesh, arr):
+    """This rank's part of a dense target batch (B, gs, gs, ...): rows
+    follow the image rows, so the loss stays local to each row block."""
+    return image_sharding(mesh, arr)
+
+
+def replicated_sharding(mesh: Mesh, arr):
+    """An array every rank holds whole (parameters): itself."""
+    return arr
+
+
+def batch_sharding_for(mesh: Mesh, arr):
+    """This rank's part of a batch-leading array: dense spatial maps
+    (ndim >= 4: images, targets) by `target_sharding`; low-rank arrays
+    (compact labels (B, K, 5), counts (B,)) by the batch alone, whole on
+    every rank of a space group."""
+    if arr.ndim >= 4:
+        return target_sharding(mesh, arr)
+    return batch_sharding(mesh, arr)
 
 
 def pad_batch_to_multiple(arr: np.ndarray, multiple: int):
@@ -102,15 +230,10 @@ def pad_batch_to_multiple(arr: np.ndarray, multiple: int):
 
 
 def shard_batch(mesh: Mesh, images, targets):
-    """This rank's rows of a global host batch, `[rank * b, (rank + 1) *
-    b)` with b = B / size, as the JAX mesh places a batch on its data
-    axis: (images, [targets])."""
-    b, rem = divmod(images.shape[0], mesh.size)
-    if rem:
-        raise ValueError(f"a batch of {images.shape[0]} does not divide "
-                         f"over {mesh.size} ranks (pad_batch_to_multiple)")
-    rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
-    return images[rows], [t[rows] for t in targets]
+    """This rank's part of a global host batch: (images, [targets]) by
+    `image_sharding` and `batch_sharding_for`."""
+    return (image_sharding(mesh, images),
+            [batch_sharding_for(mesh, t) for t in targets])
 
 
 _active = None
@@ -119,8 +242,10 @@ _active = None
 @contextlib.contextmanager
 def data_parallel(mesh):
     """Inside, the losses and train-mode BatchNorm compute the global
-    batch's values over `mesh`'s process group (module docstring). A mesh
-    without a group, or None, changes nothing."""
+    batch's values over `mesh`'s process group, and on a 2-D mesh the
+    convs and pools take halo rows from their neighbours and the decodes
+    offset their rows (module docstring). A mesh without a group, or
+    None, changes nothing."""
     global _active
     prev = _active
     _active = mesh if mesh is not None and mesh.group is not None else None
@@ -133,6 +258,20 @@ def data_parallel(mesh):
 def active_mesh():
     """The mesh of the enclosing `data_parallel`, or None."""
     return _active
+
+
+def spatial_mesh():
+    """The active mesh when it has a space axis (the tensors in flight
+    are row blocks), else None."""
+    return _active if _active is not None and _active.spatial else None
+
+
+def local_rows(h: int):
+    """(row offset, global rows) of a grid whose h local rows are this
+    rank's block under the active mesh; (0, h) without a space axis."""
+    if _active is None or not _active.spatial:
+        return 0, h
+    return _active.space_index * h, h * _active.n_space
 
 
 def all_reduce(t, mesh, op=dist.ReduceOp.SUM):

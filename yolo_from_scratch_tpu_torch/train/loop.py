@@ -23,7 +23,10 @@ each global batch and prints the global loss (the ranks' per-step losses
 summed, one all-reduce an epoch) and the global P/R/F1 (each rank
 evaluates its own unpadded slice of the val split,
 `parallel/distributed.py::global_eval_reduce`); only rank 0 appends to
-the JSONL and writes checkpoints, as the JAX loop does.
+the JSONL and writes checkpoints, as the JAX loop does. On a 2-D mesh
+(`--spatial`) the loaders are sharded by data index, each rank takes its
+block of rows of every batch (`DeviceQueue`), and the ranks of a space
+group evaluate their data shard's slice together.
 """
 
 from __future__ import annotations
@@ -71,7 +74,7 @@ def train_epoch(train_step, state, loader, device, mesh=None):
     per_step = []
     n_images = 0
     t0 = time.perf_counter()
-    for images, targets, valid in DeviceQueue(loader, device):
+    for images, targets, valid in DeviceQueue(loader, device, mesh):
         n_images += valid
         state, metrics = train_step(state, images, targets)
         per_step.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
@@ -94,9 +97,13 @@ def eval_epoch(eval_step, model, loader, device, mesh=None):
     """Loss + grid-aligned P/R/F1 over a loader. Returns (loss, P%, R%,
     F1%). With a `mesh` of several processes each rank counts its own
     shard of the split (the loader's) and the five sums are reduced over
-    the ranks, so every rank returns the global values."""
+    the ranks, so every rank returns the global values. On a 2-D mesh a
+    rank counts its rows of its data shard's images (an `eval_step` made
+    with the mesh), its losses are its parts of the batches' losses, and
+    the batches are counted once a space group."""
     per_batch = [(*eval_step(model, images, targets), valid)
-                 for images, targets, valid in DeviceQueue(loader, device)]
+                 for images, targets, valid in DeviceQueue(loader, device,
+                                                           mesh)]
     losses, tps, fps, fns = [], 0, 0, 0
     for loss, tp, fp, fn, valid in per_batch:
         losses.append(float(loss))
@@ -105,8 +112,9 @@ def eval_epoch(eval_step, model, loader, device, mesh=None):
         fps += int(fp[:valid].sum())
         fns += int(fn[:valid].sum())
     if mesh is not None and mesh.size > 1:
+        n_batches = len(losses) if mesh.space_index == 0 else 0
         tps, fps, fns, loss_sum, n_batches = global_eval_reduce(
-            tps, fps, fns, float(np.sum(losses)), len(losses))
+            tps, fps, fns, float(np.sum(losses)), n_batches)
         avg_loss = loss_sum / n_batches if n_batches else 0.0
     else:
         avg_loss = float(np.mean(losses)) if losses else 0.0

@@ -10,6 +10,11 @@
 Precision / recall / F1 come from the summed counts. These are the
 reference's grid-aligned metrics, not NMS-based mAP. The anchor-free head
 takes its best class probability for pred_obj.
+
+On a row block (`--spatial`, inside `parallel/mesh.py::data_parallel`)
+the counts are those of the block's cells, decoded at their global rows;
+summed over every rank (`train/loop.py::eval_epoch`) they are the
+image's.
 """
 
 from __future__ import annotations
@@ -22,13 +27,15 @@ from yolo_from_scratch_tpu_torch.models.anchor_free import (
 )
 from yolo_from_scratch_tpu_torch.ops.boxes import box_iou_center
 from yolo_from_scratch_tpu_torch.ops.decode import decode_predictions
+from yolo_from_scratch_tpu_torch.parallel.mesh import local_rows
 
 
 def grid_metric_counts(pred, target, anchors, img_size, conf_threshold=0.5,
                        iou_threshold=0.5, quirk_640=False, per_image=False):
     """TP/FP/FN counts for one scale: int32 scalars, or (B,) vectors when
     `per_image` (so a caller can drop padded batch rows)."""
-    decoded = decode_predictions(pred, anchors, 640 if quirk_640 else img_size)
+    decoded = decode_predictions(pred, anchors, 640 if quirk_640 else img_size,
+                                 *local_rows(pred.shape[1]))
     pm = torch.sigmoid(pred[..., 4]) > conf_threshold
     tm = target[..., 4] > conf_threshold
     iou = box_iou_center(decoded[..., 0:4], target[..., 0:4], eps=1e-6)
@@ -56,7 +63,8 @@ def grid_metric_counts_anchor_free(pred, target, stride, img_size,
     not 4. This cell-aligned count understates a TAL-trained model (TAL
     often picks a neighbouring cell); `--map` / `--val-det` score the
     detections."""
-    decoded = decode_anchor_free(pred, stride, img_size)
+    decoded = decode_anchor_free(pred, stride, img_size,
+                                 local_rows(pred.shape[1])[0])
     pm = torch.sigmoid(pred[..., 4 * REG_MAX:]).amax(dim=-1) > conf_threshold
     tm = target[..., 4] > conf_threshold
     iou = box_iou_center(decoded[..., 0:4], target[..., 0:4], eps=1e-6)

@@ -54,9 +54,22 @@ the global batch: the loss and train-mode BatchNorm run inside
 loss its part of the global one), and the gradients are summed over the
 ranks in one flattened all-reduce before the clip, whose norm is then the
 global gradient's. A step's random draws are those of the global batch
-(B x size rows, from the same generators), of which each rank takes its
-rows [rank * B, (rank + 1) * B). The device mosaic, whose partners come
-from the whole global batch, is not ported at a world larger than one.
+(B x n_data rows, from the same generators), of which each rank takes
+the rows of its data shard, [d * B, (d + 1) * B). The device mosaic, whose
+partners come from the whole global batch, is not ported at a world
+larger than one.
+
+On a 2-D mesh (`parallel/mesh.py::make_mesh_2d`, `--spatial N`) the
+images and dense targets a step takes are this rank's block of rows of
+its data shard's batch (compact labels stay whole: each rank builds the
+whole images' dense maps and keeps its rows), the model and the losses
+run on the blocks (`models/blocks.py`, `ops/`), and the gradients are
+summed over the world. The ranks of a space group take the same draws
+(by data index), so an image is augmented alike in all its blocks. The
+anchor-free loss is held whole by each rank of a space group
+(`models/anchor_free.py`), so its metrics are reported at 1 / N a rank.
+`make_eval_step(mesh=)` runs on one data shard's batch with collectives
+in its space group alone.
 """
 
 from __future__ import annotations
@@ -97,6 +110,7 @@ from yolo_from_scratch_tpu_torch.ops.mosaic_device import (
 from yolo_from_scratch_tpu_torch.parallel.mesh import (
     all_reduce_grads_,
     data_parallel,
+    space_rows,
 )
 from yolo_from_scratch_tpu_torch.train.ema import ema_update
 from yolo_from_scratch_tpu_torch.train.metrics import (
@@ -386,17 +400,29 @@ MOSAIC_NOT_PORTED = ("the device mosaic at a world of more than one process "
 
 
 def _rank_draws(spec: DrawSpec, step: int, b: int, mesh) -> dict:
-    """One step's draws for this rank's b rows: the draws of the global
-    batch of b x size rows, as one process draws them, and this rank's
-    rows [rank * b, (rank + 1) * b) of them."""
+    """One step's draws for this rank's b images: the draws of the global
+    batch of b x n_data images, as one process draws them, and the rows
+    [d * b, (d + 1) * b) of this rank's data shard d, the same on every
+    rank of a space group."""
     if mesh is None or mesh.size == 1:
         return spec.draw(step, b)
     if spec.mosaic:
         raise NotImplementedError(MOSAIC_NOT_PORTED)
-    rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    if mesh.n_data == 1:
+        return spec.draw(step, b)
+    rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
     return {k: v if k == "step" else tuple(
         t if t is None else t[rows] for t in v)
-        for k, v in spec.draw(step, b * mesh.size).items()}
+        for k, v in spec.draw(step, b * mesh.n_data).items()}
+
+
+def _report_share(cfg: YoloConfig, mesh) -> float:
+    """The part of a step's loss a rank reports: 1 / n_space for the
+    anchor-free loss on a 2-D mesh (every rank of a space group holds it
+    whole), else 1 (each rank's loss is its own part already)."""
+    if cfg.head_type == "anchor_free" and mesh is not None and mesh.spatial:
+        return 1.0 / mesh.n_space
+    return 1.0
 
 
 class ChunkDraws:
@@ -463,7 +489,7 @@ class ChunkDraws:
 
 def _make_expand(cfg: YoloConfig, compact_targets: bool, device=None, *,
                  mosaic: bool = False, seed: int = 0, device_augment=False,
-                 sparse: bool = False):
+                 sparse: bool = False, mesh=None):
     """The train and eval steps' input adapter: expand(step, images,
     targets, draws=None) -> (images, targets). uint8 images are normalized;
     with `compact_targets`, (labels, counts) become, after the device
@@ -475,7 +501,9 @@ def _make_expand(cfg: YoloConfig, compact_targets: bool, device=None, *,
     alone) applies here at label level on the anchor-free and sparse
     paths, its draws from (seed, step); the dense paths take the
     dense-level hook in the step instead. `draws` (`DrawSpec.draw`'s
-    layout, on the images' device) replaces the step's own draws."""
+    layout, on the images' device) replaces the step's own draws. On a
+    2-D `mesh` the images are a row block and the anchor head's dense
+    maps, built whole from the whole labels, are cut to the same rows."""
     if mosaic and not compact_targets:
         raise ValueError("device mosaic requires compact targets (it "
                          "transforms raw labels, not dense maps)")
@@ -505,8 +533,10 @@ def _make_expand(cfg: YoloConfig, compact_targets: bool, device=None, *,
             return images, (labels, valid)
         if af:
             return images, _af_gt(labels, valid, cfg.num_classes)
-        return images, assign_targets_device_masked_batch(
-            labels, valid, anchors, cfg.img_size, cfg.num_classes)
+        return images, [space_rows(mesh, t) if mesh is not None else t
+                        for t in assign_targets_device_masked_batch(
+                            labels, valid, anchors, cfg.img_size,
+                            cfg.num_classes)]
 
     return expand
 
@@ -539,7 +569,8 @@ def _make_step_body(cfg: YoloConfig, quirk_640: bool, device, *,
            if device_augment and not (af_compact or sparse_loss) else None)
     expand = _make_expand(cfg, compact_targets, device, mosaic=device_mosaic,
                           seed=augment_seed, device_augment=device_augment,
-                          sparse=sparse_loss)
+                          sparse=sparse_loss, mesh=mesh)
+    share = _report_share(cfg, mesh)
     spec = DrawSpec(augment_seed, bool(device_mosaic), bool(device_augment),
                     device_augment != "flip",
                     steps=step_lr is not None or ema_decay is not None)
@@ -561,7 +592,8 @@ def _make_step_body(cfg: YoloConfig, quirk_640: bool, device, *,
         state.optimizer.step()
         if ema_decay is not None:
             ema_update(ema, state.model, draws["step"][0] + 1, ema_decay)
-        return tuple(t.detach() for t in (total, bbox, obj, cls))
+        return tuple(t.detach() * share if share != 1.0 else t.detach()
+                     for t in (total, bbox, obj, cls))
 
     return spec, body
 
@@ -786,6 +818,7 @@ def make_train_step_accum(cfg: YoloConfig, n_accum: int,
     if n_accum < 1:
         raise ValueError(f"n_accum must be >= 1, got {n_accum}")
     loss_fn = make_loss_fn(cfg, quirk_640, device)
+    share = _report_share(cfg, mesh)
     aug = (make_device_augment(cfg, augment_seed,
                                jitter=device_augment != "flip")
            if device_augment else None)
@@ -814,7 +847,7 @@ def make_train_step_accum(cfg: YoloConfig, n_accum: int,
         clip_by_global_norm_(grads)
         state.optimizer.step()
         state.step += 1
-        metrics = torch.stack(per).mean(0)
+        metrics = torch.stack(per).mean(0) * share
         return state, dict(zip(METRIC_KEYS, metrics.unbind()))
 
     return train_step
@@ -822,54 +855,67 @@ def make_train_step_accum(cfg: YoloConfig, n_accum: int,
 
 def make_eval_step(cfg: YoloConfig, conf_threshold=0.5, iou_threshold=0.5,
                    quirk_640: bool = False, device=None,
-                   compact_targets: bool = False):
+                   compact_targets: bool = False, mesh=None):
     """eval_step(model, images, targets) -> (loss, tp, fp, fn): the eval-mode
     loss and per-image (B,) int32 counts summed over the scales, all on the
     device. With `compact_targets` the batch is uint8 images and (labels,
     counts): the anchor head's maps are built on the device; the
     anchor-free head's loss reads the GT set and its grid metric the maps
-    of `assign_targets_anchor_free_device_batch`."""
+    of `assign_targets_anchor_free_device_batch`.
+
+    With a 2-D `mesh` the batch is this rank's row block of its data
+    shard's batch (the shards' batches differ, so the step's collectives
+    stay in the space group, `Mesh.space_view`): the counts are the
+    block's cells', and the loss is this rank's part of the batch's, the
+    parts summing to it over the space group."""
+    sub = mesh.space_view() if mesh is not None and mesh.spatial else None
+    share = _report_share(cfg, sub)
     if cfg.head_type == "anchor_free":
 
         @torch.no_grad()
         def eval_step_af(model, images, targets):
-            preds = model(_normalize(images), train=False)
-            if compact_targets:
-                labels, counts = targets
-                valid = prefix_valid(counts, labels.shape[1])
-                loss, _, _ = yolo_loss_anchor_free_from_gt(
-                    preds, *_af_gt(labels, valid, cfg.num_classes),
-                    cfg.num_classes, cfg.img_size)
-                targets = assign_targets_anchor_free_device_batch(
-                    labels, counts, cfg.img_size, cfg.num_classes)
-            else:
-                loss, _, _ = yolo_loss_anchor_free(
-                    preds, targets, cfg.num_classes, cfg.img_size)
-            tp = fp = fn = 0
-            for pred, tgt, stride in zip(preds, targets, STRIDES):
-                t, f, n = grid_metric_counts_anchor_free(
-                    pred, tgt, stride, cfg.img_size, conf_threshold,
-                    iou_threshold, per_image=True)
-                tp, fp, fn = tp + t, fp + f, fn + n
-            return loss, tp, fp, fn
+            with data_parallel(sub):
+                preds = model(_normalize(images), train=False)
+                if compact_targets:
+                    labels, counts = targets
+                    valid = prefix_valid(counts, labels.shape[1])
+                    loss, _, _ = yolo_loss_anchor_free_from_gt(
+                        preds, *_af_gt(labels, valid, cfg.num_classes),
+                        cfg.num_classes, cfg.img_size)
+                    maps = assign_targets_anchor_free_device_batch(
+                        labels, counts, cfg.img_size, cfg.num_classes)
+                    targets = [space_rows(sub, t) if sub is not None else t
+                               for t in maps]
+                else:
+                    loss, _, _ = yolo_loss_anchor_free(
+                        preds, targets, cfg.num_classes, cfg.img_size)
+                tp = fp = fn = 0
+                for pred, tgt, stride in zip(preds, targets, STRIDES):
+                    t, f, n = grid_metric_counts_anchor_free(
+                        pred, tgt, stride, cfg.img_size, conf_threshold,
+                        iou_threshold, per_image=True)
+                    tp, fp, fn = tp + t, fp + f, fn + n
+            return loss * share, tp, fp, fn
 
         return eval_step_af
 
     anchors = torch.as_tensor(cfg.anchors_array, device=device)
-    expand = _make_expand(cfg, compact_targets, device)
+    expand = _make_expand(cfg, compact_targets, device, mesh=sub)
 
     @torch.no_grad()
     def eval_step(model, images, targets):
         images, targets = expand(0, images, targets)
-        preds = model(images, train=False)
-        loss, _, _, _ = yolo_loss_multiscale(
-            preds, targets, anchors, cfg.num_classes, cfg.img_size, quirk_640)
-        tp = fp = fn = 0
-        for pred, tgt, anc in zip(preds, targets, anchors):
-            t, f, n = grid_metric_counts(pred, tgt, anc, cfg.img_size,
-                                         conf_threshold, iou_threshold,
-                                         quirk_640, per_image=True)
-            tp, fp, fn = tp + t, fp + f, fn + n
+        with data_parallel(sub):
+            preds = model(images, train=False)
+            loss, _, _, _ = yolo_loss_multiscale(
+                preds, targets, anchors, cfg.num_classes, cfg.img_size,
+                quirk_640)
+            tp = fp = fn = 0
+            for pred, tgt, anc in zip(preds, targets, anchors):
+                t, f, n = grid_metric_counts(pred, tgt, anc, cfg.img_size,
+                                             conf_threshold, iou_threshold,
+                                             quirk_640, per_image=True)
+                tp, fp, fn = tp + t, fp + f, fn + n
         return loss, tp, fp, fn
 
     return eval_step
