@@ -214,7 +214,29 @@ and prints no result):
    `--val-det`, one epoch of 2 steps, each head in two processes and the
    anchor head in four (2 x 2): the same epoch line on every rank, K1's
    launches on every rank, K2's held to the gated convs, rank 0's
-   checkpoint served.
+   checkpoint served (the 2 x 2 run one step of the 16 images, the three
+   runs at once).
+23. model parallelism on phase 16's data, 's' @640 nc=80: (a) two ranks on
+   the one card (`gloo` on CUDA tensors), 1 x 2 data x model, each holding
+   its channel slices of the model and the whole global batch of 4,
+   YOLO_FUSED_CONV_BWD=1, float32 TF32 off, against one process with K2,
+   both heads: one step's loss within phase 8's 1e-4 relative, the
+   gathered gradients within its 1e-3 of each tensor's max, the gathered
+   weights equal on both ranks (the anchor-free head on the first batch
+   whose foreground masks agree), K2 launched 12 times a rank (the 40x40
+   convs the float32 gate takes); then bf16: K2 launched at the global
+   64->64 shapes, 16 / 20 times a rank (anchor / anchor-free), K2 at those shapes
+   (B=4 80x80 and 40x40) against its plain version with its device ms, its
+   plain version's, the library backward's and the H100 bound, the loss
+   within 1e-2 relative of one process with K2, the gathered weights equal
+   on both ranks (the worst gradient is logged); (b) the parameters and
+   Adam moments a rank holds, at most 0.55x one process's; (c) the CLI's
+   `--data-parallel --distributed --model-parallel 2` with `--val-det`,
+   one bf16 epoch of 2 steps at b8, each head in two processes and the
+   anchor head in four (2 x 2), the three runs at once: JAX's banners and
+   the same epoch line on
+   every rank, K2's launches held to the gated convs, rank 0's checkpoint
+   at full size served through K1 by a one-process `Predictor`.
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
@@ -224,8 +246,9 @@ inputs; the NMS kernel also its launches, device ms and bound on phase
 13's batch, both kernels their launches on phase 16's anchor-free paths,
 on phase 17's compact paths, on phase 18's stream paths, on phase
 19's recipe paths, on phase 20's int8 and artifact paths, on phase
-21's data-parallel paths and on phase 22's spatial paths, K2 also its
-times and bounds at phase 22's haloed tiles; Q1 and Q2
+21's data-parallel paths, on phase 22's spatial paths and on phase
+23's model-parallel paths, K2 also its times and bounds at phase 22's
+haloed tiles and phase 23's global shapes; Q1 and Q2
 their launches on phase 20's main path and in the artifacts, with their
 times, bounds and yardsticks summed over the 24 shapes at B=32); the last
 line is `{"ok": true, "device": {...}}`.
@@ -476,6 +499,20 @@ SP_BN_TOL = 1e-5      # (a): BatchNorm statistics, of the largest magnitude
 # and 40x40 grids' blocks of 40 and 20 rows, one halo row on each side
 SP_K2_CASES = ((4, 42, 80, torch.bfloat16), (4, 22, 40, torch.bfloat16))
 SP_JOIN_S = 600       # the ranks' time limit, then they are killed
+# phase 23: model parallelism
+TP_MODEL = 2          # ranks a model group (--model-parallel 2)
+# (a) bf16 with K2 against one process with K2 (both bf16): the loss
+# relative. The gradients are logged, not bounded: a sharded conv's dx is
+# the sum of the ranks' partial dx, each rounded to bf16 before the sum
+# (one process rounds the whole sum once), and the backward carries that
+# rounding on; the float32 step holds the gradients
+TP_BF16_LOSS_RTOL = 1e-2
+# (b) parameters + Adam moments a rank holds against one process's at
+# N = 2: the rule shards 95-99% of the 's' parameters, 0.51-0.52x
+TP_MEMORY_SHARE = 0.55
+# (a) K2 at the gated convs' global shapes, B=4: the P3 bottlenecks'
+# 80x80 and the P4 / head grid's 40x40
+TP_K2_CASES = ((4, 80, 80, torch.bfloat16), (4, 40, 40, torch.bfloat16))
 
 
 def log(msg):
@@ -3909,7 +3946,7 @@ def phase_dp_two_ranks(dev, workdir, yaml_path):
     return (sum(r["k1"] for r in ranks), sum(r["k2"] for r in ranks))
 
 
-SP_RANK_SCRIPT = r"""
+MESH_RANK_SCRIPT = r"""
 import os
 import sys
 
@@ -3924,7 +3961,10 @@ from yolo_from_scratch_tpu_torch.ops import conv_bwd
 from yolo_from_scratch_tpu_torch.parallel.distributed import (
     init_distributed, shutdown)
 from yolo_from_scratch_tpu_torch.parallel.mesh import (
-    batch_sharding_for, image_sharding, make_mesh_2d)
+    batch_sharding, batch_sharding_for, image_sharding, make_mesh_2d,
+    make_mesh_dm)
+from yolo_from_scratch_tpu_torch.parallel.tensor import (
+    full_state_dict, gather_state_tp, shard_model_)
 from yolo_from_scratch_tpu_torch.train import steps
 
 rank, world, coordinator, job_path, out_path = sys.argv[1:6]
@@ -3932,13 +3972,21 @@ rank, world = int(rank), int(world)
 # a loopback coordinator with more ranks than cards: gloo
 init_distributed(coordinator, world, rank, device="cuda")
 job = torch.load(job_path, weights_only=False)
-mesh = make_mesh_2d(job["n_space"], "cuda")
+# "space": the rows of the global batch (--spatial); "model": the whole
+# batch and this rank's output channels (--model-parallel)
+if job["axis"] == "space":
+    mesh = make_mesh_2d(job["n"], "cuda")
+    shard_images, shard_targets = image_sharding, batch_sharding_for
+else:
+    mesh = make_mesh_dm(job["n"], "cuda")
+    shard_images = shard_targets = batch_sharding
 seen = {}
-clip, tal = steps.clip_by_global_norm_, anchor_free.tal_assign
+clip, tal, fused = (steps.clip_by_global_norm_, anchor_free.tal_assign,
+                    conv_bwd.fused_bwd)
 
 
 def recording_clip(grads, *a, **kw):
-    seen["grads"] = [g.detach().cpu() for g in grads]
+    seen["grads"] = [g.detach().clone() for g in grads]
     return clip(grads, *a, **kw)
 
 
@@ -3948,51 +3996,70 @@ def recording_tal(*a, **kw):
     return out
 
 
+def recording_fused(x, dy, w):
+    seen["k2_shapes"].append((tuple(x.shape), tuple(dy.shape),
+                              tuple(w.shape)))
+    return fused(x, dy, w)
+
+
 steps.clip_by_global_norm_ = recording_clip
 anchor_free.tal_assign = recording_tal
+conv_bwd.fused_bwd = recording_fused
 out = {"backend": torch.distributed.get_backend(), "device": str(mesh.device)}
 for run in job["runs"]:
     os.environ["YOLO_FUSED_CONV_BWD"] = "1" if run["fused"] else "0"
     cfg = YoloConfig(**run["cfg"])
     model = YOLO(cfg)
     model.load_state_dict(job["states"][cfg.head_type])
+    shard_model_(model, mesh)
     model.to(mesh.device)
+    keys = getattr(model, "tp_keys", frozenset())
     state = steps.TrainState(model, steps.make_optimizer(model.parameters(),
                                                          job["lr"]))
-    images = image_sharding(mesh, run["images"])
-    targets = [batch_sharding_for(mesh, t) for t in run["targets"]]
-    images = torch.from_numpy(np.ascontiguousarray(images)).to(mesh.device)
-    targets = [torch.from_numpy(np.ascontiguousarray(t)).to(mesh.device)
-               for t in targets]
+    images = torch.from_numpy(np.ascontiguousarray(
+        shard_images(mesh, run["images"]))).to(mesh.device)
+    targets = [torch.from_numpy(np.ascontiguousarray(
+        shard_targets(mesh, t))).to(mesh.device) for t in run["targets"]]
     step = steps.make_train_step(cfg, device=mesh.device, mesh=mesh,
                                  **run["kw"])
     seen.pop("fg", None)
+    seen["k2_shapes"] = []
     torch.cuda.synchronize()
     conv_bwd.launches = 0
     with tf32_disabled():
         state, m = step(state, images, targets)
     torch.cuda.synchronize()
     k2 = conv_bwd.launches
+    names = [n for n, _ in model.named_parameters()]
+    grads = gather_state_tp(mesh, dict(zip(names, seen["grads"])), keys)
+    held = [*model.parameters()] + [t for p in model.parameters()
+                                    for k, t in state.optimizer.state[p].items()
+                                    if k in ("exp_avg", "exp_avg_sq")]
     out[run["name"]] = {
         "metrics": {k: v.item() for k, v in m.items()},
-        "grads": dict(zip([n for n, _ in model.named_parameters()],
-                          seen["grads"])),
-        "state": {k: v.cpu() for k, v in model.state_dict().items()},
-        "fg": seen.get("fg"), "k2": k2}
+        "grads": {k: v.cpu() for k, v in grads.items()},
+        "state": {k: v.cpu() for k, v in full_state_dict(model).items()},
+        "local": {k: v.cpu() for k, v in model.state_dict().items()},
+        "keys": keys,
+        "held_bytes": sum(t.numel() * t.element_size() for t in held),
+        "fg": seen.get("fg"), "k2": k2, "k2_shapes": seen["k2_shapes"]}
 torch.save(out, out_path)
 shutdown()
 """
 
-
-def _run_ranks(script, args, world, workdir, what, env=None):
+def _start_ranks(script, args, world, workdir, env=None):
     """`script` in `world` processes on the card, rank r with (r, world,
-    a loopback coordinator, *args); raises unless every rank exits 0.
-    Returns their stdouts."""
+    a loopback coordinator, *args): the started processes."""
     coordinator = f"127.0.0.1:{_free_port()}"
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, "-c", script, str(r), str(world), coordinator,
          *args(r)], cwd=workdir, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env) for r in range(world)]
+
+
+def _join_ranks(procs, what):
+    """Wait for `_start_ranks`' processes within SP_JOIN_S (then kill
+    them); raises unless every rank exits 0. Returns their stdouts."""
     try:
         results = [p.communicate(timeout=SP_JOIN_S) for p in procs]
     finally:
@@ -4003,6 +4070,12 @@ def _run_ranks(script, args, world, workdir, what, env=None):
             raise AssertionError(f"{what}: a rank exited {p.returncode}:\n"
                                  f"{out[-2000:]}\n{err[-4000:]}")
     return [out for out, _ in results]
+
+
+def _run_ranks(script, args, world, workdir, what, env=None):
+    """`script` in `world` processes on the card (`_start_ranks`), joined;
+    their stdouts."""
+    return _join_ranks(_start_ranks(script, args, world, workdir, env), what)
 
 
 def _sp_runs(yaml_path):
@@ -4045,11 +4118,12 @@ def _sp_runs(yaml_path):
 
 
 def _single_step(dev, run, state_dict):
-    """One process's step on the whole batch of `run`, float32 TF32 off:
-    (loss, gradients, state, TAL's foreground mask or None)."""
+    """One process's step on the whole batch of `run`, TF32 off, the K2
+    switch as `run["fused"]` sets it: (loss, gradients, state, TAL's
+    foreground mask or None)."""
     from yolo_from_scratch_tpu_torch.train import steps
 
-    os.environ["YOLO_FUSED_CONV_BWD"] = "0"
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1" if run["fused"] else "0"
     cfg = YoloConfig(**run["cfg"])
     model = YOLO(cfg)
     model.load_state_dict(state_dict)
@@ -4060,7 +4134,7 @@ def _single_step(dev, run, state_dict):
     clip, tal = steps.clip_by_global_norm_, anchor_free.tal_assign
 
     def recording_clip(grads, *a, **kw):
-        seen["grads"] = [g.detach().cpu() for g in grads]
+        seen["grads"] = [g.detach().to("cpu", copy=True) for g in grads]
         return clip(grads, *a, **kw)
 
     def recording_tal(*a, **kw):
@@ -4079,11 +4153,75 @@ def _single_step(dev, run, state_dict):
     finally:
         steps.clip_by_global_norm_ = clip
         anchor_free.tal_assign = tal
+        os.environ["YOLO_FUSED_CONV_BWD"] = "0"
     return (m["loss"].item(),
             dict(zip([n for n, _ in model.named_parameters()],
                      seen["grads"])),
             {k: v.cpu() for k, v in model.state_dict().items()},
             seen.get("fg"))
+
+
+def _mesh_ranks(axis, n, runs, states, workdir, what):
+    """`MESH_RANK_SCRIPT`'s steps of `runs` in `n` ranks on the card (1 x
+    n, the mesh axis `axis`): each rank's results, and the seconds both
+    took with start-up."""
+    job = workdir / f"{axis}_job.pt"
+    torch.save({"runs": runs, "states": states, "lr": DP_LR, "axis": axis,
+                "n": n}, job)
+    t0 = time.perf_counter()
+    _run_ranks(MESH_RANK_SCRIPT, lambda r: (str(job),
+                                            str(workdir / f"{axis}_rank{r}.pt")),
+               n, Path(__file__).resolve().parent, what)
+    ranks = [torch.load(workdir / f"{axis}_rank{r}.pt", weights_only=False)
+             for r in range(n)]
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"{what}: the ranks sharing the card are not "
+                             f"on gloo")
+    return ranks, time.perf_counter() - t0
+
+
+def _matched_single(dev, runs, ranks, states, head, what):
+    """One process's float32 step on the first of `head`'s batches whose
+    TAL foreground mask equals rank 0's (the anchor head has one batch):
+    (the run, its batch index, each rank's results for it, one process's
+    `_single_step`, K2's launches in that step)."""
+    for t in range(1 if head == "anchor" else AF_TRIES):
+        run = next(r for r in runs if r["name"] == (head, "float32", t))
+        conv_bwd.launches = 0
+        single = _single_step(dev, run, states[head])
+        k2 = conv_bwd.launches
+        got = [r[run["name"]] for r in ranks]
+        fg = single[3]
+        n_diff = 0 if fg is None else int((got[0]["fg"] != fg).sum())
+        if n_diff == 0:
+            return run, t, got, single, k2
+        log(f"{what} {head}: images {t * SP_BATCH}-{(t + 1) * SP_BATCH - 1}:"
+            f" {n_diff} of {int(fg.sum())} fg cells differ from one "
+            f"process's; the next batch")
+    raise AssertionError(f"{what}: {head} fg masks differ on all "
+                         f"{AF_TRIES} batches")
+
+
+def _worst(got, want):
+    """(largest |got - want| over the largest |want|, tensor) over the
+    gradients, the pre-BN biases left out (their gradient is float noise
+    around 0)."""
+    return max(((got[k] - g).abs().max().item()
+                / g.abs().max().clamp(min=1e-30).item(), k)
+               for k, g in want.items() if k not in PRE_BN_BIASES)
+
+
+def _bn_worst(got, want):
+    """`_worst` over the BatchNorm statistics of two full-size states."""
+    return _worst({k: v for k, v in got.items()
+                   if k.endswith((".bn.mean", ".bn.var"))},
+                  {k: v for k, v in want.items()
+                   if k.endswith((".bn.mean", ".bn.var"))})
+
+
+def _ranks_differ(a, b):
+    """The keys whose tensors differ between two ranks' states."""
+    return [k for k in a if not torch.equal(a[k], b[k])]
 
 
 def phase_spatial_step(dev, workdir, yaml_path, card):
@@ -4096,44 +4234,17 @@ def phase_spatial_step(dev, workdir, yaml_path, card):
     launches a rank held to the gated convs. Returns K2's launches summed
     over the ranks in (b)."""
     runs, states = _sp_runs(yaml_path)
-    torch.save({"runs": runs, "states": states, "lr": DP_LR,
-                "n_space": SP_SPACE}, workdir / "sp_job.pt")
-    t0 = time.perf_counter()
-    _run_ranks(SP_RANK_SCRIPT, lambda r: (str(workdir / "sp_job.pt"),
-                                          str(workdir / f"sp_rank{r}.pt")),
-               SP_SPACE, Path(__file__).resolve().parent, "phase 22 (a)")
-    ranks = [torch.load(workdir / f"sp_rank{r}.pt", weights_only=False)
-             for r in range(SP_SPACE)]
-    rank_s = time.perf_counter() - t0
-    if any(r["backend"] != "gloo" for r in ranks):
-        raise AssertionError("phase 22: the ranks sharing the card are not "
-                             "on gloo")
+    ranks, rank_s = _mesh_ranks("space", SP_SPACE, runs, states, workdir,
+                                "phase 22 (a)")
     k2_total = 0
     for head in ("anchor", "anchor_free"):
-        for t in range(1 if head == "anchor" else AF_TRIES):
-            run = next(r for r in runs if r["name"] == (head, "float32", t))
-            loss, grads, state, fg = _single_step(dev, run, states[head])
-            got = [r[run["name"]] for r in ranks]
-            n_diff = 0 if fg is None else int((got[0]["fg"] != fg).sum())
-            if n_diff == 0:
-                break
-            log(f"phase 22 (a) {head}: images {t * SP_BATCH}-"
-                f"{(t + 1) * SP_BATCH - 1}: {n_diff} of {int(fg.sum())} "
-                f"fg cells differ from one process's; the next batch")
-        else:
-            raise AssertionError(f"phase 22 (a): {head} fg masks differ on "
-                                 f"all {AF_TRIES} batches")
+        run, t, got, (loss, grads, state, _), _ = _matched_single(
+            dev, runs, ranks, states, head, "phase 22 (a)")
         total = sum(r["metrics"]["loss"] for r in got)
         rel_loss = abs(total - loss) / abs(loss)
-        worst = max(((got[0]["grads"][k] - g).abs().max().item()
-                     / g.abs().max().clamp(min=1e-30).item(), k)
-                    for k, g in grads.items() if k not in PRE_BN_BIASES)
-        bn = [k for k in state if k.endswith((".bn.mean", ".bn.var"))]
-        bn_worst = max(((got[0]["state"][k] - state[k]).abs().max().item()
-                        / state[k].abs().max().clamp(min=1e-30).item(), k)
-                       for k in bn)
-        across = [k for k in got[0]["state"]
-                  if not torch.equal(got[0]["state"][k], got[1]["state"][k])]
+        worst = _worst(got[0]["grads"], grads)
+        bn_worst = _bn_worst(got[0]["state"], state)
+        across = _ranks_differ(got[0]["state"], got[1]["state"])
         log(f"phase 22 (a) {head}, 2 ranks x {SP_SPACE} row blocks on one "
             f"card ({card}; gloo on CUDA tensors; {rank_s:.1f} s for both "
             f"ranks' (a) and (b) with start-up), 's' @{IMG_SIZE} nc={AF_NC} "
@@ -4155,8 +4266,7 @@ def phase_spatial_step(dev, workdir, yaml_path, card):
                                 if r["name"] == (head, "bfloat16", 0)))
         gated = sum(_gated_convs(cfg).values())
         want = gated * conv_bwd.LAUNCHES_PER_CALL
-        across = [k for k in bf16[0]["state"]
-                  if not torch.equal(bf16[0]["state"][k], bf16[1]["state"][k])]
+        across = _ranks_differ(bf16[0]["state"], bf16[1]["state"])
         log(f"phase 22 (b) {head} bf16, YOLO_FUSED_CONV_BWD=1 ({card}): K2 "
             f"launches a rank {[r['k2'] for r in bf16]} for one step (want "
             f"{gated} gated convs x {conv_bwd.LAUNCHES_PER_CALL} = {want}); "
@@ -4170,15 +4280,117 @@ def phase_spatial_step(dev, workdir, yaml_path, card):
     return k2_total
 
 
-def phase_spatial_k2(dev, card):
-    """(b) K2 at the haloed tiles of --spatial 2 against its plain version,
-    two runs bit-equal; device ms of the kernel, its plain version and the
-    one-call library backward beside the H100 bound. Returns (largest
-    absolute error, {case: (kernel, plain, library, bound)})."""
+def phase_tp_step(dev, workdir, yaml_path, card):
+    """(a) two ranks on the one card, 1 x 2 data x model (`gloo` on CUDA
+    tensors), each with its channel slices of the 's' model @640 nc=80
+    and the whole global batch of 4, YOLO_FUSED_CONV_BWD=1: float32 TF32
+    off against one process with K2 (loss, gathered gradients, BatchNorm
+    statistics, the gathered weights equal on both ranks, the replicated
+    leaves too; the anchor-free head on the first batch whose foreground
+    masks agree), then bf16 against one process with K2; K2's launches a
+    rank held to the gated convs (the 40x40 ones in float32), at the
+    global 64->64 shapes; (b) the parameters and Adam moments a rank
+    holds against one process's. Returns K2's launches summed over the
+    ranks."""
+    runs, states = _sp_runs(yaml_path)
+    # K2 on in float32 too: the gate takes the 40x40 convs there, so the
+    # float32 bounds hold K2's model-mesh path as well
+    runs = [dict(r, fused=True) for r in runs]
+    ranks, rank_s = _mesh_ranks("model", TP_MODEL, runs, states, workdir,
+                                "phase 23 (a)")
+    k2_total = 0
+    for head in ("anchor", "anchor_free"):
+        run, t, got, (loss, grads, state, _), single_k2 = _matched_single(
+            dev, runs, ranks, states, head, "phase 23 (a)")
+        # every rank of the model group computes its data shard's whole loss
+        rel_loss = abs(got[0]["metrics"]["loss"] - loss) / abs(loss)
+        worst = _worst(got[0]["grads"], grads)
+        bn_worst = _bn_worst(got[0]["state"], state)
+        across = _ranks_differ(got[0]["state"], got[1]["state"])
+        replicated = [k for k in _ranks_differ(got[0]["local"],
+                                               got[1]["local"])
+                      if k not in got[0]["keys"]]
+        full_bytes = 3 * 4 * sum(p.numel() for p in YOLO(
+            YoloConfig(**run["cfg"]), device="meta").parameters())
+        shares = [r["held_bytes"] / full_bytes for r in got]
+        want = (sum(_gated_convs(YoloConfig(**run["cfg"])).values())
+                * conv_bwd.LAUNCHES_PER_CALL)
+        log(f"phase 23 (a) {head}, 1 x {TP_MODEL} data x model on one card "
+            f"({card}; gloo on CUDA tensors; {rank_s:.1f} s for both ranks' "
+            f"steps with start-up), 's' @{IMG_SIZE} nc={AF_NC} float32 TF32 "
+            f"off, a global batch of {SP_BATCH} (images {t * SP_BATCH}-"
+            f"{(t + 1) * SP_BATCH - 1}) vs one process: loss "
+            f"{got[0]['metrics']['loss']:.7f} vs {loss:.7f} ({rel_loss:.2e} "
+            f"relative, tol {PARITY_LOSS_TOL}); worst gathered gradient "
+            f"{worst[0]:.2e} of its tensor's max ({worst[1]}; tol "
+            f"{PARITY_GRAD_TOL}); BatchNorm statistics worst "
+            f"{bn_worst[0]:.2e} of the tensor's max ({bn_worst[1]}; tol "
+            f"{SP_BN_TOL}); gathered state tensors differing between "
+            f"the ranks: {len(across)}, replicated ones: {len(replicated)}; "
+            f"K2 on: launches a rank {[r['k2'] for r in got]} (want {want}, "
+            f"one process {single_k2})")
+        log(f"phase 23 (b) {head}: parameters + Adam moments held a rank "
+            f"{[r['held_bytes'] for r in got]} bytes vs one process's "
+            f"{full_bytes} ({', '.join(f'{x:.4f}x' for x in shares)}; at "
+            f"most {TP_MEMORY_SHARE}x)")
+        if (rel_loss > PARITY_LOSS_TOL or worst[0] > PARITY_GRAD_TOL
+                or bn_worst[0] > SP_BN_TOL or across or replicated
+                or single_k2 != want or any(r["k2"] != want for r in got)):
+            raise AssertionError(f"phase 23 (a) {head}: the model-parallel "
+                                 f"step differs from one process's")
+        if max(shares) > TP_MEMORY_SHARE:
+            raise AssertionError(f"phase 23 (b) {head}: a rank holds "
+                                 f"{max(shares):.4f}x one process's state")
+        # bf16, K2 on: its launches and shapes on each rank, against one
+        # process with K2
+        # bf16's own noise beside it: one process's bf16 step against its
+        # float32 step on the same batch (batch 0)
+        loss32, grads32 = (loss, grads) if t == 0 else (None, None)
+        run = next(r for r in runs if r["name"] == (head, "bfloat16", 0))
+        bf16 = [r[run["name"]] for r in ranks]
+        conv_bwd.launches = 0
+        loss, grads, _, _ = _single_step(dev, run, states[head])
+        single_k2 = conv_bwd.launches
+        gated = sum(_gated_convs(YoloConfig(**run["cfg"])).values())
+        want = gated * conv_bwd.LAUNCHES_PER_CALL
+        shapes = {s for r in bf16 for s in r["k2_shapes"]}
+        rel_loss = abs(bf16[0]["metrics"]["loss"] - loss) / abs(loss)
+        worst = _worst(bf16[0]["grads"], grads)
+        noise = ("float32 batch not batch 0" if loss32 is None else
+                 f"{abs(loss - loss32) / abs(loss32):.2e} relative loss, worst "
+                 f"gradient {_worst(grads, grads32)[0]:.2e} of its max")
+        across = _ranks_differ(bf16[0]["state"], bf16[1]["state"])
+        log(f"phase 23 (a) {head} bf16, YOLO_FUSED_CONV_BWD=1 ({card}): K2 "
+            f"launches a rank {[r['k2'] for r in bf16]} for one step (want "
+            f"{gated} gated convs x {conv_bwd.LAUNCHES_PER_CALL} = {want}; one "
+            f"process {single_k2}), at (x, dy, w) shapes {sorted(shapes)}; "
+            f"loss {bf16[0]['metrics']['loss']:.6f} vs one process with K2 "
+            f"{loss:.6f} ({rel_loss:.2e} relative, tol {TP_BF16_LOSS_RTOL}); "
+            f"worst gathered gradient {worst[0]:.2e} of its tensor's max "
+            f"({worst[1]}; logged); one process's bf16 step against its "
+            f"float32 one: {noise}; gathered state tensors differing "
+            f"between the ranks: {len(across)}")
+        if (any(r["k2"] != want for r in bf16) or single_k2 != want or across
+                or any(x[1] != 64 or dy[1] != 64 or w != (64, 64, 3, 3)
+                       or x[0] != SP_BATCH for x, dy, w in shapes)
+                or rel_loss > TP_BF16_LOSS_RTOL
+                or not np.isfinite(bf16[0]["metrics"]["loss"])):
+            raise AssertionError(f"phase 23 (a) {head} bf16: K2's launches "
+                                 f"or shapes, the ranks, or the step")
+        k2_total += sum(r["k2"] for r in bf16) + sum(r["k2"] for r in got)
+    return k2_total
+
+
+def phase_mesh_k2(dev, card, cases, seed, what):
+    """K2 at a mesh's shapes (`cases`: B, H, W, dtype) against its plain
+    version, two runs bit-equal; device ms of the kernel, its plain
+    version and the one-call library backward beside the H100 bound.
+    Returns (largest absolute error, {case: (kernel, plain, library,
+    bound)})."""
     err, times = 0.0, {}
-    for i, (b, h, w, dtype) in enumerate(SP_K2_CASES):
+    for i, (b, h, w, dtype) in enumerate(cases):
         (x, dy, wt), e, rel_dx, rel_dw = _k2_held(b, h, w, dtype, dev,
-                                                  SEED + 40 + i)
+                                                  seed + i)
         err = max(err, e)
         ms = [device_ms(f) for f in (
             lambda: conv_bwd._launch(x, dy, wt),
@@ -4186,8 +4398,8 @@ def phase_spatial_k2(dev, card):
             lambda: bwdproto.library_bwd(x, dy, wt))]
         bound = _bound(b, h, w, dtype)
         times[(b, h, w)] = (*ms, bound[0])
-        log(f"phase 22 (b) K2 at the haloed tile {_case_name(b, h, w, dtype)} "
-            f"({card}): dx err {rel_dx:.3e}, dW err {rel_dw:.3e} of max (tol "
+        log(f"{what} {_case_name(b, h, w, dtype)} ({card}): dx err "
+            f"{rel_dx:.3e}, dW err {rel_dw:.3e} of max (tol "
             f"{K2_TOL[dtype][0]:.1e} / {K2_TOL[dtype][1]:.1e}), 2 runs "
             f"bit-equal; device ms (profiler, {TIMING_RUNS} calls): kernel "
             f"{ms[0]:.4f}, plain {ms[1]:.4f}, library convolution_backward "
@@ -4196,7 +4408,7 @@ def phase_spatial_k2(dev, card):
     return err, times
 
 
-SP_CLI_SCRIPT = r"""
+MESH_CLI_SCRIPT = r"""
 import sys
 
 from yolo_from_scratch_tpu_torch import cli
@@ -4210,65 +4422,100 @@ sys.exit(rc)
 """
 
 
-def phase_spatial_cli(dev, workdir, yaml_path, card):
-    """(c) `--data-parallel --distributed --spatial 2` through the CLI, one
-    epoch of 2 steps with --val-det, K2 on: each head in two processes on
-    the card (1 x 2), then the anchor head in four (2 x 2). Every rank
-    prints the 2-D banner and the same epoch line, K1's launches rise on
-    every rank and K2's equal the gated convs; rank 0's checkpoint serves
-    one request. Returns (K1, K2) launches summed over every rank."""
+def phase_mesh_cli(dev, workdir, yaml_path, card, axis, what):
+    """`--data-parallel --distributed` with the mesh flag of `axis`
+    ("space": `--spatial 2`, "model": `--model-parallel 2`) through the
+    CLI, one bf16 epoch of the 16 train images with --val-det, K2 on:
+    each head in two processes on the card (1 x 2, 2 steps), and the
+    anchor head in four (2 x 2; one step under --spatial, 2 under
+    --model-parallel), the three runs at once. Every rank prints the 2-D
+    banner (and, on a model mesh, JAX's sharded-fraction line) and the
+    same epoch line, K1's launches rise on every rank and K2's equal the
+    gated convs; rank 0's checkpoint, at full size, serves one request
+    through K1 in a one-process `Predictor`. Returns (K1, K2) launches
+    summed over every rank and the requests."""
+    from yolo_from_scratch_tpu_torch.parallel.mesh import Mesh
+    from yolo_from_scratch_tpu_torch.parallel.tensor import (
+        shard_model_,
+        sharded_fraction,
+    )
+
+    flag, n = {"space": ("--spatial", SP_SPACE),
+               "model": ("--model-parallel", TP_MODEL)}[axis]
     repo = str(Path(__file__).resolve().parent)
     env = dict(os.environ, YOLO_FUSED_CONV_BWD="1", PYTHONPATH=os.pathsep.join(
         p for p in (repo, os.environ.get("PYTHONPATH")) if p))
     k1_total = k2_total = 0
-    for head, n_data in (("anchor", 1), ("anchor_free", 1), ("anchor", 2)):
-        world = n_data * SP_SPACE
-        run_dir = workdir / f"sp_cli_{head}_{n_data}x{SP_SPACE}"
+    # the three runs at once: their ranks share the card and its host
+    t0 = time.perf_counter()
+    started = []
+    for head, n_data, steps in (
+            ("anchor", 1, TRAIN_STEPS), ("anchor_free", 1, TRAIN_STEPS),
+            ("anchor", 2, 1 if axis == "space" else TRAIN_STEPS)):
+        run_dir = workdir / f"{axis}_cli_{head}_{n_data}x{n}"
         run_dir.mkdir()
-        batch = 8 // n_data  # 16 train images: 2 steps
+        batch = 16 // (n_data * steps)  # 16 train images
         args = [str(yaml_path), "--epochs", "1", "--batch-size", str(batch),
                 "--size", "s", "--img-size", str(IMG_SIZE), "--val-det",
-                "--head", head, "--data-parallel", "--spatial",
-                str(SP_SPACE)]
-        t0 = time.perf_counter()
-        outs = _run_ranks(SP_CLI_SCRIPT, lambda r: args, world, run_dir,
-                          f"phase 22 (c) {head} {n_data}x{SP_SPACE}", env)
+                "--head", head, "--data-parallel", flag, str(n)]
+        started.append((head, n_data, steps, run_dir, _start_ranks(
+            MESH_CLI_SCRIPT, lambda r, args=args: args, n_data * n,
+            run_dir, env)))
+    for head, n_data, steps, run_dir, procs in started:
+        world = n_data * n
+        outs = _join_ranks(procs, f"{what} {head} {n_data}x{n}")
         wall = time.perf_counter() - t0
         cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE,
                                    compute_dtype="bfloat16", head_type=head)
-        want_k2 = (sum(_gated_convs(cfg).values()) * TRAIN_STEPS
+        banners = [f"2-D mesh: data={n_data} x {axis}={n} over {world} "
+                   f"process(es)"]
+        if axis == "model":
+            fraction = sharded_fraction(shard_model_(
+                YOLO(cfg, device="meta"),
+                Mesh(0, n, torch.device("cpu"), n_model=n)))
+            banners.append(f"Model-parallel: {fraction:.0%} of params "
+                           f"channel-sharded {n}-way")
+        want_k2 = (sum(_gated_convs(cfg).values()) * steps
                    * conv_bwd.LAUNCHES_PER_CALL)
         epochs, launches = [], []
         for r, out in enumerate(outs):
             epoch = re.search(r"Epoch 1: .* \| LR: ", out)
             counts = re.search(r"LAUNCHES K1 (\d+) K2 (\d+)", out)
-            banner = (f"2-D mesh: data={n_data} x space={SP_SPACE} over "
-                      f"{world} process(es)")
             if (not epoch or " | Det: P " not in epoch.group(0) or not counts
-                    or banner not in out or "backend gloo" not in out):
-                raise AssertionError(f"phase 22 (c) {head} rank {r}:\n{out}")
+                    or any(b not in out.splitlines() for b in banners)
+                    or "backend gloo" not in out):
+                raise AssertionError(f"{what} {head} rank {r}:\n{out}")
             epochs.append(epoch.group(0))
             launches.append((int(counts.group(1)), int(counts.group(2))))
         ckpt = sorted(run_dir.glob("yolo_*.ckpt"))
         if len(ckpt) != 1:
-            raise AssertionError(f"phase 22 (c): checkpoints {ckpt}")
+            raise AssertionError(f"{what}: checkpoints {ckpt}")
         sd, ckpt_cfg, _ = load_checkpoint(ckpt[0])
+        full = {k: tuple(v.shape) for k, v in
+                YOLO(ckpt_cfg, device="meta").state_dict().items()}
         img = np.random.default_rng(SEED).integers(
             0, 256, (IMG_SIZE, IMG_SIZE, 3), dtype=np.uint8)
+        nms_cuda.launches = 0
         dets = Predictor(sd, ckpt_cfg, conf_threshold=1e-6, device=dev)(img)
-        log(f"phase 22 (c) {head} CLI --distributed --spatial {SP_SPACE} over "
-            f"{world} processes ({n_data} x {SP_SPACE}) on one card ({card}),"
-            f" 1 epoch of {TRAIN_STEPS} steps + --val-det, K2 on: {wall:.1f} "
-            f"s; epoch lines equal on every rank: {len(set(epochs)) == 1}; "
-            f"(K1, K2) launches a rank {launches} (K2 want {want_k2}); rank "
-            f"0's checkpoint ({ckpt_cfg.head_type}) served {len(dets)} "
-            f"detections")
+        torch.cuda.synchronize()
+        k1_request = nms_cuda.launches
+        log(f"{what} {head} CLI --distributed {flag} {n} over {world} "
+            f"processes ({n_data} x {n}) on one card ({card}), 1 bf16 epoch "
+            f"of {steps} step(s) + --val-det, K2 on: done {wall:.1f} s after "
+            f"the three runs' start; banners {banners} on every rank; epoch "
+            f"lines equal on every rank: {len(set(epochs)) == 1}; (K1, K2) "
+            f"launches a rank {launches} (K2 want {want_k2}); rank 0's "
+            f"checkpoint ({ckpt_cfg.head_type}, full size: "
+            f"{ {k: tuple(v.shape) for k, v in sd.items()} == full}) served "
+            f"{len(dets)} detections, K1 launched {k1_request} times")
         if (len(set(epochs)) != 1 or any(k1 < 1 or k2 != want_k2
                                          for k1, k2 in launches)
-                or ckpt_cfg.head_type != head or not dets):
-            raise AssertionError(f"phase 22 (c) {head}: the ranks differ, "
-                                 f"or a kernel's launches, or the request")
-        k1_total += sum(k1 for k1, _ in launches)
+                or ckpt_cfg.head_type != head or not dets or k1_request < 1
+                or {k: tuple(v.shape) for k, v in sd.items()} != full):
+            raise AssertionError(f"{what} {head}: the ranks differ, or a "
+                                 f"kernel's launches, the checkpoint or the "
+                                 f"request")
+        k1_total += sum(k1 for k1, _ in launches) + k1_request
         k2_total += sum(k2 for _, k2 in launches)
     return k1_total, k2_total
 
@@ -4459,13 +4706,34 @@ def main():
         card = _smi("name,power.limit")
         t22 = time.perf_counter()
         sp_k2_step = phase_spatial_step(dev, Path(tmp), af_yaml, card)
-        sp_err, sp_times = phase_spatial_k2(dev, card)
-        sp_k1, sp_k2_cli = phase_spatial_cli(dev, Path(tmp), af_yaml, card)
+        sp_err, sp_times = phase_mesh_k2(
+            dev, card, SP_K2_CASES, SEED + 40,
+            "phase 22 (b) K2 at the haloed tile")
+        sp_k1, sp_k2_cli = phase_mesh_cli(dev, Path(tmp), af_yaml, card,
+                                          "space", "phase 22 (c)")
         log(f"spatial paths' kernel launches: NMS {sp_k1} (--val-det, every "
-            f"rank of the three CLI runs); conv backward {sp_k2_step} (one "
+            f"rank of the three CLI runs, and their checkpoints' requests); "
+            f"conv backward {sp_k2_step} (one "
             f"bf16 step a rank, both heads) + {sp_k2_cli} (the CLI runs); "
             f"phase 22 took {time.perf_counter() - t22:.1f} s ({card})")
         done(22)
+
+        # 23. model parallelism: two ranks' channel slices on the card
+        # against one process, K2 at the global shapes, the memory a rank
+        # holds, the CLI's --model-parallel 2 in two and four processes
+        t23 = time.perf_counter()
+        tp_k2_step = phase_tp_step(dev, Path(tmp), af_yaml, card)
+        tp_err, tp_times = phase_mesh_k2(
+            dev, card, TP_K2_CASES, SEED + 50,
+            "phase 23 (a) K2 at the global shape")
+        tp_k1, tp_k2_cli = phase_mesh_cli(dev, Path(tmp), af_yaml, card,
+                                          "model", "phase 23 (c)")
+        log(f"model-parallel paths' kernel launches: NMS {tp_k1} (--val-det, "
+            f"every rank of the three CLI runs, and their checkpoints' "
+            f"requests); conv backward {tp_k2_step} (one bf16 step a rank, "
+            f"both heads) + {tp_k2_cli} (the CLI runs); phase 23 took "
+            f"{time.perf_counter() - t23:.1f} s ({card})")
+        done(23)
 
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
@@ -4499,13 +4767,14 @@ def main():
                                  artifact_counts.values()),
         "dp_launches": dp1[0] + dp2[0],
         "spatial_launches": sp_k1,
+        "model_parallel_launches": tp_k1,
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
         "source": "yolo_from_scratch_tpu_torch/csrc/conv_bwd.cu",
         "replaces": "yolo_from_scratch_tpu/ops/conv_bwd.py:89",
         "launches": k2_launches,
-        "max_abs_err": max(k2_err, ms_err, sp_err),
+        "max_abs_err": max(k2_err, ms_err, sp_err, tp_err),
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound[0],
@@ -4526,6 +4795,12 @@ def main():
                            "plain_ms": t[1], "library_ms": t[2],
                            "bound_ms": t[3]}
                           for (b, h, w), t in sp_times.items()],
+        "model_parallel_launches": tp_k2_step + tp_k2_cli,
+        # K2 at the global shapes of --model-parallel 2 (phase 23 (a))
+        "model_parallel_shapes": [{"shape": [b, h, w, 64], "ms": t[0],
+                                   "plain_ms": t[1], "library_ms": t[2],
+                                   "bound_ms": t[3]}
+                                  for (b, h, w), t in tp_times.items()],
     }, *({
         "name": name,
         "route": "cuda",

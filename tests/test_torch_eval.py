@@ -195,18 +195,40 @@ def test_cli_trains_evaluates_and_jax_reads_the_checkpoint(
 # (tests/test_torch_cli_recipe.py), as are --int8 and --export*
 # (tests/test_torch_export.py) and --data-parallel, --distributed,
 # --coordinator, --num-processes and --process-id
-# (tests/test_torch_parallel.py), as is --spatial
-# (tests/test_torch_spatial.py); these are not yet
-@pytest.mark.parametrize("args", [["--packed-stem"], ["--model-parallel", "8"],
+# (tests/test_torch_parallel.py), --spatial (tests/test_torch_spatial.py)
+# and --model-parallel (tests/test_torch_tensor_parallel.py); these are
+# not yet
+@pytest.mark.parametrize("args", [["--packed-stem"],
                                   ["--packed-stem", "--data-parallel"],
                                   ["--packed", "p3"],
-                                  ["--model-parallel", "2"],
                                   ["--packed-interior"],
-                                  ["--packed-p3"],
-                                  ["--model-parallel", "4", "--distributed"]])
+                                  ["--packed-p3"]])
 def test_cli_unported_flags_exit_2(args, capsys):
     assert cli.main(["data.yaml", *args]) == 2
     assert args[0] in capsys.readouterr().out
+
+
+# --model-parallel answers as the JAX CLI does: without --data-parallel,
+# on a world of one that N does not divide, and --distributed without a
+# coordinator or torchrun's environment, each exit 1
+@pytest.mark.parametrize("args,says", [
+    (["--model-parallel", "8"], "--spatial/--model-parallel require "
+                                "--data-parallel"),
+    (["--model-parallel", "2"], "--spatial/--model-parallel require "
+                                "--data-parallel"),
+    (["--model-parallel", "4", "--data-parallel"],
+     "1 devices do not divide into model=4"),
+    (["--model-parallel", "4", "--distributed"], "torchrun"),
+])
+def test_cli_model_parallel_exits_as_jax(args, says, temp_dataset_dir,
+                                         monkeypatch, capsys):
+    from yolo_from_scratch_tpu_torch.parallel import distributed
+
+    for key in distributed.TORCHRUN_ENV:
+        monkeypatch.delenv(key, raising=False)
+    assert cli.main([str(temp_dataset_dir / "dataset.yaml"), "--device",
+                     "cpu", *args]) == 1
+    assert says in capsys.readouterr().out
 
 
 def test_synth_dataset_same_files_as_jax(tmp_path):

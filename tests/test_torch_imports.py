@@ -142,9 +142,11 @@ for head in ("anchor", "anchor_free"):
         cfg, step_lr=make_step_lr(8, 2, 1e-3, 1e-5), ema_decay=0.99)(
         (state, ema_init(state.model)), *chunk)
     assert state.step == 5 and torch.isfinite(metrics["loss"]), metrics
-# the native loader's batch; the data-parallel and spatial modules
+# the native loader's batch; the data-parallel, spatial and tensor-parallel
+# modules
 import yolo_from_scratch_tpu_torch.parallel.distributed
 import yolo_from_scratch_tpu_torch.parallel.spatial
+import yolo_from_scratch_tpu_torch.parallel.tensor
 native = YoloDataset(config["train"], cfg.num_classes, cfg.anchors_array,
                      cfg.img_size, backend="native")
 assert native.load_batch([0, 1])[0].shape == (2, 128, 128, 3)
@@ -295,7 +297,7 @@ def test_static_check_sees_the_port():
                    "infer/export.py", "infer/artifact.py", "ops/quant.py",
                    "native/__init__.py", "parallel/__init__.py",
                    "parallel/mesh.py", "parallel/distributed.py",
-                   "parallel/spatial.py"):
+                   "parallel/spatial.py", "parallel/tensor.py"):
         assert PORT_DIR / module in PORT_SOURCES, module
     names = _imported_modules(PORT_DIR / "infer" / "predict.py")
     assert "yolo_from_scratch_tpu_torch.data.letterbox" in names

@@ -181,7 +181,8 @@ def test_world_of_one_without_a_group(monkeypatch):
     (["--distributed", "--num-processes", "2"], 1, "together"),
     (["--distributed"], 1, "torchrun"),
     (["--packed-stem", "--data-parallel"], 2, "--packed-stem is not ported"),
-    (["--model-parallel", "2"], 2, "--model-parallel is not ported"),
+    (["--model-parallel", "2"], 1, "--spatial/--model-parallel require "
+                                   "--data-parallel"),
 ])
 def test_cli_flag_rules(argv, rc, says, capsys, monkeypatch):
     for key in port_dist.TORCHRUN_ENV:
@@ -194,7 +195,6 @@ def test_cli_flag_rules(argv, rc, says, capsys, monkeypatch):
     (["--compact-targets", "--device-mosaic"], "--device-mosaic"),
     (["--multi-scale"], "--multi-scale"),
     (["--stream"], "--stream"),
-    (["--stream", "--stream-pool", "4"], "--stream"),
 ])
 def test_cli_refuses_unported_compositions_across_processes(
         flags, name, temp_dataset_dir, monkeypatch, capsys):
@@ -208,6 +208,26 @@ def test_cli_refuses_unported_compositions_across_processes(
     out = capsys.readouterr().out
     assert rc == 2, out
     assert f"{name} at a world of 2 processes is not ported yet" in out
+
+
+@pytest.mark.parametrize("world,flags", [
+    (2, []), (2, ["--compact-targets"]), (4, ["--sparse-loss",
+                                              "--compact-targets"])])
+def test_cli_refuses_stream_pool_across_processes(
+        world, flags, temp_dataset_dir, monkeypatch, capsys):
+    """At a world of several processes `--stream --stream-pool` answers as
+    the JAX CLI does with any mesh: exit 1 and its line, before the
+    refusal of `--stream` across processes (the mesh is faked: the
+    refusal comes before any collective)."""
+    monkeypatch.setattr(port_mesh, "make_mesh", lambda device: port_mesh.Mesh(
+        1, world, torch.device("cpu"), group=object()))
+    rc = cli.main([str(temp_dataset_dir / "dataset.yaml"), "--device", "cpu",
+                   "--data-parallel", "--stream", "--stream-pool", "4",
+                   *flags])
+    out = capsys.readouterr().out
+    assert rc == 1, out
+    assert "--stream-pool is single-device" in out
+    assert "not ported" not in out
 
 
 def test_cli_stream_pool_refuses_a_mesh(temp_dataset_dir, capsys):

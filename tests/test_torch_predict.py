@@ -277,11 +277,14 @@ def test_cli_inspect_and_unported_modes(jax_checkpoint, cfg):
     assert "Model architecture:" in result.stdout
     # training, evaluation, --compute-anchors and data-parallel training
     # are ported (tests/test_torch_eval.py, tests/test_torch_anchors.py,
-    # tests/test_torch_parallel.py), as is spatial partitioning
-    # (tests/test_torch_spatial.py); tensor parallelism is not yet
+    # tests/test_torch_parallel.py), as are spatial partitioning
+    # (tests/test_torch_spatial.py) and tensor parallelism
+    # (tests/test_torch_tensor_parallel.py): --model-parallel without
+    # --data-parallel exits 1 with the JAX CLI's line
     result = _run_port_cli(["data.yaml", "--model-parallel", "2"])
-    assert result.returncode == 2
-    assert "--model-parallel is not ported yet" in result.stdout
+    assert result.returncode == 1
+    assert ("--spatial/--model-parallel require --data-parallel"
+            in result.stdout)
 
 
 def test_train_torch_script_and_device_letterbox_inference(

@@ -760,8 +760,8 @@ def _free_port():
      "--stream does not compose with --spatial"),
     (["--spatial", "2", "--data-parallel"], 1,
      "1 devices do not divide into space=2"),
-    (["--model-parallel", "2", "--data-parallel"], 2,
-     "--model-parallel is not ported"),
+    (["--model-parallel", "2", "--data-parallel"], 1,
+     "1 devices do not divide into model=2"),
 ])
 def test_cli_spatial_flag_rules(argv, rc, says, temp_dataset_dir, capsys):
     assert cli.main([str(temp_dataset_dir / "dataset.yaml"), "--device",

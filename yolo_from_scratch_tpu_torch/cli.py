@@ -50,10 +50,17 @@ rows are split N ways over the ranks of a space group, for training and
 evaluation, both heads; the JAX CLI's rules hold (exit 1 without
 `--data-parallel`, with `--model-parallel` or with `--stream`), and an
 `--img-size` whose P5 grid (img_size / 32) does not divide by N exits 1
-(JAX pads such shards; the port does not). A JAX-CLI flag the port does
-not have yet (`--model-parallel`, `--packed*`), and a composition not
-ported at a world of more than one process, exits with status 2 and names
-the flag, as does any other mode.
+(JAX pads such shards; the port does not). `--model-parallel N` makes it
+`data x model` (rank r is model index r % N of data shard r // N): the
+large convs' output channels, their BatchNorm and Adam moments are split
+N ways over the ranks of a model group (`parallel/tensor.py`), for
+training, both heads; the eval mode takes the mesh with whole weights and
+batches on the data axis; inference ignores the flag; the JAX CLI's rules
+hold (exit 1 without `--data-parallel`, with `--spatial`, with `--stream`,
+or on a world that N does not divide). `--stream-pool` with a mesh exits
+1, as the JAX CLI's does. A JAX-CLI flag the port does not have yet
+(`--packed*`), and a composition not ported at a world of more than one
+process, exits with status 2 and names the flag, as does any other mode.
 """
 
 from __future__ import annotations
@@ -71,7 +78,6 @@ YAML_EXTS = (".yaml", ".yml")
 ART_EXTS = (".yexp",)  # frozen serving artifacts (infer/export.py)
 
 # JAX-CLI flags with no port yet
-UNPORTED_FLAGS = ("--model-parallel",)
 UNPORTED_PREFIXES = ("--packed",)
 # the secondary mesh axes, which --stream refuses (exit 1, before "not
 # ported"); _train refuses the ported --augment, --ema, --multi-scale and
@@ -83,7 +89,7 @@ P5_STRIDE = 32
 # ported yet (exit 2): the device mosaic gathers partners from other
 # ranks' images, --stream's CUDA graphs would hold collectives, and the
 # multi-scale buckets are untried across ranks
-WORLD_UNPORTED = ("device_mosaic", "stream", "stream_pool", "multi_scale")
+WORLD_UNPORTED = ("device_mosaic", "stream", "multi_scale")
 # --multi-scale's resolution factors, each rounded to a multiple of 32
 MULTI_SCALE_FACTORS = (0.75, 1.0, 1.25)
 # --ema's decay (fit's default, as the JAX CLI leaves it)
@@ -204,6 +210,14 @@ def build_parser():
                              "mesh; spatial partitioning for high "
                              "resolutions). The P5 grid (--img-size / 32) "
                              "must divide by N")
+    parser.add_argument("--model-parallel", type=int, default=1,
+                        metavar="N",
+                        help="With --data-parallel: channel-shard the "
+                             "large conv kernels + BN params + Adam "
+                             "moments N ways (2-D data x model mesh, "
+                             "tensor parallelism; for l/x variants where "
+                             "params+moments press per-chip HBM). "
+                             "Mutually exclusive with --spatial")
     parser.add_argument("--distributed", action="store_true",
                         help="Multi-process training: connect this process "
                              "via torch.distributed before building the "
@@ -272,7 +286,7 @@ def build_parser():
 def _unported_flag(argv):
     for arg in argv:
         name = arg.split("=", 1)[0]
-        if name in UNPORTED_FLAGS or name.startswith(UNPORTED_PREFIXES):
+        if name.startswith(UNPORTED_PREFIXES):
             return name
     return None
 
@@ -455,28 +469,37 @@ def multi_scale_sizes(img_size):
 
 
 def _run_mesh(args, device):
-    """--data-parallel's mesh, 2-D with --spatial N, and its banner, as the
-    JAX CLI prints it: (mesh, None), or (None, exit status) for a world
-    that does not divide by N or a composition not ported at a world of
-    more than one process."""
+    """--data-parallel's mesh, 2-D with --spatial N or --model-parallel N,
+    and its banner, as the JAX CLI prints it: (mesh, None), or (None, exit
+    status) for a world that does not divide by N, --stream-pool, or a
+    composition not ported at a world of more than one process."""
     from yolo_from_scratch_tpu_torch.parallel.mesh import (
         make_mesh,
         make_mesh_2d,
+        make_mesh_dm,
     )
 
-    if args.spatial > 1:
+    if args.spatial > 1 or args.model_parallel > 1:
+        axis, n = (("space", args.spatial) if args.spatial > 1
+                   else ("model", args.model_parallel))
         try:
-            mesh = make_mesh_2d(args.spatial, device)
+            mesh = (make_mesh_2d if axis == "space" else make_mesh_dm)(
+                n, device)
         except ValueError as e:
             print(f"ERROR: {e}")
             return None, 1
-        print(f"2-D mesh: data={mesh.n_data} x space={mesh.n_space} over "
+        print(f"2-D mesh: data={mesh.n_data} x {axis}={n} over "
               f"{mesh.size} process(es)")
     else:
         mesh = make_mesh(device)
         print(f"Data-parallel mesh over {mesh.size} process(es)"
               + ("" if mesh.group is not None else
                  " (no process group: a world of one)"))
+    if args.stream and args.stream_pool:
+        # the JAX CLI refuses it with any mesh, before "not ported"
+        print("ERROR: --stream-pool is single-device (the pool gather does "
+              "not shard); use --stream with --data-parallel instead")
+        return None, 1
     if mesh.size > 1:
         for name in WORLD_UNPORTED:
             if getattr(args, name):
@@ -502,7 +525,8 @@ def _spatial_refused(args, cfg):
 
 def _data_shard(mesh):
     """A loader's process_shard: the data shard of this rank (the ranks of
-    a space group load the same images), None for one data shard."""
+    a space or model group load the same images), None for one data
+    shard."""
     if mesh is None or mesh.n_data == 1:
         return None
     return (mesh.data_index, mesh.n_data)
@@ -553,7 +577,8 @@ def _evaluate(args, config, ckpt_file):
             quantize_calib=(_train_calibration_images(config, cfg)
                             if args.int8 else None))
     # several processes: each counts its data shard's unpadded slice of
-    # each split, the ranks of a space group their rows of it
+    # each split, the ranks of a space group their rows of it; on a model
+    # mesh the weights stay whole and model index 0 counts the slice
     for title, split in (("Training", "train"), ("Validation", "val")):
         loader = _loader(config, split, cfg, args.batch_size,
                          compact=compact, process_shard=_data_shard(mesh),
@@ -593,24 +618,26 @@ def _det_eval(cfg, model, dataset, device, mesh=None):
     rank scores its unpadded strided slice of the split, idx[rank::size],
     and the counts are summed over the ranks: they equal one process's
     (the JAX CLI wrap-pads the slices and counts up to size - 1 images
-    twice)."""
+    twice). A model cut for a model mesh is served at full size, its
+    weights gathered over the model group on every rank first."""
     from yolo_from_scratch_tpu_torch.infer.predict import BatchPredictor
     from yolo_from_scratch_tpu_torch.parallel.distributed import (
         global_eval_reduce,
     )
+    from yolo_from_scratch_tpu_torch.parallel.tensor import full_state_dict
     from yolo_from_scratch_tpu_torch.train.map_eval import (
         evaluate_det_counts,
     )
     from yolo_from_scratch_tpu_torch.train.metrics import prf1
 
-    predictor = BatchPredictor(model.state_dict(), cfg, conf_threshold=0.5,
-                               device=device)
+    predictor = BatchPredictor(full_state_dict(model), cfg,
+                               conf_threshold=0.5, device=device)
     sharded = mesh is not None and mesh.size > 1
     indices = (list(range(len(dataset)))[mesh.rank::mesh.size] if sharded
                else None)
 
     def det_eval(live_model):
-        predictor.load_weights(live_model.state_dict())
+        predictor.load_weights(full_state_dict(live_model))
         counts = ((0, 0, 0) if indices == [] else
                   evaluate_det_counts(predictor, dataset, indices=indices))
         if sharded:
@@ -649,7 +676,7 @@ def _train(args, config):
         # the checkpoint's config governs the model, the loss and the data
         state, cfg, start_epoch, resume_ema = restore_train_state(
             args.resume, args.lr, device=device,
-            weight_decay=args.weight_decay, compute_dtype=dtype)
+            weight_decay=args.weight_decay, compute_dtype=dtype, mesh=mesh)
         save_path = args.resume
         print(f"Resuming from {args.resume} at epoch {start_epoch + 1}")
         for flag, passed, kept, shown in (
@@ -676,11 +703,6 @@ def _train(args, config):
                       f"--device-augment/--device-mosaic for augmentation "
                       f"on the stream path")
                 return 1
-        if args.stream_pool and mesh is not None:
-            print("ERROR: --stream-pool is single-device (the pool gather "
-                  "does not shard); use --stream with --data-parallel "
-                  "instead")
-            return 1
     elif args.stream_pool or args.cache_dir:
         print("ERROR: --stream-pool/--cache-dir require --stream")
         return 1
@@ -703,7 +725,14 @@ def _train(args, config):
     if state is None:
         state = create_train_state(cfg, args.lr, seed=args.seed,
                                    device=device,
-                                   weight_decay=args.weight_decay)
+                                   weight_decay=args.weight_decay, mesh=mesh)
+    if mesh is not None and mesh.n_model > 1:
+        from yolo_from_scratch_tpu_torch.parallel.tensor import (
+            sharded_fraction,
+        )
+
+        print(f"Model-parallel: {sharded_fraction(state.model):.0%} of "
+              f"params channel-sharded {mesh.n_model}-way")
     # several processes: each data shard loads its strided slice of every
     # epoch permutation (identical shuffle seed on every rank keeps the
     # slices disjoint, and a space group's ranks on the same images, drawn
@@ -820,20 +849,12 @@ def main(argv=None):
               f"--device-augment/--device-mosaic for augmentation on the "
               f"stream path")
         return 1
-    if len(axes) == 2:
-        print("ERROR: --spatial and --model-parallel are mutually "
-              "exclusive (pick one secondary mesh axis)")
-        return 1
     flag = _unported_flag(argv)
     if flag:
         print(f"ERROR: {flag} is not ported yet; use `python train.py` "
               f"for it")
         return 2
     args = build_parser().parse_args(argv)
-    if args.spatial > 1 and not (args.data_parallel or args.distributed):
-        print("ERROR: --spatial/--model-parallel require --data-parallel "
-              "(they are secondary mesh axes)")
-        return 1
     if not args.distributed:
         return _run(args)
     # before any mode: afterwards the group spans every process
@@ -907,6 +928,17 @@ def _run(args):
             load_dataset_yaml,
         )
 
+        # the JAX CLI's rules of the secondary mesh axes (training and
+        # evaluation; inference ignores the flags)
+        if not args.data_parallel and (args.spatial > 1
+                                       or args.model_parallel > 1):
+            print("ERROR: --spatial/--model-parallel require --data-parallel "
+                  "(they are secondary mesh axes)")
+            return 1
+        if args.spatial > 1 and args.model_parallel > 1:
+            print("ERROR: --spatial and --model-parallel are mutually "
+                  "exclusive (pick one secondary mesh axis)")
+            return 1
         config = load_dataset_yaml(yaml_file)
         size_cfg = YOLO_SIZES[args.size]
         print(f"Creating YOLOv5{args.size.upper()} "

@@ -60,7 +60,7 @@ from yolo_from_scratch_tpu_torch.data.assign_device import (
 from yolo_from_scratch_tpu_torch.device import tf32_disabled
 from yolo_from_scratch_tpu_torch.models.blocks import (
     ConvBNSiLU,
-    cast,
+    pred_conv,
     uniform_fan_in_,
 )
 from yolo_from_scratch_tpu_torch.ops.ciou import ciou
@@ -132,8 +132,7 @@ class DecoupledHead(nn.Module):
             self.cls_pred.bias.fill_(_cls_prior_bias(self.cls_prior))
 
     def _pred(self, conv, x):
-        return F.conv2d(x, cast(conv.weight, self.dtype),
-                        cast(conv.bias, self.dtype))
+        return pred_conv(conv, x, self.dtype)
 
     def forward(self, x, train: bool = False):
         box = self.box_conv2(self.box_conv1(x, train), train)

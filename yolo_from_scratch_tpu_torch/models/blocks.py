@@ -16,6 +16,13 @@ only: its symmetric padding of 1 reads rows 2i-1 .. 2i+1, and the local
 heights are even), each 5x5 pool of SPPF 2 and 2 of -inf. The conv then
 pads the columns alone. Upsample, concat and 1x1 convs stay local.
 Without a space axis nothing changes.
+
+On a `data x model` mesh (`--model-parallel N`) a conv that
+`parallel/tensor.py::shard_model_` cut holds its rows of the output
+channels (`ConvBNSiLU.tp`, a prediction conv's `tp`): its input passes
+`model_input` (backward: dx summed over the model group), it computes its
+channels, and its output is gathered whole (`gather_channels`), so every
+other op runs on whole tensors, as in one process.
 """
 
 from __future__ import annotations
@@ -33,6 +40,11 @@ from yolo_from_scratch_tpu_torch.ops.conv_bwd import (
 )
 from yolo_from_scratch_tpu_torch.parallel.mesh import spatial_mesh
 from yolo_from_scratch_tpu_torch.parallel.spatial import halo_rows
+from yolo_from_scratch_tpu_torch.parallel.tensor import (
+    conv3x3_same_tp,
+    gather_channels,
+    model_input,
+)
 
 
 def cast(t, dtype):
@@ -65,6 +77,14 @@ class ConvBNSiLU(nn.Module):
     (h + 2 rows) of which the first and last output rows are dropped: its
     backward then gets zero dy there, so its dW is exact, and the halo
     rows' dx goes back through the exchange.
+
+    Cut for a model mesh (`tp`, the mesh; None for a whole conv) the conv
+    and its BatchNorm hold this rank's rows of the output channels, and
+    the output is gathered over the model group after the SiLU. The gate
+    then reads the global cout, so the same convs are selected as in one
+    process; a selected conv runs `conv3x3_same_tp`, whose backward runs
+    the fused backward at the global shapes on the gathered dy and weight
+    and returns the whole dx (its input takes no `model_input`).
     """
 
     def __init__(self, cin, features, kernel=1, stride=1, use_bias=False,
@@ -75,6 +95,7 @@ class ConvBNSiLU(nn.Module):
                               padding=kernel // 2, bias=use_bias,
                               dtype=torch.float32, device=device)
         self.bn = BNSiLU(features, device=device)
+        self.tp = None
 
     def reset_parameters(self, generator):
         k = self.conv.kernel_size[0]
@@ -85,6 +106,8 @@ class ConvBNSiLU(nn.Module):
         self.bn.reset_parameters()
 
     def forward(self, x, train: bool = False):
+        if self.tp is not None:
+            return self._forward_tp(x, train)
         conv = self.conv
         w = cast(conv.weight, self.dtype)
         k, stride, pad = conv.kernel_size[0], conv.stride[0], conv.padding[0]
@@ -108,6 +131,30 @@ class ConvBNSiLU(nn.Module):
             y = F.conv2d(x, w, cast(conv.bias, self.dtype), conv.stride,
                          (0, conv.padding[1]))
         return self.bn(y, train)
+
+    def _forward_tp(self, x, train):
+        mesh, conv = self.tp, self.conv
+        w = cast(conv.weight, self.dtype)
+        if conv.bias is None and use_fused_bwd(
+                conv.kernel_size[0], conv.stride[0], x.shape[1],
+                w.shape[0] * mesh.n_model, x.shape[2], x.shape[3],
+                self.dtype):
+            y = conv3x3_same_tp(x, w, mesh)
+        else:
+            y = F.conv2d(model_input(x, mesh), w, cast(conv.bias, self.dtype),
+                         conv.stride, conv.padding)
+        return gather_channels(self.bn(y, train), mesh)
+
+
+def pred_conv(conv, x, dtype):
+    """A head's raw 1x1 prediction conv with bias on NCHW x, in `dtype`;
+    cut for a model mesh (`conv.tp`), this rank's channels gathered after
+    the bias."""
+    mesh = getattr(conv, "tp", None)
+    w, b = cast(conv.weight, dtype), cast(conv.bias, dtype)
+    if mesh is None:
+        return F.conv2d(x, w, b)
+    return gather_channels(F.conv2d(model_input(x, mesh), w, b), mesh)
 
 
 class Bottleneck(nn.Module):

@@ -30,7 +30,12 @@ on every rank. On a 2-D mesh (`--spatial`) each rank holds a block of
 rows of its data shard's batch; the blocks are equal, so the same shares
 of 1 / world over the world group give the statistics of the whole
 global batch, data x space (`tests/test_torch_spatial.py` holds them).
-Without an active mesh no collective is issued.
+On a `data x model` mesh (`--model-parallel`) a channel-sharded conv's
+BatchNorm holds its slice of the channels, and the ranks of a model group
+hold one batch: the statistics of the slice are reduced over the data
+group alone, with shares of 1 / n_data (`parallel/mesh.py::reduce_mesh`).
+Without an active mesh, or on a model mesh of one data shard, no
+collective is issued.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolo_from_scratch_tpu_torch.parallel.mesh import active_mesh, all_reduce
+from yolo_from_scratch_tpu_torch.parallel.mesh import all_reduce, reduce_mesh
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -70,7 +75,7 @@ def _affine_silu(x, mu, var, scale, bias, eps):
 class _BNSiLUTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        ctx.mesh = active_mesh()
+        ctx.mesh = reduce_mesh()
         mu, var = _stats(x, ctx.mesh)
         ctx.save_for_backward(x, mu, var, scale, bias)
         ctx.eps = eps

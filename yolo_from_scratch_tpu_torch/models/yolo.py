@@ -23,7 +23,6 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from yolo_from_scratch_tpu_torch.config import (
@@ -39,7 +38,7 @@ from yolo_from_scratch_tpu_torch.models.blocks import (
     C3,
     SPPF,
     ConvBNSiLU,
-    cast,
+    pred_conv,
     uniform_fan_in_,
     upsample_nearest_2x,
 )
@@ -107,8 +106,7 @@ class DetectHead(nn.Module):
 
     def forward(self, x, train: bool = False):
         x = self.conv2(self.conv1(x, train), train)
-        x = F.conv2d(x, cast(self.pred.weight, self.dtype),
-                     cast(self.pred.bias, self.dtype))
+        x = pred_conv(self.pred, x, self.dtype)
         b, _, h, w = x.shape
         # channel c = a * (5+nc) + k, as the JAX head's NHWC reshape
         return x.permute(0, 2, 3, 1).reshape(b, h, w, self.num_anchors,

@@ -230,6 +230,18 @@ def fused_bwd(x, dy, w):
     return _launch(x, dy, w)
 
 
+def fused_bwd_any_layout(x, dy, w):
+    """`fused_bwd` on tensors in whatever layout autograd hands over: the
+    kernel reads channels-last x and dy and a contiguous w and refuses
+    anything else, so a CUDA tensor is made so first."""
+    dy = dy.to(x.dtype)
+    if x.device.type == "cuda":
+        cl = torch.channels_last
+        x, dy = (t.contiguous(memory_format=cl) for t in (x, dy))
+        w = w.contiguous()
+    return fused_bwd(x, dy, w)
+
+
 class _Conv3x3Same(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
@@ -239,14 +251,7 @@ class _Conv3x3Same(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dy = dy.to(x.dtype)
-        if x.device.type == "cuda":
-            # the kernel reads channels-last x and dy and refuses anything
-            # else; autograd may hand dy (and the caller x) in another format
-            cl = torch.channels_last
-            x, dy = (t.contiguous(memory_format=cl) for t in (x, dy))
-            w = w.contiguous()
-        dx, dw = fused_bwd(x, dy, w)
+        dx, dw = fused_bwd_any_layout(x, dy, w)
         return dx.to(x.dtype), dw.to(w.dtype)
 
 
@@ -254,3 +259,4 @@ def conv3x3_same(x, w):
     """Stride-1 SAME 3x3 conv of NCHW x with OIHW w; forward ==
     `F.conv2d`, backward == `fused_bwd`."""
     return _Conv3x3Same.apply(x, w)
+

@@ -1,13 +1,15 @@
-"""Data and spatial parallelism over `torch.distributed` (counterpart of
-`yolo_from_scratch_tpu/parallel/`): the process-group view, the 1-D data
-mesh and the 2-D `data x space` mesh with this rank's slices of a host
-batch, and the collectives of the step (`mesh.py`); the halo exchange and
-row gather of a row-sharded tensor (`spatial.py`); the multi-process
-start-up, sharding and evaluation reduce (`distributed.py`). Not ported
-yet: tensor parallelism (`parallel/tensor.py`)."""
+"""Data, spatial and tensor parallelism over `torch.distributed`
+(counterpart of `yolo_from_scratch_tpu/parallel/`): the process-group
+view, the 1-D data mesh and the 2-D `data x space` and `data x model`
+meshes with this rank's slices of a host batch, and the collectives of
+the step (`mesh.py`); the halo exchange and row gather of a row-sharded
+tensor (`spatial.py`); the channel-sharded state and convs of
+`--model-parallel` (`tensor.py`); the multi-process start-up, sharding
+and evaluation reduce (`distributed.py`)."""
 
 from yolo_from_scratch_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    MODEL_AXIS,
     SPACE_AXIS,
     Mesh,
     batch_sharding,
@@ -17,6 +19,7 @@ from yolo_from_scratch_tpu_torch.parallel.mesh import (
     local_rows,
     make_mesh,
     make_mesh_2d,
+    make_mesh_dm,
     pad_batch_to_multiple,
     replicated_sharding,
     shard_batch,
@@ -26,6 +29,14 @@ from yolo_from_scratch_tpu_torch.parallel.mesh import (
 from yolo_from_scratch_tpu_torch.parallel.spatial import (
     gather_rows,
     halo_rows,
+)
+from yolo_from_scratch_tpu_torch.parallel.tensor import (
+    MIN_SHARD_SIZE,
+    gather_state_tp,
+    shard_model_,
+    shard_state_tp,
+    sharded_fraction,
+    tp_leaf_sharding,
 )
 
 __all__ = [
@@ -46,4 +57,12 @@ __all__ = [
     "halo_rows",
     "local_rows",
     "space_rows",
+    "MODEL_AXIS",
+    "MIN_SHARD_SIZE",
+    "make_mesh_dm",
+    "tp_leaf_sharding",
+    "shard_model_",
+    "shard_state_tp",
+    "gather_state_tp",
+    "sharded_fraction",
 ]

@@ -31,6 +31,16 @@ element counts). What GSPMD adds for the rows, the port adds by hand
 gather of the anchor-free head's outputs over the space group, and the
 row offset of every decode (`local_rows`).
 
+The 2-D `data x model` mesh of `--model-parallel N` (`make_mesh_dm`)
+breaks that rule: the N ranks of a model group (rank r is model index
+r % N of data shard r // N) hold the SAME images and different channels
+of the large convs (`parallel/tensor.py`), and every activation between
+layers is whole and equal across the group. Each batch element then
+lives on N ranks, so the reductions of the losses and of BatchNorm, the
+gradient sum and the metric sums run over the data group alone (the
+ranks of one model index, `Mesh.reduce_view`), with the data axis's
+size; at one data shard no data collective is issued at all.
+
 Only `all_reduce`, `broadcast` and `barrier` are used: the collectives
 that `gloo` runs on CUDA tensors too, so that two ranks can share one
 card. The local batches must be equal (the sharded loader makes them so,
@@ -51,6 +61,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"    # the JAX mesh's first axis: the data shards
 SPACE_AXIS = "space"  # its second on a 2-D mesh: the row shards
+MODEL_AXIS = "model"  # or the channel shards (parallel/tensor.py)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,10 +69,11 @@ class Mesh:
     """This process's place in the run: its rank, the world size (`size`,
     the JAX mesh's device count), the device its tensors live on and the
     process group (None for a world of one without one). On a 2-D mesh
-    `n_space` > 1 ranks share each data shard, one block of rows each;
-    `space_group` joins them, `data_group` joins the ranks that hold the
-    same rows of the other data shards (None where such a group would
-    hold this rank alone)."""
+    `n_space` > 1 ranks share each data shard, one block of rows each,
+    or `n_model` > 1 ranks, one slice of the channels each (the two are
+    exclusive); `space_group` / `model_group` joins them, `data_group`
+    joins the ranks that hold the same rows or channels of the other data
+    shards (None where such a group would hold this rank alone)."""
 
     rank: int
     size: int
@@ -70,32 +82,49 @@ class Mesh:
     n_space: int = 1
     space_group: object = None
     data_group: object = None
+    n_model: int = 1
+    model_group: object = None
+
+    def __deepcopy__(self, memo):
+        # immutable, and its process groups cannot be copied: a module
+        # that holds it (a channel-sharded conv) is copied with it shared
+        return self
 
     @property
     def n_data(self) -> int:
-        return self.size // self.n_space
+        return self.size // (self.n_space * self.n_model)
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.n_space
+        return self.rank // (self.n_space * self.n_model)
 
     @property
     def space_index(self) -> int:
         return self.rank % self.n_space
 
     @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
+
+    @property
     def spatial(self) -> bool:
         return self.n_space > 1
 
     def data_view(self) -> Mesh:
-        """The data axis alone, as the ranks of this rank's row block see
-        it: the mesh of a computation that every rank of a space group
-        repeats on the whole images of its data shard (the mesh itself
-        without a space axis)."""
-        if not self.spatial:
+        """The data axis alone, as the ranks of this rank's row block or
+        channel slice see it: the mesh of a computation that every rank
+        of a space or model group repeats on the whole images of its data
+        shard (the mesh itself on a 1-D mesh)."""
+        if not self.spatial and self.n_model == 1:
             return self
         return Mesh(self.data_index, self.n_data, self.device,
                     self.data_group)
+
+    def reduce_view(self) -> Mesh:
+        """The ranks whose batches differ, over which the batch's sums
+        run: the mesh itself, or on a model mesh its data axis (the ranks
+        of a model group hold one batch)."""
+        return self.data_view() if self.n_model > 1 else self
 
     def space_view(self) -> Mesh:
         """The space axis alone: this rank's space group, the mesh of a
@@ -157,6 +186,41 @@ def make_mesh_2d(n_space: int, device="cpu") -> Mesh:
                     data_group = g
     return Mesh(rank, world, _rank_device(device, rank), dist.group.WORLD,
                 n_space, space_group, data_group)
+
+
+def make_mesh_dm(n_model: int, device="cpu") -> Mesh:
+    """The 2-D (data, model) mesh of `--model-parallel N` over the
+    processes of the process group (a world of one without one): data
+    parallelism over groups of `n_model` ranks, each group splitting the
+    large convs' output channels `n_model` ways. Rank r is at
+    (r // n_model, r % n_model), JAX's `reshape(world // n_model,
+    n_model)` with `model` the fast axis. Every rank creates every
+    subgroup, in one order: first the model groups, then the data groups;
+    a group of one rank is not made. Raises JAX's ValueError when the
+    world does not divide."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_model < 1 or world % n_model:
+        raise ValueError(
+            f"{world} devices do not divide into model={n_model}")
+    if not dist.is_initialized():
+        return Mesh(0, 1, torch.device(device))
+    rank, n_data = dist.get_rank(), world // n_model
+    model_group = data_group = None
+    if n_model > 1:
+        for d in range(n_data):
+            g = dist.new_group([d * n_model + m for m in range(n_model)])
+            if d == rank // n_model:
+                model_group = g
+    if n_data > 1:
+        data_group = dist.group.WORLD
+        if n_model > 1:
+            for m in range(n_model):
+                g = dist.new_group([d * n_model + m for d in range(n_data)])
+                if m == rank % n_model:
+                    data_group = g
+    return Mesh(rank, world, _rank_device(device, rank), dist.group.WORLD,
+                data_group=data_group, n_model=n_model,
+                model_group=model_group)
 
 
 def batch_sharding(mesh: Mesh, arr):
@@ -274,6 +338,17 @@ def local_rows(h: int):
     return _active.space_index * h, h * _active.n_space
 
 
+def reduce_mesh():
+    """The mesh over which the active batch's sums run
+    (`Mesh.reduce_view` of the active mesh), or None where there is no
+    active mesh or that view is one rank without a group (a model mesh of
+    one data shard)."""
+    if _active is None:
+        return None
+    mesh = _active.reduce_view()
+    return mesh if mesh.group is not None else None
+
+
 def all_reduce(t, mesh, op=dist.ReduceOp.SUM):
     """`t` reduced over the mesh's ranks, in place; returns t."""
     dist.all_reduce(t, op=op, group=mesh.group)
@@ -281,42 +356,52 @@ def all_reduce(t, mesh, op=dist.ReduceOp.SUM):
 
 
 def global_sum(t):
-    """A detached copy of `t` summed over the active mesh's ranks; t itself
-    with no active mesh (a loss's count: the normalizer of a masked
-    mean)."""
-    if _active is None:
+    """A detached copy of `t` summed over the ranks of the active batch
+    (`reduce_mesh`); t itself with none (a loss's count: the normalizer
+    of a masked mean)."""
+    mesh = reduce_mesh()
+    if mesh is None:
         return t
-    return all_reduce(t.detach().clone(), _active)
+    return all_reduce(t.detach().clone(), mesh)
 
 
 def global_max(t):
-    """A detached copy of `t`'s elementwise maximum over the active mesh's
-    ranks; t itself with no active mesh."""
-    if _active is None:
+    """A detached copy of `t`'s elementwise maximum over the ranks of the
+    active batch; t itself with none."""
+    mesh = reduce_mesh()
+    if mesh is None:
         return t
-    return all_reduce(t.detach().clone(), _active, dist.ReduceOp.MAX)
+    return all_reduce(t.detach().clone(), mesh, dist.ReduceOp.MAX)
 
 
 def global_mean(t):
     """This rank's part of the mean of `t` over the global batch: the
     local mean times the local share (1 / size over equal local batches),
     so that the parts sum to the global mean over the ranks; t.mean() with
-    no active mesh."""
-    if _active is None:
+    no active batch mesh."""
+    mesh = reduce_mesh()
+    if mesh is None:
         return t.mean()
-    return t.mean() * (1.0 / _active.size)
+    return t.mean() * (1.0 / mesh.size)
 
 
 def global_count(n):
     """A count of elements of the local batch (a Python number) as the
     global batch's count, over equal local batches."""
-    return n if _active is None else n * _active.size
+    mesh = reduce_mesh()
+    return n if mesh is None else n * mesh.size
 
 
 def all_reduce_grads_(grads, mesh):
-    """Sum the gradients over the mesh's ranks in place, through one
-    flattened buffer (one collective a step). Nothing without a group."""
-    if mesh is None or mesh.group is None:
+    """Sum the gradients over the ranks whose batches differ
+    (`Mesh.reduce_view`) in place, through one flattened buffer (one
+    collective a step). Nothing without a group: a world of one, or a
+    model mesh of one data shard, whose model groups hold the whole batch
+    and whose sharded leaves' gradients are whole already."""
+    if mesh is None:
+        return
+    mesh = mesh.reduce_view()
+    if mesh.group is None:
         return
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 

@@ -26,7 +26,13 @@ evaluates its own unpadded slice of the val split,
 the JSONL and writes checkpoints, as the JAX loop does. On a 2-D mesh
 (`--spatial`) the loaders are sharded by data index, each rank takes its
 block of rows of every batch (`DeviceQueue`), and the ranks of a space
-group evaluate their data shard's slice together.
+group evaluate their data shard's slice together. On a `data x model`
+mesh (`--model-parallel`) the model, its Adam state and the EMA are this
+rank's channel slices: the start-up broadcast runs over the data group
+(the ranks that hold the same slices), the ranks of a model group load
+and evaluate the same images and count them once, and every rank joins
+the gather of the weights and moments before rank 0 writes the
+checkpoint in the canonical layout, which either package reads.
 """
 
 from __future__ import annotations
@@ -38,10 +44,16 @@ import numpy as np
 import torch
 
 from yolo_from_scratch_tpu_torch.data.device_queue import DeviceQueue
+from yolo_from_scratch_tpu_torch.models.yolo import YOLO
 from yolo_from_scratch_tpu_torch.parallel.distributed import (
     global_eval_reduce,
 )
 from yolo_from_scratch_tpu_torch.parallel.mesh import all_reduce
+from yolo_from_scratch_tpu_torch.parallel.tensor import (
+    full_state_dict,
+    load_full_state_dict_,
+    model_mesh,
+)
 from yolo_from_scratch_tpu_torch.train.ema import (
     ema_init,
     wrap_train_step_with_ema,
@@ -70,7 +82,9 @@ def train_epoch(train_step, state, loader, device, mesh=None):
     """One epoch. Returns (state, mean_total, mean_bbox, mean_obj, mean_cls,
     images_seen, seconds). With a `mesh` each step's metrics are this
     rank's parts of the global batch's, summed over the ranks here (the
-    images seen stay this rank's)."""
+    images seen stay this rank's). On a model mesh the ranks of a model
+    group report the same parts, which are summed over the data group
+    alone."""
     per_step = []
     n_images = 0
     t0 = time.perf_counter()
@@ -82,8 +96,8 @@ def train_epoch(train_step, state, loader, device, mesh=None):
     rows = None
     if per_step:
         rows = torch.stack(per_step)
-        if mesh is not None and mesh.group is not None:
-            all_reduce(rows, mesh)
+        if mesh is not None and mesh.reduce_view().group is not None:
+            all_reduce(rows, mesh.reduce_view())
         rows = rows.cpu().numpy()
     dt = time.perf_counter() - t0
     n = max(len(per_step), 1)
@@ -100,7 +114,9 @@ def eval_epoch(eval_step, model, loader, device, mesh=None):
     the ranks, so every rank returns the global values. On a 2-D mesh a
     rank counts its rows of its data shard's images (an `eval_step` made
     with the mesh), its losses are its parts of the batches' losses, and
-    the batches are counted once a space group."""
+    the batches are counted once a space group. On a model mesh the ranks
+    of a model group evaluate the same images alike, and only model index
+    0 counts them."""
     per_batch = [(*eval_step(model, images, targets), valid)
                  for images, targets, valid in DeviceQueue(loader, device,
                                                            mesh)]
@@ -112,6 +128,8 @@ def eval_epoch(eval_step, model, loader, device, mesh=None):
         fps += int(fp[:valid].sum())
         fns += int(fn[:valid].sum())
     if mesh is not None and mesh.size > 1:
+        if mesh.model_index:
+            losses, tps, fps, fns = [], 0, 0, 0
         n_batches = len(losses) if mesh.space_index == 0 else 0
         tps, fps, fns, loss_sum, n_batches = global_eval_reduce(
             tps, fps, fns, float(np.sum(losses)), n_batches)
@@ -157,11 +175,15 @@ def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
 
     `mesh`: the data-parallel run's (`parallel/mesh.py`), with train
     steps made for it; the state's model is first set to rank 0's (a
-    broadcast of every weight and BatchNorm statistic)."""
-    if mesh is not None and mesh.group is not None:
+    broadcast of every weight and BatchNorm statistic), on a model mesh
+    to data shard 0's slices of the same model index (a broadcast over
+    the data group)."""
+    if mesh is not None and mesh.reduce_view().group is not None:
         with torch.no_grad():
             for t in state.model.state_dict().values():
-                torch.distributed.broadcast(t, 0, group=mesh.group)
+                # global rank of (data 0, this model index)
+                torch.distributed.broadcast(t, mesh.model_index,
+                                            group=mesh.reduce_view().group)
     schedule = (list(multi_scale) if multi_scale
                 else [(train_step, train_loader)])
     ema = None
@@ -170,7 +192,7 @@ def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
         if initial_ema is not None:
             # --resume: go on with the checkpointed average instead of
             # pinning it to the raw weights again
-            ema.load_state_dict(initial_ema)
+            load_full_state_dict_(ema, initial_ema)
         schedule = [(wrap_train_step_with_ema(fn, decay=ema_decay), loader)
                     for fn, loader in schedule]
     try:
@@ -237,7 +259,8 @@ def _fit_epochs(state, ema, schedule, eval_step, val_loader, cfg, device,
         if ingest_img_s is not None:
             record["ingest_images_per_sec"] = ingest_img_s
         metrics_logger.log(record)
-        if not writer:
+        # a cut model's ranks all join the gathers; then only rank 0 writes
+        if not writer and model_mesh(state.model) is None:
             continue
         # 'model' holds the weights to serve (the EMA when kept); the raw
         # weights and the step ride in extra, and Adam's state in the JAX
@@ -245,17 +268,20 @@ def _fit_epochs(state, ema, schedule, eval_step, val_loader, cfg, device,
         # continues the training itself
         extra = {"step": state.step}
         if ema is not None:
-            raw = to_flax_variables(state.model.state_dict())
+            raw = to_flax_variables(full_state_dict(state.model))
             extra["raw_params"] = raw["params"]
             extra["raw_batch_stats"] = raw["batch_stats"]
-        save_checkpoint(save_path, to_flax_variables(evaluated.state_dict()),
-                        cfg, epoch=epoch, opt_state=optax_state_dict(state),
-                        extra=extra)
+        weights = to_flax_variables(full_state_dict(evaluated))
+        opt_state = optax_state_dict(state)
+        if writer:
+            save_checkpoint(save_path, weights, cfg, epoch=epoch,
+                            opt_state=opt_state, extra=extra)
     return state, save_path
 
 
 def restore_train_state(ckpt_path, learning_rate=1e-2, *, device,
-                        weight_decay: float = 0.0, compute_dtype=None):
+                        weight_decay: float = 0.0, compute_dtype=None,
+                        mesh=None):
     """Rebuild a train state from a checkpoint of either package for
     `--resume` (the JAX package's `restore_train_state`). Returns (state,
     cfg, start_epoch, ema_state_dict):
@@ -272,21 +298,24 @@ def restore_train_state(ckpt_path, learning_rate=1e-2, *, device,
       checkpoint's epoch + 1.
 
     cfg is the checkpoint's (it governs the model, the loss and the data),
-    with `compute_dtype` when given."""
+    with `compute_dtype` when given. On a model mesh the model is cut
+    (`create_train_state(mesh=)`) and takes its rows of the checkpoint's
+    canonical weights and moments; `ema_state_dict` stays full size."""
     model_sd, cfg, meta = load_checkpoint(ckpt_path)
     if compute_dtype is not None:
         cfg = cfg.with_(compute_dtype=compute_dtype)
     extra = meta.get("extra") or {}
     state = create_train_state(cfg, learning_rate, device=device,
-                               weight_decay=weight_decay)
+                               weight_decay=weight_decay, mesh=mesh)
     ema_sd = None
     weights = model_sd
     if "raw_params" in extra:
         weights = from_flax_variables(
             {"params": extra["raw_params"],
-             "batch_stats": extra["raw_batch_stats"]}, state.model)
+             "batch_stats": extra["raw_batch_stats"]},
+            YOLO(cfg, device="meta"))
         ema_sd = model_sd
-    state.model.load_state_dict(weights)
+    load_full_state_dict_(state.model, weights)
     if meta.get("opt_state") is not None:
         load_optax_state(state, meta["opt_state"])
     state.step = int(extra.get("step", 0))

@@ -70,6 +70,20 @@ anchor-free loss is held whole by each rank of a space group
 (`models/anchor_free.py`), so its metrics are reported at 1 / N a rank.
 `make_eval_step(mesh=)` runs on one data shard's batch with collectives
 in its space group alone.
+
+On a 2-D `data x model` mesh (`parallel/mesh.py::make_mesh_dm`,
+`--model-parallel N`) the model is cut to this rank's channel slices
+(`create_train_state(mesh=)`, `parallel/tensor.py`), the ranks of a model
+group take the same images and draws, and each computes the same loss of
+its data shard. The gradients are summed over the data group alone; the
+clip's global norm sums the squares of the sharded leaves over the model
+group and counts the replicated ones once, after the ranks of a model
+group have taken model index 0's replicated gradients and BatchNorm
+statistics (`sync_replicated_`); Adam updates the slices, so its moments
+are slices too. `optax_state_dict` and `load_optax_state`
+keep the canonical layout: the moments are gathered to write and sliced
+to read. The eval step needs no mesh of its own: the cut model gathers
+its outputs by itself.
 """
 
 from __future__ import annotations
@@ -79,6 +93,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from yolo_from_scratch_tpu_torch.config import INV255, STRIDES, YoloConfig
@@ -111,6 +126,13 @@ from yolo_from_scratch_tpu_torch.parallel.mesh import (
     all_reduce_grads_,
     data_parallel,
     space_rows,
+)
+from yolo_from_scratch_tpu_torch.parallel.tensor import (
+    gather_state_tp,
+    local_state,
+    model_mesh,
+    shard_model_,
+    sync_replicated_,
 )
 from yolo_from_scratch_tpu_torch.train.ema import ema_update
 from yolo_from_scratch_tpu_torch.train.metrics import (
@@ -185,7 +207,8 @@ def optax_state_dict(state: TrainState) -> dict:
     state's step. Scalars are 0-d numpy arrays, as `jax.device_get` gives
     them (a capturable optimizer's step and learning rate are device
     tensors, read here with `int` and `float`). A parameter that has no
-    Adam state yet gets zero moments."""
+    Adam state yet gets zero moments. A model cut for a model mesh has
+    its moments gathered (collective over the model group)."""
     moments = {"exp_avg": {}, "exp_avg_sq": {}}
     steps = set()
     for name, p in state.model.named_parameters():
@@ -194,6 +217,10 @@ def optax_state_dict(state: TrainState) -> dict:
             steps.add(int(adam["step"]))
         for key, tree in moments.items():
             tree[name] = adam[key] if adam else torch.zeros_like(p)
+    mesh = model_mesh(state.model)
+    if mesh is not None:
+        moments = {key: gather_state_tp(mesh, tree, state.model.tp_keys)
+                   for key, tree in moments.items()}
     if len(steps) > 1:
         raise ValueError(f"Adam's step differs between parameters: "
                          f"{sorted(steps)}")
@@ -235,7 +262,8 @@ def load_optax_state(state: TrainState, opt_state: dict) -> TrainState:
     tensors are written in place, so a CUDA graph captured on them goes on
     reading the restored values; missing ones are created as torch creates
     them (a capturable optimizer's step on the parameters' device).
-    `state.step` is the caller's (the checkpoint's `extra['step']`)."""
+    `state.step` is the caller's (the checkpoint's `extra['step']`). A
+    model cut for a model mesh takes its rows of the moments."""
     inner = opt_state["inner_state"]["1"]
     adamw = isinstance(state.optimizer, torch.optim.AdamW)
     if ("2" in inner) != adamw:
@@ -246,8 +274,9 @@ def load_optax_state(state: TrainState, opt_state: dict) -> TrainState:
     adam = inner["0"]
     count = float(np.asarray(adam["count"]))
     model = state.model
-    moments = {key: from_flax_variables({"params": adam[leaf]}, model,
-                                        collections=("params",))
+    full = YOLO(model.cfg, device="meta") if model_mesh(model) else model
+    moments = {key: local_state(model, from_flax_variables(
+        {"params": adam[leaf]}, full, collections=("params",)))
                for key, leaf in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}
     capturable = all(g.get("capturable") for g in
                      state.optimizer.param_groups)
@@ -268,27 +297,55 @@ def load_optax_state(state: TrainState, opt_state: dict) -> TrainState:
 
 
 def create_train_state(cfg: YoloConfig, learning_rate=1e-2, *, seed=0,
-                       device, weight_decay: float = 0.0) -> TrainState:
+                       device, weight_decay: float = 0.0,
+                       mesh=None) -> TrainState:
     """A fresh model from `YOLO.reset_parameters` with a generator seeded
     by `seed`, on `device`, with its Adam (AdamW when `weight_decay`),
-    capturable on a CUDA device."""
+    capturable on a CUDA device. On a model mesh (`mesh.n_model` > 1) the
+    model is cut to this rank's slices before it goes to the device
+    (`parallel/tensor.py::shard_model_`), and Adam holds the slices."""
     model = YOLO(cfg).reset_parameters(torch.Generator().manual_seed(seed))
+    shard_model_(model, mesh)
     model.to(device)
     return TrainState(model, make_optimizer(
         model.parameters(), learning_rate, weight_decay,
         capturable=torch.device(device).type == "cuda"))
 
 
-def clip_by_global_norm_(grads, max_norm=GRAD_CLIP_NORM):
+def clip_by_global_norm_(grads, max_norm=GRAD_CLIP_NORM, sharded=None,
+                         group=None):
     """optax's `clip_by_global_norm`, in place: g stays when the global
     norm is below `max_norm`, else becomes g / norm * max_norm. Returns the
-    norm (a device tensor)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norm (a device tensor). `sharded` (one bool a gradient) and `group`:
+    the gradients of a model cut for a model mesh, whose sharded ones are
+    slices; the squares of those are summed over `group` and the
+    replicated ones counted once, so every rank clips by the norm of the
+    whole gradient."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if group is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mask = torch.tensor(sharded, device=norms.device)
+        squares = norms.square()
+        part = squares[mask].sum().reshape(1)
+        dist.all_reduce(part, group=group)
+        norm = torch.sqrt(part[0] + squares[~mask].sum())
     keep = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
     torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
     return norm
+
+
+def clip_kwargs(model) -> dict:
+    """`clip_by_global_norm_`'s keywords for `model`'s gradients (in
+    `parameters()` order): none for a whole model."""
+    mesh = model_mesh(model)
+    if mesh is None or mesh.model_group is None:
+        return {}
+    return {"sharded": [name in model.tp_keys
+                        for name, _ in model.named_parameters()],
+            "group": mesh.model_group}
 
 
 def _normalize(images):
@@ -588,7 +645,8 @@ def _make_step_body(cfg: YoloConfig, quirk_640: bool, device, *,
             total.backward()
         grads = [p.grad for p in state.model.parameters()]
         all_reduce_grads_(grads, mesh)
-        clip_by_global_norm_(grads)
+        sync_replicated_(state.model, grads)
+        clip_by_global_norm_(grads, **clip_kwargs(state.model))
         state.optimizer.step()
         if ema_decay is not None:
             ema_update(ema, state.model, draws["step"][0] + 1, ema_decay)
@@ -844,7 +902,8 @@ def make_train_step_accum(cfg: YoloConfig, n_accum: int,
         grads = [p.grad for p in state.model.parameters()]
         torch._foreach_div_(grads, float(n_accum))
         all_reduce_grads_(grads, mesh)
-        clip_by_global_norm_(grads)
+        sync_replicated_(state.model, grads)
+        clip_by_global_norm_(grads, **clip_kwargs(state.model))
         state.optimizer.step()
         state.step += 1
         metrics = torch.stack(per).mean(0) * share
