@@ -237,6 +237,36 @@ and prints no result):
    the same epoch line on
    every rank, K2's launches held to the gated convs, rank 0's checkpoint
    at full size served through K1 by a one-process `Predictor`.
+24. the compositions of a world larger than one, on phase 16's data, 's'
+   @640 nc=80: (a) `--compact-targets --device-mosaic` in two ranks on the
+   one card (`gloo` on CUDA tensors), one global batch of 4, on the 1-D
+   mesh (partners from the batch gathered over the ranks), 1 x 2 data x
+   space (whole images composed, their rows cut after the mosaic) and
+   1 x 2 data x model, the three launches at once: the anchor head in
+   float32 TF32 off against one process on the global batch with the
+   same draws at phases 21 (c), 22 (a) and 23 (a)'s tolerances, both heads
+   in bf16 with K2 against one process with K2 (the loss at phase 23's
+   1e-2), K2's launches a rank held to the gated convs, the ranks'
+   gathered states bit-equal; (b) the chunk with collectives in it:
+   (1) a bare `all_reduce` captured in a CUDA graph on an NCCL world of
+   one and replayed twice, then the scanned trainer on that group, its
+   collectives in the graph, K2's launches in one replay from the
+   profiler; (2) the CLI's `--distributed --stream` at a world of one over
+   NCCL against the flagless `--stream`, deterministic, checkpoints
+   bit-equal; (3) two `gloo` ranks' eager chunk of 4 steps (two images a
+   rank, float32 TF32 off, the mosaic's partners gathered) against one
+   process's graphed chunk on the batch of 4, the mean loss and the
+   BatchNorm statistics at phase 21 (c)'s tolerances; (c) the CLI's
+   `--multi-scale --val-det` one-epoch runs in two processes each, the
+   three at once: 1-D at 640, `--spatial 2 --img-size 768` and
+   `--model-parallel 2`: the bucket banner, the same epoch line on both
+   ranks, K1's launches on every rank, K2's held to the first bucket's
+   gated convs, rank 0's checkpoint at full size served through K1; once
+   they are done, K2 at the haloed tiles that `--spatial 2`'s first
+   bucket, 576, gives it (B=8, 38x72 and 20x36, bf16) against its plain
+   version with the device ms as in phase 22 (b). Two ranks of NCCL
+   cannot share one card, so the NCCL chunk graph at a world larger than
+   one is not run here.
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
@@ -246,9 +276,13 @@ inputs; the NMS kernel also its launches, device ms and bound on phase
 13's batch, both kernels their launches on phase 16's anchor-free paths,
 on phase 17's compact paths, on phase 18's stream paths, on phase
 19's recipe paths, on phase 20's int8 and artifact paths, on phase
-21's data-parallel paths, on phase 22's spatial paths and on phase
-23's model-parallel paths, K2 also its times and bounds at phase 22's
-haloed tiles and phase 23's global shapes; Q1 and Q2
+21's data-parallel paths, on phase 22's spatial paths, on phase 23's
+model-parallel paths and on phase 24's world compositions (K2's
+`mosaic_launches`, `stream_world_launches` and
+`multiscale_world_launches`, K1's `multiscale_world_launches`), K2 also
+its times and bounds at phase 22's
+haloed tiles, phase 23's global shapes and phase 24 (c)'s tiles
+(`multiscale_world_tiles`); Q1 and Q2
 their launches on phase 20's main path and in the artifacts, with their
 times, bounds and yardsticks summed over the 24 shapes at B=32); the last
 line is `{"ok": true, "device": {...}}`.
@@ -256,6 +290,7 @@ line is `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import copy
@@ -513,6 +548,20 @@ TP_MEMORY_SHARE = 0.55
 # (a) K2 at the gated convs' global shapes, B=4: the P3 bottlenecks'
 # 80x80 and the P4 / head grid's 40x40
 TP_K2_CASES = ((4, 80, 80, torch.bfloat16), (4, 40, 40, torch.bfloat16))
+# phase 24: the compositions of a world larger than one
+WC_BATCH = 4          # (a), (b3): the global batch, two images a rank
+WC_N = 4              # (b3): steps of the ranks' chunk
+WC_CLI_CHUNK = 2      # (b1), (b2): --stream-chunk at b8 (16 train images)
+# (b3): 4 steps from one start; a small rate keeps Adam's +-lr steps on
+# rounding-level gradients from moving the BatchNorm statistics
+WC_STREAM_LR = 1e-5
+WC_STREAM_FLAGS = dict(device_mosaic=True, device_augment=True,
+                       augment_seed=SEED, sparse_loss=True)
+WC_SPATIAL_IMG = 768  # (c): buckets 576 / 768 / 960, P5 rows 18 / 24 / 30
+# (c): K2 on the haloed tiles of --spatial 2 in the first bucket, 576, B=8
+# a rank: the 72x72 and 36x36 grids' blocks of 36 and 18 rows, one halo
+# row on each side
+WC_K2_CASES = ((8, 38, 72, torch.bfloat16), (8, 20, 36, torch.bfloat16))
 
 
 def log(msg):
@@ -3961,8 +4010,8 @@ from yolo_from_scratch_tpu_torch.ops import conv_bwd
 from yolo_from_scratch_tpu_torch.parallel.distributed import (
     init_distributed, shutdown)
 from yolo_from_scratch_tpu_torch.parallel.mesh import (
-    batch_sharding, batch_sharding_for, image_sharding, make_mesh_2d,
-    make_mesh_dm)
+    batch_sharding, batch_sharding_for, image_sharding, make_mesh,
+    make_mesh_2d, make_mesh_dm)
 from yolo_from_scratch_tpu_torch.parallel.tensor import (
     full_state_dict, gather_state_tp, shard_model_)
 from yolo_from_scratch_tpu_torch.train import steps
@@ -3973,12 +4022,16 @@ rank, world = int(rank), int(world)
 init_distributed(coordinator, world, rank, device="cuda")
 job = torch.load(job_path, weights_only=False)
 # "space": the rows of the global batch (--spatial); "model": the whole
-# batch and this rank's output channels (--model-parallel)
+# batch and this rank's output channels (--model-parallel); "data": this
+# rank's images of the global batch (1-D)
 if job["axis"] == "space":
     mesh = make_mesh_2d(job["n"], "cuda")
     shard_images, shard_targets = image_sharding, batch_sharding_for
-else:
+elif job["axis"] == "model":
     mesh = make_mesh_dm(job["n"], "cuda")
+    shard_images = shard_targets = batch_sharding
+else:
+    mesh = make_mesh("cuda")
     shard_images = shard_targets = batch_sharding
 seen = {}
 clip, tal, fused = (steps.clip_by_global_norm_, anchor_free.tal_assign,
@@ -4016,12 +4069,14 @@ for run in job["runs"]:
     keys = getattr(model, "tp_keys", frozenset())
     state = steps.TrainState(model, steps.make_optimizer(model.parameters(),
                                                          job["lr"]))
-    images = torch.from_numpy(np.ascontiguousarray(
-        shard_images(mesh, run["images"]))).to(mesh.device)
-    targets = [torch.from_numpy(np.ascontiguousarray(
-        shard_targets(mesh, t))).to(mesh.device) for t in run["targets"]]
     step = steps.make_train_step(cfg, device=mesh.device, mesh=mesh,
                                  **run["kw"])
+    # a step that cuts the rows itself (the device mosaic) takes whole images
+    images = torch.from_numpy(np.ascontiguousarray(
+        (batch_sharding if step.takes_whole_images else shard_images)(
+            mesh, run["images"]))).to(mesh.device)
+    targets = [torch.from_numpy(np.ascontiguousarray(
+        shard_targets(mesh, t))).to(mesh.device) for t in run["targets"]]
     seen.pop("fg", None)
     seen["k2_shapes"] = []
     torch.cuda.synchronize()
@@ -4049,12 +4104,27 @@ shutdown()
 
 def _start_ranks(script, args, world, workdir, env=None):
     """`script` in `world` processes on the card, rank r with (r, world,
-    a loopback coordinator, *args): the started processes."""
+    a loopback coordinator, *args): the started processes. A phase that
+    fails before it joins them leaves them to `_kill_started` at exit."""
     coordinator = f"127.0.0.1:{_free_port()}"
-    return [subprocess.Popen(
+    procs = [subprocess.Popen(
         [sys.executable, "-c", script, str(r), str(world), coordinator,
          *args(r)], cwd=workdir, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env) for r in range(world)]
+    _STARTED.extend(procs)
+    return procs
+
+
+_STARTED = []
+
+
+@atexit.register
+def _kill_started():
+    """End every rank process this script started that still runs."""
+    for p in _STARTED:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def _join_ranks(procs, what):
@@ -4520,6 +4590,476 @@ def phase_mesh_cli(dev, workdir, yaml_path, card, axis, what):
     return k1_total, k2_total
 
 
+WC_STREAM_SCRIPT = r"""
+import sys
+
+import torch
+
+from yolo_from_scratch_tpu_torch import YoloConfig
+from yolo_from_scratch_tpu_torch.device import tf32_disabled
+from yolo_from_scratch_tpu_torch.models.yolo import YOLO
+from yolo_from_scratch_tpu_torch.ops import conv_bwd
+from yolo_from_scratch_tpu_torch.parallel.distributed import (
+    init_distributed, shutdown)
+from yolo_from_scratch_tpu_torch.parallel.mesh import make_mesh
+from yolo_from_scratch_tpu_torch.train import steps
+
+rank, world, coordinator, job_path, out_path = sys.argv[1:6]
+rank, world = int(rank), int(world)
+# a loopback coordinator with more ranks than cards: gloo
+init_distributed(coordinator, world, rank, device="cuda")
+mesh = make_mesh("cuda")
+job = torch.load(job_path, weights_only=False)
+cfg = YoloConfig(**job["cfg"])
+model = YOLO(cfg)
+model.load_state_dict(job["state"])
+model.to(mesh.device)
+state = steps.TrainState(model, steps.make_optimizer(
+    model.parameters(), job["lr"], capturable=True))
+b = job["chunk"][0].shape[1] // world
+chunk = [torch.from_numpy(a[:, rank * b:(rank + 1) * b].copy()).to(
+    mesh.device) for a in job["chunk"]]
+trainer = steps.make_train_step_multi_compact(cfg, device=mesh.device,
+                                              mesh=mesh, **job["kw"])
+conv_bwd.launches = 0
+with tf32_disabled():
+    state, m = trainer(state, *chunk)
+torch.cuda.synchronize()
+torch.save({"metrics": {k: v.item() for k, v in m.items()},
+            "state": {k: v.cpu() for k, v in model.state_dict().items()},
+            "k2": conv_bwd.launches, "step": state.step,
+            "path": steps.chunk_path(mesh.device, mesh),
+            "backend": torch.distributed.get_backend()}, out_path)
+shutdown()
+"""
+
+
+def _wc_runs(yaml_path):
+    """Phase 24 (a)'s mosaic steps on one global batch of WC_BATCH: the
+    anchor head float32 (K2 off) and bf16 (K2 on), the anchor-free head
+    bf16 (K2 on), and the heads' seeded weights."""
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    train = load_dataset_yaml(yaml_path)["train"]
+    runs, states = [], {}
+    for head, dtypes in (("anchor", ("float32", "bfloat16")),
+                         ("anchor_free", ("bfloat16",))):
+        cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE,
+                                   head_type=head)
+        states[head] = YOLO(cfg).reset_parameters(
+            torch.Generator().manual_seed(SEED)).state_dict()
+        ds = YoloDataset(train, AF_NC, cfg.anchors_array, IMG_SIZE,
+                         backend="pil", head_type=head)
+        images, labels, counts = ds.load_batch_compact(
+            range(WC_BATCH), capacity=COMPACT_K, image_dtype="uint8")
+        for dtype in dtypes:
+            runs.append(dict(
+                name=(head, dtype, 0), cfg=dict(
+                    num_classes=AF_NC, img_size=IMG_SIZE,
+                    width_mult=cfg.width_mult, depth_mult=cfg.depth_mult,
+                    head_type=head, compute_dtype=dtype),
+                images=images, targets=[labels, counts],
+                kw=dict(compact_targets=True, device_mosaic=True,
+                        augment_seed=SEED),
+                fused=dtype == "bfloat16"))
+    return runs, states
+
+
+def phase_world_mosaic(dev, workdir, yaml_path, card):
+    """(a) `--compact-targets --device-mosaic` on two ranks on the one card
+    (`gloo` on CUDA tensors), one global batch of WC_BATCH, on the 1-D
+    mesh (partners gathered over the ranks), 1 x 2 data x space (whole
+    images composed, rows cut after the mosaic) and 1 x 2 data x model,
+    the three launches at once: the anchor head in float32 TF32 off
+    against one process on the global batch with the same draws (loss,
+    gradients, BatchNorm statistics at phases 21 (c), 22 (a) and 23 (a)'s
+    tolerances), both heads in bf16 with K2 against one process with K2
+    (loss at phase 23's TP_BF16_LOSS_RTOL), K2's launches a rank held to
+    the gated convs, the ranks' gathered states bit-equal. Returns K2's
+    launches summed over the ranks."""
+    runs, states = _wc_runs(yaml_path)
+    workdir.mkdir(exist_ok=True)
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    started = {}
+    for axis in ("data", "space", "model"):
+        job = workdir / f"{axis}_job.pt"
+        torch.save({"runs": runs, "states": states, "lr": DP_LR,
+                    "axis": axis, "n": 2}, job)
+        started[axis] = _start_ranks(
+            MESH_RANK_SCRIPT, lambda r, axis=axis, job=job: (
+                str(job), str(workdir / f"{axis}_rank{r}.pt")), 2, repo)
+    singles = {}
+    for run in runs:
+        conv_bwd.launches = 0
+        singles[run["name"]] = (*_single_step(dev, run,
+                                              states[run["name"][0]]),
+                                conv_bwd.launches)
+    ranks = {}
+    for axis, procs in started.items():
+        _join_ranks(procs, f"phase 24 (a) {axis}")
+        ranks[axis] = [torch.load(workdir / f"{axis}_rank{r}.pt",
+                                  weights_only=False) for r in range(2)]
+        if any(r["backend"] != "gloo" for r in ranks[axis]):
+            raise AssertionError(f"phase 24 (a) {axis}: the ranks sharing "
+                                 f"the card are not on gloo")
+    rank_s = time.perf_counter() - t0
+    # each axis's float32 tolerances: phase 21 (c)'s, 22 (a)'s, 23 (a)'s
+    tols = {"data": (PARITY_LOSS_TOL, DP_BN_RTOL, DP_BN_ATOL),
+            "space": (SP_LOSS_RTOL["anchor"], 0.0, SP_BN_TOL),
+            "model": (PARITY_LOSS_TOL, 0.0, SP_BN_TOL)}
+    k2_total = 0
+    for axis, got_all in ranks.items():
+        for run in runs:
+            head, dtype, _ = run["name"]
+            got = [r[run["name"]] for r in got_all]
+            loss, grads, state, _, single_k2 = singles[run["name"]]
+            # a model group's ranks each compute their data shard's loss
+            total = (got[0]["metrics"]["loss"] if axis == "model"
+                     else sum(r["metrics"]["loss"] for r in got))
+            rel_loss = abs(total - loss) / abs(loss)
+            across = _ranks_differ(got[0]["state"], got[1]["state"])
+            cfg = YoloConfig(**run["cfg"])
+            want_k2 = (sum(_gated_convs(cfg).values())
+                       * conv_bwd.LAUNCHES_PER_CALL if run["fused"] else 0)
+            k2 = [r["k2"] for r in got]
+            k2_total += sum(k2)
+            what = (f"phase 24 (a) {axis} 1 x 2 ({card}), {head} {dtype} "
+                    f"--device-mosaic, a global batch of {WC_BATCH}")
+            if dtype == "float32":
+                loss_tol, bn_rtol, bn_atol = tols[axis]
+                worst = _worst(got[0]["grads"], grads)
+                bn = [k for k in state if k.endswith((".bn.mean", ".bn.var"))]
+                bn_bad = [k for k in bn if not np.allclose(
+                    got[0]["state"][k].numpy(), state[k].numpy(),
+                    rtol=bn_rtol, atol=bn_atol * state[k].abs().max().item())]
+                bn_worst = _bn_worst(got[0]["state"], state)
+                log(f"{what}, TF32 off, vs one process: loss {total:.7f} vs "
+                    f"{loss:.7f} ({rel_loss:.2e} relative, tol {loss_tol}); "
+                    f"worst gradient {worst[0]:.2e} of its tensor's max "
+                    f"({worst[1]}; tol {PARITY_GRAD_TOL}); BatchNorm "
+                    f"statistics worst {bn_worst[0]:.2e} of the tensor's max "
+                    f"({bn_worst[1]}), {len(bn) - len(bn_bad)} / {len(bn)} "
+                    f"within rtol {bn_rtol} + {bn_atol} of the max; state "
+                    f"tensors differing between the ranks: {len(across)}")
+                if (rel_loss > loss_tol or worst[0] > PARITY_GRAD_TOL
+                        or bn_bad or across):
+                    raise AssertionError(f"{what}: the ranks differ from "
+                                         f"one process")
+                continue
+            log(f"{what}, YOLO_FUSED_CONV_BWD=1, vs one process with K2: loss "
+                f"{total:.6f} vs {loss:.6f} ({rel_loss:.2e} relative, tol "
+                f"{TP_BF16_LOSS_RTOL}); K2 launches a rank {k2} (want "
+                f"{want_k2}, one process {single_k2}); state tensors "
+                f"differing between the ranks: {len(across)}")
+            if (rel_loss > TP_BF16_LOSS_RTOL or across or single_k2 != want_k2
+                    or any(k != want_k2 for k in k2)):
+                raise AssertionError(f"{what}: the loss, K2's launches or "
+                                     f"the ranks")
+    log(f"phase 24 (a): three launches of two ranks, {rank_s:.1f} s with "
+        f"start-up and the one-process steps")
+    return k2_total
+
+
+def _wc_chunk(yaml_path, n, b):
+    """n steps of b images of phase 16's train split from image 0: uint8
+    images (n, b, S, S, 3), compact labels (n, b, K, 5), counts (n, b)."""
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    ds = YoloDataset(load_dataset_yaml(yaml_path)["train"], AF_NC,
+                     img_size=IMG_SIZE, backend="pil")
+    images, labels, counts = ds.load_batch_compact(
+        range(n * b), capacity=COMPACT_K, image_dtype="uint8")
+    return tuple(a.reshape(n, b, *a.shape[1:])
+                 for a in (images, labels, counts))
+
+
+def start_world_stream(workdir, yaml_path):
+    """(b3) starts two `gloo` ranks on the card, each running the scanned
+    trainer's eager chunk of WC_N steps on its two images of a global
+    batch of WC_BATCH (float32 TF32 off, the anchor head's stream recipe,
+    K2 on); `check_world_stream` joins them. Returns what it needs."""
+    workdir.mkdir(exist_ok=True)
+    cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=IMG_SIZE,
+                               compute_dtype="float32")
+    state = YOLO(cfg).reset_parameters(
+        torch.Generator().manual_seed(SEED)).state_dict()
+    chunk = _wc_chunk(yaml_path, WC_N, WC_BATCH)
+    job = workdir / "stream_job.pt"
+    torch.save({"cfg": dict(num_classes=AF_NC, img_size=IMG_SIZE,
+                            width_mult=cfg.width_mult,
+                            depth_mult=cfg.depth_mult,
+                            compute_dtype="float32"),
+                "state": state, "lr": WC_STREAM_LR, "chunk": chunk,
+                "kw": WC_STREAM_FLAGS}, job)
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    procs = _start_ranks(WC_STREAM_SCRIPT, lambda r: (
+        str(job), str(workdir / f"stream_rank{r}.pt")), 2,
+        Path(__file__).resolve().parent)
+    return workdir, cfg, state, chunk, procs, time.perf_counter()
+
+
+def phase_nccl_world1(dev, yaml_path, card):
+    """(b1) a bare `all_reduce` captured in a CUDA graph on an NCCL world
+    of one in this process, replayed twice; then the scanned trainer on
+    that group (the anchor head's stream recipe, 's' b8 bf16, K2 on)
+    captures its collectives and replays, K2's launches in one replay
+    from the profiler. Returns those launches."""
+    import torch.distributed as dist
+
+    from yolo_from_scratch_tpu_torch.parallel.mesh import make_mesh
+    from yolo_from_scratch_tpu_torch.train import steps
+
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    t0 = time.perf_counter()
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        buf = torch.zeros(4, device=dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            dist.all_reduce(buf)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            buf.add_(1.0)
+            dist.all_reduce(buf)
+            buf.mul_(2.0)
+        replays = []
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(buf.tolist())
+        log(f"phase 24 (b1) a bare all_reduce captured on an NCCL world of "
+            f"one ({card}; torch {torch.__version__}, NCCL "
+            f"{'.'.join(map(str, torch.cuda.nccl.version()))}): two replays "
+            f"read {replays} (want [2.0] * 4, [6.0] * 4)")
+        if replays != [[2.0] * 4, [6.0] * 4]:
+            raise AssertionError("phase 24 (b1): the captured all_reduce")
+        del graph
+        mesh = make_mesh(dev)
+        cfg = _stream_cfg("anchor")
+        path = steps.chunk_path(dev, mesh)
+        state = create_train_state(cfg, 1e-3, seed=SEED, device=dev)
+        trainer = steps.make_train_step_multi_compact(
+            cfg, device=dev, mesh=mesh, **WC_STREAM_FLAGS)
+        chunk = [torch.from_numpy(a).to(dev)
+                 for a in _wc_chunk(yaml_path, WC_CLI_CHUNK, 8)]
+        state, m = trainer(state, *chunk)
+        counts = _launch_counts(lambda: trainer(state, *chunk))
+        k2 = sum(n for k, (n, _) in counts.items() if "conv3x3_bwd" in k)
+        want = (sum(_gated_convs(cfg).values()) * WC_CLI_CHUNK
+                * conv_bwd.LAUNCHES_PER_CALL)
+        nccl = sum(n for k, (n, _) in counts.items() if "nccl" in k.lower())
+        log(f"phase 24 (b1) the scanned trainer on that group ('s' @"
+            f"{IMG_SIZE} nc={AF_NC} b8 bf16, {WC_CLI_CHUNK} steps, the "
+            f"anchor head's stream recipe): chunks {path!r}; one replay "
+            f"launches {sum(n for n, _ in counts.values())} kernels, K2 {k2} "
+            f"of them (want {want}), NCCL kernels {nccl}; loss "
+            f"{m['loss'].item():.4f}; {time.perf_counter() - t0:.1f} s")
+        if (path != "CUDA graph (nccl)" or k2 != want
+                or not np.isfinite(m["loss"].item())):
+            raise AssertionError("phase 24 (b1): the NCCL chunk graph")
+        del trainer, state, chunk
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return k2
+
+
+def phase_stream_cli_world1(workdir, yaml_path, card):
+    """(b2) the CLI's `--distributed --stream` at a world of one over NCCL
+    (collectives inside the chunk's graph) against the flagless `--stream`,
+    2 epochs of WC_CLI_CHUNK steps at b8, deterministic as in phase 18:
+    the checkpoints bit-equal, the banners naming the graphed chunks, K2's
+    wrapper calls (warm-up and capture) equal."""
+    args = [str(yaml_path), "--epochs", "2", "--batch-size", "8", "--size",
+            "s", "--img-size", str(IMG_SIZE), "--stream", "--stream-chunk",
+            str(WC_CLI_CHUNK), "--compact-targets", *STREAM_FLAGS["anchor"]]
+    world1 = ["--distributed", "--coordinator", f"127.0.0.1:{_free_port()}",
+              "--num-processes", "1", "--process-id", "0"]
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    workdir.mkdir(exist_ok=True)
+    ckpts, banners, calls = {}, {}, {}
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        for name, extra in (("flagless", []), ("world1", world1)):
+            (workdir / f"cli_{name}").mkdir()
+            os.chdir(workdir / f"cli_{name}")
+            conv_bwd.launches = 0
+            with _deterministic():
+                rc, out = _cli(args + extra)
+            calls[name] = conv_bwd.launches
+            banner = re.search(r"; chunks: (.*)$", out, re.M)
+            if (rc != 0 or not banner
+                    or len(re.findall(r"^Epoch \d: ", out, re.M)) != 2):
+                raise AssertionError(f"phase 24 (b2) {name} CLI: rc {rc}, "
+                                     f"output:\n{out}")
+            banners[name] = banner.group(1)
+            ckpts[name] = _flat_tree(read_payload(_saved(out, name)))
+    finally:
+        os.chdir(cwd)
+    a, b = ckpts["world1"], ckpts["flagless"]
+    differ = sorted(k for k in b if k not in a or not np.array_equal(a[k],
+                                                                     b[k]))
+    log(f"phase 24 (b2) CLI --distributed --stream at a world of one (NCCL) "
+        f"vs --stream ({card}), 2 epochs of {WC_CLI_CHUNK} steps at b8, "
+        f"deterministic: checkpoints {len(b) - len(differ)} / {len(b)} leaves "
+        f"bit-equal; chunks {banners}; K2 wrapper calls (warm-up and capture) "
+        f"{calls}; {time.perf_counter() - t0:.1f} s")
+    if (differ or set(a) != set(b) or banners["world1"] != "CUDA graph (nccl)"
+            or banners["flagless"] != "CUDA graph"
+            or calls["world1"] != calls["flagless"]):
+        raise AssertionError(f"phase 24 (b2): world 1 differs from the "
+                             f"flagless run: {differ[:8]}")
+
+
+def check_world_stream(dev, card, started):
+    """(b3) one process's graphed chunk on the global batch against the
+    two ranks of `start_world_stream`: the mean loss (the ranks' parts
+    summed) and the BatchNorm statistics at phase 21 (c)'s tolerances, the
+    ranks' states bit-equal, their chunks eager on gloo, K2's calls held
+    to the gated convs. Returns the ranks' K2 launches."""
+    from yolo_from_scratch_tpu_torch.train import steps
+
+    workdir, cfg, state_dict, chunk, procs, t0 = started
+    model = YOLO(cfg)
+    model.load_state_dict(state_dict)
+    model.to(dev)
+    state = steps.TrainState(model, steps.make_optimizer(
+        model.parameters(), WC_STREAM_LR, capturable=True))
+    conv_bwd.launches = 0
+    with tf32_disabled():
+        state, m = steps.make_train_step_multi_compact(
+            cfg, device=dev, **WC_STREAM_FLAGS)(
+            state, *(torch.from_numpy(x).to(dev) for x in chunk))
+    torch.cuda.synchronize()
+    single_calls = conv_bwd.launches
+    want_state = {k: v.cpu() for k, v in model.state_dict().items()}
+    loss = m["loss"].item()
+    _join_ranks(procs, "phase 24 (b3)")
+    ranks = [torch.load(workdir / f"stream_rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    total = sum(r["metrics"]["loss"] for r in ranks)
+    rel_loss = abs(total - loss) / abs(loss)
+    bn = [k for k in want_state if k.endswith((".bn.mean", ".bn.var"))]
+    bn_bad = [k for k in bn if not np.allclose(
+        ranks[0]["state"][k].numpy(), want_state[k].numpy(), rtol=DP_BN_RTOL,
+        atol=DP_BN_ATOL * want_state[k].abs().max().item())]
+    bn_worst = _bn_worst(ranks[0]["state"], want_state)
+    across = _ranks_differ(ranks[0]["state"], ranks[1]["state"])
+    gated = sum(_gated_convs(cfg).values()) * conv_bwd.LAUNCHES_PER_CALL
+    log(f"phase 24 (b3) two gloo ranks' eager chunk ({ranks[0]['path']!r}; "
+        f"{WC_N} steps, {WC_BATCH // 2} images a rank; {card}) vs one "
+        f"process's graphed chunk on {WC_BATCH}, 's' @{IMG_SIZE} nc={AF_NC} "
+        f"float32 TF32 off, lr {WC_STREAM_LR}, "
+        f"{' '.join(STREAM_FLAGS['anchor'])}: mean loss {total:.7f} vs "
+        f"{loss:.7f} ({rel_loss:.2e} relative, tol {PARITY_LOSS_TOL}); "
+        f"BatchNorm statistics worst {bn_worst[0]:.2e} of the tensor's max "
+        f"({bn_worst[1]}), {len(bn) - len(bn_bad)} / {len(bn)} within rtol "
+        f"{DP_BN_RTOL} + {DP_BN_ATOL} of the max; state tensors differing "
+        f"between the ranks: {len(across)}; K2 wrapper calls a rank "
+        f"{[r['k2'] for r in ranks]} (want {gated * WC_N}), one process "
+        f"{single_calls} (warm-up + capture, want {gated * (1 + WC_N)}); "
+        f"{time.perf_counter() - t0:.1f} s since the ranks' start")
+    if (rel_loss > PARITY_LOSS_TOL or bn_bad or across
+            or any(r["path"] != "eager (gloo cannot be captured)"
+                   or r["backend"] != "gloo" or r["step"] != WC_N
+                   or r["k2"] != gated * WC_N for r in ranks)
+            or single_calls != gated * (1 + WC_N)):
+        raise AssertionError("phase 24 (b3): the ranks' eager chunk differs "
+                             "from one process's graphed chunk")
+    return sum(r["k2"] for r in ranks)
+
+
+def start_world_multiscale(workdir, yaml_path):
+    """(c) starts the CLI's `--multi-scale --val-det` one-epoch runs, each
+    in two processes on the card, the three at once: 1-D at IMG_SIZE,
+    `--spatial 2 --img-size WC_SPATIAL_IMG`, `--model-parallel 2`. Returns
+    the started runs for `check_world_multiscale`."""
+    workdir.mkdir(exist_ok=True)
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, YOLO_FUSED_CONV_BWD="1", PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    started = []
+    for axis, flags, img in (("data", [], IMG_SIZE),
+                             ("space", ["--spatial", "2"], WC_SPATIAL_IMG),
+                             ("model", ["--model-parallel", "2"], IMG_SIZE)):
+        run_dir = workdir / f"ms_{axis}"
+        run_dir.mkdir()
+        args = [str(yaml_path), "--epochs", "1", "--batch-size", "8",
+                "--size", "s", "--img-size", str(img), "--val-det",
+                "--multi-scale", "--data-parallel", *flags]
+        started.append((axis, img, run_dir, _start_ranks(
+            MESH_CLI_SCRIPT, lambda r, args=args: args, 2, run_dir, env)))
+    return started, time.perf_counter()
+
+
+def check_world_multiscale(dev, card, started):
+    """(c) joins the runs of `start_world_multiscale`: every rank prints
+    the bucket banner and the same epoch line, K1 launches on every rank,
+    K2's launches equal the gated convs of the first bucket's size times
+    the steps, and rank 0's checkpoint, at full size, serves one request
+    through K1. Returns (K1, K2) launches summed over the ranks and the
+    requests."""
+    runs, t0 = started
+    k1_total = k2_total = 0
+    for axis, img, run_dir, procs in runs:
+        outs = _join_ranks(procs, f"phase 24 (c) {axis}")
+        sizes = cli.multi_scale_sizes(img)
+        n_data = 2 if axis == "data" else 1
+        steps = 16 // (8 * n_data)  # phase 16's 16 train images at b8
+        cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=sizes[0],
+                                   compute_dtype="bfloat16")
+        want_k2 = (sum(_gated_convs(cfg).values()) * steps
+                   * conv_bwd.LAUNCHES_PER_CALL)
+        epochs, launches = [], []
+        for r, out in enumerate(outs):
+            epoch = re.search(r"Epoch 1: .* \| LR: ", out)
+            counts = re.search(r"LAUNCHES K1 (\d+) K2 (\d+)", out)
+            if (not epoch or " | Det: P " not in epoch.group(0) or not counts
+                    or f"Multi-scale buckets: {sizes} (epoch-rotated)"
+                    not in out or "backend gloo" not in out):
+                raise AssertionError(f"phase 24 (c) {axis} rank {r}:\n{out}")
+            epochs.append(epoch.group(0))
+            launches.append((int(counts.group(1)), int(counts.group(2))))
+        ckpt = sorted(run_dir.glob("yolo_*.ckpt"))
+        if len(ckpt) != 1:
+            raise AssertionError(f"phase 24 (c) {axis}: checkpoints {ckpt}")
+        sd, ckpt_cfg, _ = load_checkpoint(ckpt[0])
+        full = {k: tuple(v.shape) for k, v in
+                YOLO(ckpt_cfg, device="meta").state_dict().items()}
+        img_u8 = np.random.default_rng(SEED).integers(
+            0, 256, (img, img, 3), dtype=np.uint8)
+        nms_cuda.launches = 0
+        dets = Predictor(sd, ckpt_cfg, conf_threshold=1e-6, device=dev)(img_u8)
+        torch.cuda.synchronize()
+        k1_request = nms_cuda.launches
+        at_full = {k: tuple(v.shape) for k, v in sd.items()} == full
+        log(f"phase 24 (c) CLI --multi-scale --val-det --distributed {axis} "
+            f"over 2 processes on one card ({card}) at --img-size {img}: "
+            f"buckets {sizes}, one bf16 epoch of {steps} step(s) at "
+            f"{sizes[0]}, done {time.perf_counter() - t0:.1f} s after the "
+            f"three runs' start; epoch lines equal on both ranks: "
+            f"{len(set(epochs)) == 1}; (K1, K2) launches a rank {launches} "
+            f"(K2 want {want_k2}); rank 0's checkpoint (full size: {at_full}, "
+            f"img {ckpt_cfg.img_size}) served {len(dets)} detections, K1 "
+            f"launched {k1_request} times")
+        if (len(set(epochs)) != 1 or any(k1 < 1 or k2 != want_k2
+                                         for k1, k2 in launches)
+                or not at_full or ckpt_cfg.img_size != img or not dets
+                or k1_request < 1):
+            raise AssertionError(f"phase 24 (c) {axis}: the ranks differ, a "
+                                 f"kernel's launches, the checkpoint or the "
+                                 f"request")
+        k1_total += sum(k1 for k1, _ in launches) + k1_request
+        k2_total += sum(k2 for _, k2 in launches)
+    return k1_total, k2_total
+
+
 def main():
     t_main = time.perf_counter()
 
@@ -4735,6 +5275,32 @@ def main():
             f"{time.perf_counter() - t23:.1f} s ({card})")
         done(23)
 
+        # 24. the compositions of a world larger than one: the device
+        # mosaic under every mesh, the chunk with collectives in it (NCCL
+        # captured at a world of one, gloo eager at two), --multi-scale
+        # across ranks (its CLI runs start first and are joined last)
+        t24 = time.perf_counter()
+        ms_runs = start_world_multiscale(Path(tmp) / "p24_ms", af_yaml)
+        wc_k2_mosaic = phase_world_mosaic(dev, Path(tmp) / "p24_mosaic",
+                                          af_yaml, card)
+        stream_ranks = start_world_stream(Path(tmp) / "p24_stream", af_yaml)
+        wc_k2_replay = phase_nccl_world1(dev, af_yaml, card)
+        phase_stream_cli_world1(Path(tmp) / "p24_cli", af_yaml, card)
+        wc_k2_ranks = check_world_stream(dev, card, stream_ranks)
+        wc_ms_k1, wc_ms_k2 = check_world_multiscale(dev, card, ms_runs)
+        wc_err, wc_times = phase_mesh_k2(
+            dev, card, WC_K2_CASES, SEED + 60,
+            "phase 24 (c) K2 at the haloed tile of the bucket "
+            f"{cli.multi_scale_sizes(WC_SPATIAL_IMG)[0]}")
+        log(f"world compositions' kernel launches: conv backward "
+            f"{wc_k2_mosaic} (the mosaic steps, every rank of the three "
+            f"meshes) + {wc_k2_replay} (one NCCL replay, profiler) + "
+            f"{wc_k2_ranks} (two gloo ranks' eager chunk) + {wc_ms_k2} "
+            f"(--multi-scale runs); NMS {wc_ms_k1} (--multi-scale --val-det "
+            f"on every rank, and the checkpoints' requests); phase 24 took "
+            f"{time.perf_counter() - t24:.1f} s ({card})")
+        done(24)
+
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
         "route": "cuda",
@@ -4768,13 +5334,14 @@ def main():
         "dp_launches": dp1[0] + dp2[0],
         "spatial_launches": sp_k1,
         "model_parallel_launches": tp_k1,
+        "multiscale_world_launches": wc_ms_k1,
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
         "source": "yolo_from_scratch_tpu_torch/csrc/conv_bwd.cu",
         "replaces": "yolo_from_scratch_tpu/ops/conv_bwd.py:89",
         "launches": k2_launches,
-        "max_abs_err": max(k2_err, ms_err, sp_err, tp_err),
+        "max_abs_err": max(k2_err, ms_err, sp_err, tp_err, wc_err),
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound[0],
@@ -4801,6 +5368,15 @@ def main():
                                    "plain_ms": t[1], "library_ms": t[2],
                                    "bound_ms": t[3]}
                                   for (b, h, w), t in tp_times.items()],
+        "mosaic_launches": wc_k2_mosaic,
+        "stream_world_launches": wc_k2_replay + wc_k2_ranks,
+        "multiscale_world_launches": wc_ms_k2,
+        # K2 at the haloed tiles of --spatial 2 --multi-scale's first
+        # bucket (phase 24 (c))
+        "multiscale_world_tiles": [{"shape": [b, h, w, 64], "ms": t[0],
+                                    "plain_ms": t[1], "library_ms": t[2],
+                                    "bound_ms": t[3]}
+                                   for (b, h, w), t in wc_times.items()],
     }, *({
         "name": name,
         "route": "cuda",

@@ -191,34 +191,14 @@ def test_cli_flag_rules(argv, rc, says, capsys, monkeypatch):
     assert says in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags,name", [
-    (["--compact-targets", "--device-mosaic"], "--device-mosaic"),
-    (["--multi-scale"], "--multi-scale"),
-    (["--stream"], "--stream"),
-])
-def test_cli_refuses_unported_compositions_across_processes(
-        flags, name, temp_dataset_dir, monkeypatch, capsys):
-    """At a world of two the compositions not ported yet exit 2 and name
-    themselves (the mesh is faked: the refusal comes before any
-    collective)."""
-    monkeypatch.setattr(port_mesh, "make_mesh", lambda device: port_mesh.Mesh(
-        1, 2, torch.device("cpu"), group=object()))
-    rc = cli.main([str(temp_dataset_dir / "dataset.yaml"), "--device", "cpu",
-                   "--data-parallel", *flags])
-    out = capsys.readouterr().out
-    assert rc == 2, out
-    assert f"{name} at a world of 2 processes is not ported yet" in out
-
-
 @pytest.mark.parametrize("world,flags", [
     (2, []), (2, ["--compact-targets"]), (4, ["--sparse-loss",
                                               "--compact-targets"])])
 def test_cli_refuses_stream_pool_across_processes(
         world, flags, temp_dataset_dir, monkeypatch, capsys):
     """At a world of several processes `--stream --stream-pool` answers as
-    the JAX CLI does with any mesh: exit 1 and its line, before the
-    refusal of `--stream` across processes (the mesh is faked: the
-    refusal comes before any collective)."""
+    the JAX CLI does with any mesh: exit 1 and its line (the mesh is
+    faked: the refusal comes before any collective)."""
     monkeypatch.setattr(port_mesh, "make_mesh", lambda device: port_mesh.Mesh(
         1, world, torch.device("cpu"), group=object()))
     rc = cli.main([str(temp_dataset_dir / "dataset.yaml"), "--device", "cpu",
@@ -394,9 +374,13 @@ def _jax_step(cfg, variables, images, targets, loss_kw):
         jax.tree_util.tree_map(lambda t: jax.device_put(np.asarray(t), batch),
                                targets))
     tx = jax_optimizer(LR)
-    updates, _ = tx.update(grads, tx.init(variables["params"]),
-                           variables["params"])
-    params = optax.apply_updates(variables["params"], updates)
+
+    def adam(grads, params):
+        # jitted: op by op, each leaf's update compiles on its own
+        updates, _ = tx.update(grads, tx.init(params), params)
+        return optax.apply_updates(params, updates)
+
+    params = jax.jit(adam)(grads, variables["params"])
     return float(total), *jax.device_get((grads, params, new_bs))
 
 

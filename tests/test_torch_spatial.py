@@ -440,9 +440,13 @@ def _jax_step(cfg, variables, images, targets, loss_kw):
                                 variables["batch_stats"], np.asarray(images),
                                 jax.tree_util.tree_map(np.asarray, targets))
     tx = jax_optimizer(LR)
-    updates, _ = tx.update(grads, tx.init(variables["params"]),
-                           variables["params"])
-    params = optax.apply_updates(variables["params"], updates)
+
+    def adam(grads, params):
+        # jitted: op by op, each leaf's update compiles on its own
+        updates, _ = tx.update(grads, tx.init(params), params)
+        return optax.apply_updates(params, updates)
+
+    params = jax.jit(adam)(grads, variables["params"])
     return float(total), *jax.device_get((grads, params, new_bs))
 
 

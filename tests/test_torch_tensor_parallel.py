@@ -916,8 +916,13 @@ def test_cli_refuses_a_world_that_n_does_not_divide(
         capsys.readouterr().out
 
 
-def test_model_parallel_is_a_flag_of_the_port():
+def test_model_parallel_is_a_flag_of_the_port(temp_dataset_dir, capsys):
+    """`--model-parallel` is the port's own flag, and `--stream-pool`
+    with a mesh still answers as the JAX CLI does: exit 1 and its line."""
     args = cli.build_parser().parse_args(["--model-parallel", "2"])
     assert args.model_parallel == 2
     assert not hasattr(cli, "UNPORTED_FLAGS")
-    assert "stream_pool" not in cli.WORLD_UNPORTED
+    assert cli.main([str(temp_dataset_dir / "dataset.yaml"), "--device",
+                     "cpu", "--data-parallel", "--stream",
+                     "--stream-pool", "4"]) == 1
+    assert "--stream-pool is single-device" in capsys.readouterr().out

@@ -58,9 +58,17 @@ training, both heads; the eval mode takes the mesh with whole weights and
 batches on the data axis; inference ignores the flag; the JAX CLI's rules
 hold (exit 1 without `--data-parallel`, with `--spatial`, with `--stream`,
 or on a world that N does not divide). `--stream-pool` with a mesh exits
-1, as the JAX CLI's does. A JAX-CLI flag the port does not have yet
-(`--packed*`), and a composition not ported at a world of more than one
-process, exits with status 2 and names the flag, as does any other mode.
+1, as the JAX CLI's does. Under every mesh `--compact-targets
+--device-mosaic` draws its partners from the global batch (gathered over
+the ranks) and `--multi-scale` takes one step and one sharded loader a
+bucket (under `--spatial N` every bucket's P5 grid must divide by N).
+`--stream --distributed` runs when every process is on one host: the
+port's counterpart of the JAX CLI's `--stream --data-parallel` over one
+host's chips, `--batch-size` per process, each chunk's collectives in its
+CUDA graph with NCCL (eager steps with `gloo`); ranks on several hosts
+exit 1 with the JAX CLI's line. A JAX-CLI flag the port does not have yet
+(`--packed*`) exits with status 2 and names the flag, as does any other
+mode.
 """
 
 from __future__ import annotations
@@ -79,17 +87,12 @@ ART_EXTS = (".yexp",)  # frozen serving artifacts (infer/export.py)
 
 # JAX-CLI flags with no port yet
 UNPORTED_PREFIXES = ("--packed",)
-# the secondary mesh axes, which --stream refuses (exit 1, before "not
-# ported"); _train refuses the ported --augment, --ema, --multi-scale and
-# --distributed
+# the secondary mesh axes, which --stream refuses (exit 1); _train
+# refuses --augment, --ema, --multi-scale and --distributed over several
+# hosts
 STREAM_EXCLUSIVE = ("--spatial", "--model-parallel")
 # the P5 grid's stride: --spatial N splits it N ways
 P5_STRIDE = 32
-# flags whose composition with a world of more than one process is not
-# ported yet (exit 2): the device mosaic gathers partners from other
-# ranks' images, --stream's CUDA graphs would hold collectives, and the
-# multi-scale buckets are untried across ranks
-WORLD_UNPORTED = ("device_mosaic", "stream", "multi_scale")
 # --multi-scale's resolution factors, each rounded to a multiple of 32
 MULTI_SCALE_FACTORS = (0.75, 1.0, 1.25)
 # --ema's decay (fit's default, as the JAX CLI leaves it)
@@ -471,8 +474,7 @@ def multi_scale_sizes(img_size):
 def _run_mesh(args, device):
     """--data-parallel's mesh, 2-D with --spatial N or --model-parallel N,
     and its banner, as the JAX CLI prints it: (mesh, None), or (None, exit
-    status) for a world that does not divide by N, --stream-pool, or a
-    composition not ported at a world of more than one process."""
+    status) for a world that does not divide by N or --stream-pool."""
     from yolo_from_scratch_tpu_torch.parallel.mesh import (
         make_mesh,
         make_mesh_2d,
@@ -500,25 +502,20 @@ def _run_mesh(args, device):
         print("ERROR: --stream-pool is single-device (the pool gather does "
               "not shard); use --stream with --data-parallel instead")
         return None, 1
-    if mesh.size > 1:
-        for name in WORLD_UNPORTED:
-            if getattr(args, name):
-                flag = "--" + name.replace("_", "-")
-                print(f"ERROR: {flag} at a world of {mesh.size} processes "
-                      f"is not ported yet; use `python train.py` for it")
-                return None, 2
     return mesh, None
 
 
-def _spatial_refused(args, cfg):
+def _spatial_refused(args, cfg, what=""):
     """True (after the message) when --spatial N cannot split cfg's P5
-    grid into equal row blocks."""
+    grid (`what`: which size, when not --img-size's) into equal row
+    blocks."""
     rows = cfg.img_size // P5_STRIDE
     if args.spatial > 1 and rows % args.spatial:
-        print(f"ERROR: --spatial {args.spatial} needs the P5 grid (img_size "
-              f"/ {P5_STRIDE} = {rows} rows at {cfg.img_size}) to divide by "
-              f"{args.spatial}; other sizes are not ported yet (the JAX CLI "
-              f"pads the shards): use `python train.py` for them")
+        print(f"ERROR: --spatial {args.spatial} needs the P5 grid{what} "
+              f"(img_size / {P5_STRIDE} = {rows} rows at {cfg.img_size}) to "
+              f"divide by {args.spatial}; other sizes are not ported yet "
+              f"(ROADMAP.md A8c; the JAX CLI pads the shards): use `python "
+              f"train.py` for them")
         return True
     return False
 
@@ -648,11 +645,16 @@ def _det_eval(cfg, model, dataset, device, mesh=None):
 
 
 def _train(args, config):
+    from yolo_from_scratch_tpu_torch.parallel.distributed import (
+        host_barrier,
+        host_names,
+    )
     from yolo_from_scratch_tpu_torch.train.loop import (
         fit,
         restore_train_state,
     )
     from yolo_from_scratch_tpu_torch.train.steps import (
+        chunk_path,
         create_train_state,
         make_eval_step,
         make_train_step,
@@ -694,10 +696,18 @@ def _train(args, config):
                                    compute_dtype=dtype, head_type=args.head)
     if _spatial_refused(args, cfg):
         return 1
+    sizes = multi_scale_sizes(cfg.img_size) if args.multi_scale else []
+    for size in sizes:
+        if _spatial_refused(args, cfg.with_(img_size=size),
+                            f" of the --multi-scale bucket {size}"):
+            return 1
     if args.stream:
+        # the JAX CLI streams over one host's chips only: here, the ranks
+        # of one host (one all_gather_object of the host names)
+        hosts = host_names() if args.distributed else []
         for flag, bad in (("--augment", args.augment), ("--ema", args.ema),
                           ("--multi-scale", args.multi_scale),
-                          ("--distributed", args.distributed)):
+                          ("--distributed", len(set(hosts)) > 1)):
             if bad:
                 print(f"ERROR: --stream does not compose with {flag}; use "
                       f"--device-augment/--device-mosaic for augmentation "
@@ -784,10 +794,13 @@ def _train(args, config):
             PoolStream,
         )
 
-        # without --compact-targets: K=64 for the cache, a dense val loader
+        # without --compact-targets: K=64 for the cache, a dense val
+        # loader; process 0 writes the one cache, the others open it after
         cache = ensure_cache(train_loader.dataset,
                              capacity=args.compact_targets or 64,
-                             cache_dir=args.cache_dir)
+                             cache_dir=args.cache_dir,
+                             rank=mesh.rank if mesh else 0,
+                             wait=host_barrier())
         multi = dict(device_augment=args.device_augment,
                      augment_seed=args.seed, device_mosaic=args.device_mosaic,
                      sparse_loss=args.sparse_loss)
@@ -802,18 +815,22 @@ def _train(args, config):
                   f"{stream.pool_size}-image HBM pool, {args.stream_chunk} "
                   f"steps/dispatch")
         else:
+            # --batch-size a process: every rank walks one permutation in
+            # global steps of batch x world and takes its columns
             stream = ChunkStream(cache, batch_size=args.batch_size,
                                  steps_per_chunk=args.stream_chunk,
-                                 shuffle=True, seed=args.seed, device=device)
+                                 shuffle=True, seed=args.seed, device=device,
+                                 process_shard=_data_shard(mesh))
             train_step = make_train_step_multi_compact(
-                cfg, args.reference_quirks, device, **multi)
+                cfg, args.reference_quirks, device, mesh=mesh, **multi)
             print(f"Streaming from cache ({len(cache)} images), "
-                  f"double-buffered chunks of {args.stream_chunk} steps")
+                  f"double-buffered chunks of {args.stream_chunk} steps; "
+                  f"chunks: {chunk_path(device, mesh)}")
     multi_scale = None
     if args.multi_scale:
         # one step and loader a bucket; the model is fully convolutional,
-        # so the one state serves every size
-        sizes = multi_scale_sizes(cfg.img_size)
+        # so the one state serves every size; each bucket's loader is
+        # sharded as the main one, its step made for the mesh
         print(f"Multi-scale buckets: {sizes} (epoch-rotated)")
         multi_scale = []
         for size in sizes:
@@ -823,11 +840,11 @@ def _train(args, config):
             cfg_s = cfg.with_(img_size=size)
             multi_scale.append((
                 make_train_step(cfg_s, args.reference_quirks, device,
-                                **step_kw),
+                                mesh=mesh, **step_kw),
                 _loader(config, "train", cfg_s, args.batch_size,
                         shuffle=True, seed=args.seed,
                         compact=args.compact_targets,
-                        augment=args.augment)))
+                        augment=args.augment, process_shard=shard)))
     state, save_path = fit(
         state, train_step, eval_step,
         train_loader, val_loader, cfg, device=device, epochs=args.epochs,

@@ -158,18 +158,38 @@ def build_cache(dataset, cache_dir: str, capacity: int = 64,
 
 
 def ensure_cache(dataset, capacity: int = 64, packed: bool = False,
-                 cache_dir: str | None = None, log=print):
+                 cache_dir: str | None = None, log=print, *, rank: int = 0,
+                 wait=None):
     """Open the cache for `dataset`, building it on first use or when the
-    dataset changed since it was written."""
+    dataset changed since it was written.
+
+    In a job of several processes that share one cache: process 0
+    (`rank`) opens or builds it, `wait()` (a barrier over the job, which
+    must outlast the build: `parallel/distributed.py::host_barrier`) holds
+    every process until then, and the others open what it wrote. A cache
+    they cannot open raises (RuntimeError): no two processes ever write
+    one cache, and none reads a half-written one (meta.json is written
+    last)."""
     _check_unpacked(packed)
     img_dir = str(Path(dataset.imgs[0]).parent) if dataset.imgs else "."
     cache_dir = cache_dir or cache_dir_for(img_dir, dataset.img_size,
                                            capacity)
     fp = dataset_fingerprint(dataset.imgs)
-    cache = open_cache(cache_dir, fingerprint=fp)
-    if cache is not None:
-        return cache
-    if log:
-        log(f"Building training cache at {cache_dir} "
-            f"(one-time decode+letterbox pass)")
-    return build_cache(dataset, cache_dir, capacity=capacity, log=log)
+    cache = None
+    if rank == 0:
+        cache = open_cache(cache_dir, fingerprint=fp)
+        if cache is None:
+            if log:
+                log(f"Building training cache at {cache_dir} "
+                    f"(one-time decode+letterbox pass)")
+            cache = build_cache(dataset, cache_dir, capacity=capacity,
+                                log=log)
+    if wait is not None:
+        wait()
+    if cache is None:
+        cache = open_cache(cache_dir, fingerprint=fp)
+        if cache is None:
+            raise RuntimeError(f"process {rank}: no cache for this dataset "
+                               f"at {cache_dir} after process 0 built it "
+                               f"(a directory it cannot read?)")
+    return cache

@@ -8,7 +8,9 @@ batch AHEAD of the consumer, so the copy of batch N+1 overlaps step N.
 On the CPU the numpy arrays are wrapped without a copy. On a 2-D mesh
 (`--spatial`) only this rank's block of rows of the images and dense
 targets is sent (`parallel/mesh.py::shard_batch` of its data shard's
-batch); compact labels go whole.
+batch); compact labels go whole. A train step that cuts the rows itself
+(the device mosaic, which composes whole images) is given a queue
+without the mesh (`train/loop.py::train_epoch`).
 """
 
 from __future__ import annotations

@@ -9,7 +9,11 @@ while the card runs chunk k; it records an event, and the consumer's
 stream waits on that event before the trainer copies the chunk into its
 graph's inputs. The queue holds two chunks, so about three are resident
 on the card: a dataset of any size trains in O(chunk) device memory. On
-the CPU the chunks are the gathered host arrays.
+the CPU the chunks are the gathered host arrays. In a job of several
+processes (`process_shard`) every process walks the same permutation of
+the cache in steps of the global batch and gathers and uploads only its
+columns of each step, as the JAX package's stream places a chunk with
+`P(None, DATA_AXIS)`.
 
 PoolStream: the same cache feeding a pool of P images that lives on the
 card as three tensors. Each step gathers its batch from the pool by index
@@ -103,36 +107,51 @@ def _means(metrics_acc):
 class ChunkStream:
     """Iterate device-resident (images (N, B, S, S, 3), labels (N, B, K,
     5), counts (N, B)) chunks over an ImageCache, one chunk ahead of the
-    consumer."""
+    consumer.
+
+    `process_shard` (index, count): this process's part of a job of
+    `count` processes, each with `batch_size` images a step, so that a
+    step's global batch is batch_size x count. Every process draws the
+    same permutation from `seed` and takes columns [index * batch_size,
+    (index + 1) * batch_size) of each step's global batch."""
 
     def __init__(self, cache, batch_size=8, steps_per_chunk=16,
-                 shuffle=True, seed=0, device="cuda"):
+                 shuffle=True, seed=0, device="cuda", process_shard=None):
         self.cache = cache
         self.batch_size = batch_size
         self.steps_per_chunk = steps_per_chunk
         self.shuffle = shuffle
         self.device = torch.device(device)
+        self.shard = process_shard or (0, 1)
         self._rng = np.random.default_rng(seed)
 
     @property
+    def global_batch(self):
+        return self.batch_size * self.shard[1]
+
+    @property
     def steps_per_epoch(self):
-        per = self.batch_size * self.steps_per_chunk
+        per = self.global_batch * self.steps_per_chunk
         return -(-len(self.cache) // per) * self.steps_per_chunk
 
     @property
     def images_per_epoch(self):
+        """This process's images an epoch."""
         return self.steps_per_epoch * self.batch_size
 
     def _gather(self, stager, idx):
         c = self.cache
+        b, index = self.batch_size, self.shard[0]
+        idx = idx.reshape(self.steps_per_chunk, self.global_batch)
+        idx = idx[:, index * b:(index + 1) * b].reshape(-1)
         return stager.put((c.images, c.labels, c.counts), idx,
-                          lead=(self.steps_per_chunk, self.batch_size))
+                          lead=(self.steps_per_chunk, b))
 
     def __iter__(self):
         """One epoch of staged chunks (gather and upload run one chunk
         ahead on a background thread)."""
         chunks = _epoch_chunks(
-            len(self.cache), self.batch_size * self.steps_per_chunk,
+            len(self.cache), self.global_batch * self.steps_per_chunk,
             self.shuffle, self._rng)
         stager = _Stager(self.device)
         q: queue.Queue = queue.Queue(maxsize=2)

@@ -1,12 +1,13 @@
 """Four-image mosaic of a batch on the device, over compact labels
 (counterpart of `yolo_from_scratch_tpu/ops/mosaic_device.py`).
 
-Partners come from the batch in flight, images compose by a 2x mean-pool
-downscale and a 2x2 concatenation, and the compact labels transform by
-vector math: no host work. As in the JAX package the mosaic centre is
-fixed at 0.5 (four equal quadrants, not the host mosaic's U(0.3, 0.7)),
-partners are drawn with replacement, and boxes whose scaled w or h falls
-below `min_box` (2 px at the training size) are dropped.
+Partners come from the batch in flight (at a world larger than one, the
+global batch gathered over the ranks: `source`), images compose by a 2x
+mean-pool downscale and a 2x2 concatenation, and the compact labels
+transform by vector math: no host work. As in the JAX package the mosaic
+centre is fixed at 0.5 (four equal quadrants, not the host mosaic's
+U(0.3, 0.7)), partners are drawn with replacement, and boxes whose scaled
+w or h falls below `min_box` (2 px at the training size) are dropped.
 
 JAX draws from `jax.random`, which torch cannot replay, so the mosaic takes
 its draws explicitly (`do` (B,) bool, `idx` (3, B) partners) and
@@ -41,7 +42,8 @@ def mosaic_draws(generator, b: int):
     return do, idx
 
 
-def mosaic_compact_batch(images, labels, counts, min_box, do, idx):
+def mosaic_compact_batch(images, labels, counts, min_box, do, idx,
+                         source=None):
     """Per-image 4-mosaic of a batch with compact labels.
 
     Args:
@@ -52,6 +54,10 @@ def mosaic_compact_batch(images, labels, counts, min_box, do, idx):
         do: (B,) bool, the images to mosaic.
         idx: (3, B) int64, each image's partners in the top-right,
             bottom-left and bottom-right quadrants.
+        source: (images, labels, counts) of the batch `idx` indexes, in
+            the layout above: at a world larger than one the global batch
+            (`parallel/mesh.py::gather_batch`), of which this one is a
+            rank's rows; the batch itself when None.
 
     Returns (images, labels (B, 4K, 5), valid (B, 4K) bool): the labels
     carry an explicit validity mask, since the mosaic interleaves the four
@@ -59,14 +65,19 @@ def mosaic_compact_batch(images, labels, counts, min_box, do, idx):
     """
     k = labels.shape[1]
     down = _down2(images)
-    canvas = torch.cat([torch.cat([down, down[idx[0]]], dim=2),
-                        torch.cat([down[idx[1]], down[idx[2]]], dim=2)],
-                       dim=1)
+    if source is None:
+        src_down, src_labels, src_counts = down, labels, counts
+    else:
+        src_down, src_labels, src_counts = _down2(source[0]), *source[1:]
+    canvas = torch.cat([torch.cat([down, src_down[idx[0]]], dim=2),
+                        torch.cat([src_down[idx[1]], src_down[idx[2]]],
+                                  dim=2)], dim=1)
     images_out = torch.where(do[:, None, None, None], canvas, images)
 
     ar = torch.arange(k, device=labels.device)
     offsets = ((0.0, 0.0), (0.5, 0.0), (0.0, 0.5), (0.5, 0.5))
-    sources = [(labels, counts)] + [(labels[i], counts[i]) for i in idx]
+    sources = [(labels, counts)] + [(src_labels[i], src_counts[i])
+                                    for i in idx]
     labs, valids = [], []
     for (ox, oy), (lab, cnt) in zip(offsets, sources):
         w = lab[..., 3] * 0.5

@@ -15,6 +15,7 @@ from yolo_from_scratch_tpu_torch.parallel.mesh import (
     batch_sharding,
     batch_sharding_for,
     data_parallel,
+    gather_batch,
     image_sharding,
     local_rows,
     make_mesh,
@@ -53,6 +54,7 @@ __all__ = [
     "Mesh",
     "batch_sharding_for",
     "data_parallel",
+    "gather_batch",
     "gather_rows",
     "halo_rows",
     "local_rows",

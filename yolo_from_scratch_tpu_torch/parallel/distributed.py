@@ -17,6 +17,12 @@
   every rank takes the same steps), and `--batch-size` is per process.
 - `global_eval_reduce` sums the per-process evaluation counts, so every
   process prints the global P/R/F1 and loss.
+- `host_names` tells the CLI whether the job spans several hosts
+  (`--stream --distributed` runs on one host only, as the JAX CLI
+  streams over one host's chips).
+- `host_barrier` holds the job while process 0 prepares what all share
+  (the `--stream` cache, `data/cache.py::ensure_cache`), for longer than
+  the process group's collective timeout (NCCL's 10 minutes) allows.
 
 Everything else (the step's collectives, `parallel/mesh.py`) runs on the
 group this makes. With one process every helper is the single-process
@@ -25,7 +31,9 @@ behaviour.
 
 from __future__ import annotations
 
+import datetime
 import os
+import socket
 
 import numpy as np
 import torch
@@ -34,6 +42,9 @@ import torch.distributed as dist
 from yolo_from_scratch_tpu_torch.data.loader import shard_indices
 
 TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+# how long `host_barrier` waits: process 0 decodes and letterboxes a
+# training split into the cache alone, tens of minutes for a COCO-sized one
+HOST_WAIT = datetime.timedelta(hours=12)
 
 
 def init_distributed(coordinator: str | None = None,
@@ -80,7 +91,10 @@ def init_distributed(coordinator: str | None = None,
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world)
-    _startup_barrier(cuda)
+    # one tiny all-reduce now, while every process has just left the
+    # rendezvous together: the transport's connections are made here,
+    # not at the first step after a long warm-up
+    barrier(torch.cuda.current_device() if cuda else "cpu")
     return dist.get_rank(), dist.get_world_size()
 
 
@@ -91,12 +105,38 @@ def _on_this_host(coordinator: str) -> bool:
     return host in ("localhost", "::1") or host.startswith("127.")
 
 
-def _startup_barrier(cuda: bool):
-    """One tiny all-reduce now, while every process has just left the
-    rendezvous together: the transport's connections are made here, not
-    at the first step after a long warm-up."""
-    t = torch.zeros(1, device=torch.cuda.current_device() if cuda else "cpu")
-    dist.all_reduce(t)
+def barrier(device="cpu", group=None):
+    """Hold this process until every process of `group` (the job's by
+    default) has come here: one tiny all-reduce on `device`, waited for on
+    the host (an NCCL collective returns before it completes)."""
+    t = torch.zeros(1, device=device)
+    dist.all_reduce(t, group=group)
+    t.item()
+
+
+def host_barrier():
+    """A barrier over the job for a wait of up to HOST_WAIT, whatever the
+    process group's own collective timeout: the function that waits at
+    it, over a `gloo` group made now for it alone (collective: every
+    process calls this, before the wait's work starts). A process that
+    fails leaves the others' wait with an error, not a hang. Without a
+    process group, a function that returns at once."""
+    if not dist.is_initialized():
+        return lambda: None
+    group = dist.new_group(backend="gloo", timeout=HOST_WAIT)
+    return lambda: barrier("cpu", group)
+
+
+def host_names() -> list[str]:
+    """Every process's host name, in rank order (one `all_gather_object`
+    over the job); this host's alone without a process group. Collective:
+    every process must call it."""
+    name = socket.gethostname()
+    if not dist.is_initialized():
+        return [name]
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names, name)
+    return names
 
 
 def shutdown():

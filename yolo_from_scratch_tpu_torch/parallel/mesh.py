@@ -41,9 +41,11 @@ gradient sum and the metric sums run over the data group alone (the
 ranks of one model index, `Mesh.reduce_view`), with the data axis's
 size; at one data shard no data collective is issued at all.
 
-Only `all_reduce`, `broadcast` and `barrier` are used: the collectives
-that `gloo` runs on CUDA tensors too, so that two ranks can share one
-card. The local batches must be equal (the sharded loader makes them so,
+The collectives are `all_reduce`, `broadcast` and, for the device
+mosaic's batch (`gather_batch`), `all_gather`: `gloo` runs them on CUDA
+tensors too, so that two ranks can share one card, and NCCL's can be
+captured in a CUDA graph (`train/graphs.py`). The local batches must be
+equal (the sharded loader makes them so,
 `data/loader.py`). With one rank and a process group every collective is
 an identity, and a mean's share is 1.0, so such a run equals the run
 without one bit for bit; without a process group (`--data-parallel`
@@ -291,6 +293,29 @@ def pad_batch_to_multiple(arr: np.ndarray, multiple: int):
         return arr, b
     reps = np.concatenate([arr] * ((rem + b - 1) // b + 1), axis=0)[: b + rem]
     return reps, b
+
+
+def gather_batch(mesh: Mesh, images, labels, counts):
+    """The global batch of compact labels, in data-shard order, on every
+    rank: (images (B, S, S, 3), labels (B, K, 5), counts (B,)) with B =
+    b x n_data, from this rank's b uint8 images, labels and counts. The
+    device mosaic draws its partners from it (`train/steps.py`). One
+    `all_gather` a tensor over the ranks whose batches differ: the world
+    on a 1-D mesh, the data group on a 2-D one (whose space or model
+    groups hold one data shard's whole batch). No autograd, no host sync
+    and no size read from a tensor's values, so that a CUDA graph can
+    hold it; the inputs themselves where there is no such group. Gather
+    the images before normalizing them: uint8 moves a quarter of the
+    bytes, and the normalization is elementwise."""
+    view = mesh.data_view()
+    if view.group is None:
+        return images, labels, counts
+    out = []
+    for t in (images, labels, counts):
+        buf = t.new_empty((view.size, *t.shape))
+        dist.all_gather(list(buf.unbind(0)), t.contiguous(), group=view.group)
+        out.append(buf.flatten(0, 1))
+    return tuple(out)
 
 
 def shard_batch(mesh: Mesh, images, targets):

@@ -19,6 +19,7 @@ graph reads (`train/steps.py::ChunkDraws`).
 from __future__ import annotations
 
 import copy
+import functools
 
 import torch
 
@@ -69,8 +70,10 @@ def ema_update(ema, model, step, decay=0.9999, tau=2000.0):
 def wrap_train_step_with_ema(train_step, decay=0.9999, tau=2000.0):
     """Lift a (state, ...) -> (state, metrics) step into ((state, ema),
     ...) -> ((state, ema), metrics): after each step the EMA model is
-    updated in place at the step the optimizer has just taken."""
+    updated in place at the step the optimizer has just taken. The step's
+    attributes (`takes_whole_images`) carry over."""
 
+    @functools.wraps(train_step)
     def stepped(state_and_ema, *args):
         state, ema = state_and_ema
         state, metrics = train_step(state, *args)

@@ -23,7 +23,9 @@ each global batch and prints the global loss (the ranks' per-step losses
 summed, one all-reduce an epoch) and the global P/R/F1 (each rank
 evaluates its own unpadded slice of the val split,
 `parallel/distributed.py::global_eval_reduce`); only rank 0 appends to
-the JSONL and writes checkpoints, as the JAX loop does. On a 2-D mesh
+the JSONL and writes checkpoints, as the JAX loop does. A stream epoch
+(`--stream --distributed`) sums its metric means and image count over
+the ranks the same way (`stream_epoch`). On a 2-D mesh
 (`--spatial`) the loaders are sharded by data index, each rank takes its
 block of rows of every batch (`DeviceQueue`), and the ranks of a space
 group evaluate their data shard's slice together. On a `data x model`
@@ -78,17 +80,43 @@ from yolo_from_scratch_tpu_torch.utils.convert import (
 from yolo_from_scratch_tpu_torch.utils.metrics_log import MetricsLogger
 
 
+def _reduced(mesh) -> bool:
+    """Whether `mesh` has ranks whose batches differ, over which an
+    epoch's sums run (`Mesh.reduce_view`)."""
+    return mesh is not None and mesh.reduce_view().group is not None
+
+
+def stream_epoch(stream, train_step, state, mesh=None):
+    """One epoch of a `stream` through its scanned trainer: (state, metric
+    means, images, seconds) as `run_epoch` gives them. With a `mesh` the
+    ranks' means (each its part of the global batch's) and image counts
+    are summed over the ranks in one all-reduce, so every rank reports
+    the global values."""
+    state, means, n_imgs, dt = stream.run_epoch(train_step, state)
+    if _reduced(mesh):
+        keys = list(means)
+        sums = torch.tensor([means[k] for k in keys] + [n_imgs],
+                            dtype=torch.float64, device=mesh.device)
+        all_reduce(sums, mesh.reduce_view())
+        *values, n_imgs = sums.tolist()
+        means = dict(zip(keys, values))
+    return state, means, n_imgs, dt
+
+
 def train_epoch(train_step, state, loader, device, mesh=None):
     """One epoch. Returns (state, mean_total, mean_bbox, mean_obj, mean_cls,
     images_seen, seconds). With a `mesh` each step's metrics are this
     rank's parts of the global batch's, summed over the ranks here (the
     images seen stay this rank's). On a model mesh the ranks of a model
     group report the same parts, which are summed over the data group
-    alone."""
+    alone. A step that `takes_whole_images` (the device mosaic on a 2-D
+    mesh) is given its data shard's whole images, not this rank's rows."""
     per_step = []
     n_images = 0
     t0 = time.perf_counter()
-    for images, targets, valid in DeviceQueue(loader, device, mesh):
+    whole = getattr(train_step, "takes_whole_images", False)
+    for images, targets, valid in DeviceQueue(loader, device,
+                                              None if whole else mesh):
         n_images += valid
         state, metrics = train_step(state, images, targets)
         per_step.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
@@ -96,7 +124,7 @@ def train_epoch(train_step, state, loader, device, mesh=None):
     rows = None
     if per_step:
         rows = torch.stack(per_step)
-        if mesh is not None and mesh.reduce_view().group is not None:
+        if _reduced(mesh):
             all_reduce(rows, mesh.reduce_view())
         rows = rows.cpu().numpy()
     dt = time.perf_counter() - t0
@@ -178,7 +206,7 @@ def fit(state, train_step, eval_step, train_loader, val_loader, cfg, *,
     broadcast of every weight and BatchNorm statistic), on a model mesh
     to data shard 0's slices of the same model index (a broadcast over
     the data group)."""
-    if mesh is not None and mesh.reduce_view().group is not None:
+    if _reduced(mesh):
         with torch.no_grad():
             for t in state.model.state_dict().values():
                 # global rank of (data 0, this model index)
@@ -224,7 +252,8 @@ def _fit_epochs(state, ema, schedule, eval_step, val_loader, cfg, device,
         epoch_step, epoch_loader = schedule[epoch % len(schedule)]
         ingest_img_s = None
         if stream is not None:
-            state, means, n_imgs, dt = stream.run_epoch(epoch_step, state)
+            state, means, n_imgs, dt = stream_epoch(stream, epoch_step, state,
+                                                    mesh)
             loss, bbox, obj, cls = (means.get(k, 0.0) for k in METRIC_KEYS)
             ingest_img_s = means.get("ingest_img_s")
         elif ema is not None:

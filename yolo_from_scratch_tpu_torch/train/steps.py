@@ -34,7 +34,10 @@ steps are one CUDA graph (`train/graphs.py`), captured at the first call
 and replayed at every later one: the chunk is copied into the graph's
 static inputs and the draws of its N steps (`ChunkDraws`) into static
 device buffers before each replay. A failed capture raises; nothing falls
-back to eager steps on the card.
+back to eager steps on the card. Under a mesh whose collectives run on
+`gloo` (ranks that share one card) nothing can be captured, and the N
+steps run eagerly on the card; with NCCL they are in the graph
+(`chunk_path` names the path).
 
 The recipe knobs of the JAX package's recipe study: `af_hp` (the
 anchor-free loss's weights and TAL's topk / alpha / beta) in every train
@@ -55,16 +58,22 @@ loss its part of the global one), and the gradients are summed over the
 ranks in one flattened all-reduce before the clip, whose norm is then the
 global gradient's. A step's random draws are those of the global batch
 (B x n_data rows, from the same generators), of which each rank takes
-the rows of its data shard, [d * B, (d + 1) * B). The device mosaic, whose
-partners come from the whole global batch, is not ported at a world
-larger than one.
+the rows of its data shard, [d * B, (d + 1) * B). The device mosaic's
+partners come from the whole global batch: its `idx` keeps its global
+values, and each step first gathers the global uint8 batch and its labels
+over the ranks whose batches differ (`parallel/mesh.py::gather_batch`),
+then composes this rank's rows of the mosaic from it.
 
 On a 2-D mesh (`parallel/mesh.py::make_mesh_2d`, `--spatial N`) the
 images and dense targets a step takes are this rank's block of rows of
 its data shard's batch (compact labels stay whole: each rank builds the
 whole images' dense maps and keeps its rows), the model and the losses
 run on the blocks (`models/blocks.py`, `ops/`), and the gradients are
-summed over the world. The ranks of a space group take the same draws
+summed over the world. With the device mosaic, which composes quadrants
+from downscaled whole images, the step takes its data shard's whole
+images instead (`takes_whole_images` on the step) and cuts its rows after
+the mosaic and the label-level augmentation, as it cuts the dense maps.
+The ranks of a space group take the same draws
 (by data index), so an image is augmented alike in all its blocks. The
 anchor-free loss is held whole by each rank of a space group
 (`models/anchor_free.py`), so its metrics are reported at 1 / N a rank.
@@ -125,6 +134,7 @@ from yolo_from_scratch_tpu_torch.ops.mosaic_device import (
 from yolo_from_scratch_tpu_torch.parallel.mesh import (
     all_reduce_grads_,
     data_parallel,
+    gather_batch,
     space_rows,
 )
 from yolo_from_scratch_tpu_torch.parallel.tensor import (
@@ -451,26 +461,25 @@ def _upload_draws(draws: dict, device) -> dict:
     return {k: tuple(upload(t, device) for t in v) for k, v in draws.items()}
 
 
-MOSAIC_NOT_PORTED = ("the device mosaic at a world of more than one process "
-                     "(its partners come from other ranks' images) is not "
-                     "ported yet")
-
-
 def _rank_draws(spec: DrawSpec, step: int, b: int, mesh) -> dict:
     """One step's draws for this rank's b images: the draws of the global
     batch of b x n_data images, as one process draws them, and the rows
     [d * b, (d + 1) * b) of this rank's data shard d, the same on every
-    rank of a space group."""
-    if mesh is None or mesh.size == 1:
-        return spec.draw(step, b)
-    if spec.mosaic:
-        raise NotImplementedError(MOSAIC_NOT_PORTED)
-    if mesh.n_data == 1:
+    rank of a space or model group. The mosaic's partners (its idx (3,
+    b)) keep their values in the global batch, which the step gathers."""
+    if mesh is None or mesh.n_data == 1:
         return spec.draw(step, b)
     rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
-    return {k: v if k == "step" else tuple(
-        t if t is None else t[rows] for t in v)
-        for k, v in spec.draw(step, b * mesh.n_data).items()}
+    out = {}
+    for key, values in spec.draw(step, b * mesh.n_data).items():
+        if key == "step":
+            out[key] = values
+        elif key == "mosaic":
+            do, idx = values
+            out[key] = (do[rows], idx[:, rows])
+        else:
+            out[key] = tuple(t if t is None else t[rows] for t in values)
+    return out
 
 
 def _report_share(cfg: YoloConfig, mesh) -> float:
@@ -486,15 +495,16 @@ class ChunkDraws:
     """The draws of N consecutive steps [s, s + N) for a batch of B, in
     static device tensors that a CUDA graph reads (row i for its step i).
 
-    `load(s)` draws the N steps on the host with `DrawSpec.draw`, so a
-    chunk's draws are bit-equal to those of N single steps, writes them
+    `load(s)` draws the N steps on the host with `DrawSpec.draw` (this
+    rank's rows of the global batch's draws under a `mesh`), so a chunk's
+    draws are bit-equal to those of N single steps, writes them
     into one of two pinned buffers and copies that to the device buffers
     on the current stream, outside any graph; a pinned buffer is written
     again only once its last copy has left it. On the CPU the static
     tensors are the host buffer itself."""
 
-    def __init__(self, spec: DrawSpec, n: int, b: int, device):
-        self.spec, self.n, self.b = spec, n, b
+    def __init__(self, spec: DrawSpec, n: int, b: int, device, mesh=None):
+        self.spec, self.n, self.b, self.mesh = spec, n, b, mesh
         fields = {}
         if spec.steps:
             fields["step"] = (((n,), torch.int32),)
@@ -523,7 +533,8 @@ class ChunkDraws:
         if self._copied[turn] is not None:
             self._copied[turn].synchronize()
         for i in range(self.n):
-            for key, values in self.spec.draw(step0 + i, self.b).items():
+            for key, values in _rank_draws(self.spec, step0 + i, self.b,
+                                           self.mesh).items():
                 for buf, v in zip(host[key], values):
                     buf[i] = v
         if host is self.static:
@@ -560,7 +571,10 @@ def _make_expand(cfg: YoloConfig, compact_targets: bool, device=None, *,
     dense-level hook in the step instead. `draws` (`DrawSpec.draw`'s
     layout, on the images' device) replaces the step's own draws. On a
     2-D `mesh` the images are a row block and the anchor head's dense
-    maps, built whole from the whole labels, are cut to the same rows."""
+    maps, built whole from the whole labels, are cut to the same rows;
+    with the mosaic the images are whole and cut after it. Under a `mesh`
+    whose data shards differ, the mosaic draws its partners from the
+    global batch (`gather_batch`, uint8 images)."""
     if mosaic and not compact_targets:
         raise ValueError("device mosaic requires compact targets (it "
                          "transforms raw labels, not dense maps)")
@@ -569,23 +583,32 @@ def _make_expand(cfg: YoloConfig, compact_targets: bool, device=None, *,
     anchors = torch.as_tensor(cfg.anchors_array, device=device)
     label_augment = bool(device_augment) and (af or sparse)
     spec = DrawSpec(seed, mosaic, label_augment, device_augment != "flip")
+    gather = (mosaic and mesh is not None
+              and mesh.data_view().group is not None)
+    whole = mosaic and mesh is not None and mesh.spatial
 
     def expand(step, images, targets, draws=None):
-        images = _normalize(images)
         if not compact_targets:
-            return images, targets
+            return _normalize(images), targets
         labels, counts = targets
+        source = gather_batch(mesh, images, labels, counts) if gather else None
+        images = _normalize(images)
         if draws is None:
-            draws = _upload_draws(spec.draw(step, labels.shape[0]),
-                                  labels.device)
+            draws = _upload_draws(_rank_draws(spec, step, labels.shape[0],
+                                              mesh), labels.device)
         if mosaic:
+            if source is not None:
+                source = (_normalize(source[0]), *source[1:])
             images, labels, valid = mosaic_compact_batch(
-                images, labels, counts, 2.0 / cfg.img_size, *draws["mosaic"])
+                images, labels, counts, 2.0 / cfg.img_size, *draws["mosaic"],
+                source=source)
         else:
             valid = prefix_valid(counts, labels.shape[1])
         if label_augment:
             images, labels = augment_compact_batch(images, labels, valid,
                                                    *draws["augment"])
+        if whole:
+            images = space_rows(mesh, images).contiguous()
         if sparse:
             return images, (labels, valid)
         if af:
@@ -673,7 +696,11 @@ def make_train_step(cfg: YoloConfig, quirk_640: bool = False, device=None, *,
     photometric jitter on the device; `device_mosaic` (compact only): the
     4-image mosaic; `sparse_loss` (compact, anchor head): the gather-based
     loss, no dense maps. Draws are keyed by `augment_seed` and
-    `state.step`. `af_hp`: the anchor-free loss's keywords (AF_HP_KEYS)."""
+    `state.step`. `af_hp`: the anchor-free loss's keywords (AF_HP_KEYS).
+
+    On a 2-D `data x space` mesh with the device mosaic the images are the
+    data shard's whole images, whose rows the step cuts after the mosaic;
+    the step's `takes_whole_images` says so to the input queue."""
     spec, body = _make_step_body(
         cfg, quirk_640, device, device_augment=device_augment,
         augment_seed=augment_seed, compact_targets=compact_targets,
@@ -687,14 +714,38 @@ def make_train_step(cfg: YoloConfig, quirk_640: bool = False, device=None, *,
         state.step += 1
         return state, dict(zip(METRIC_KEYS, metrics))
 
+    train_step.takes_whole_images = bool(
+        device_mosaic and compact_targets and mesh is not None
+        and mesh.spatial)
     return train_step
+
+
+def chunk_path(device, mesh=None) -> str:
+    """How a scanned trainer runs its chunks on `device` under `mesh`, as
+    the training banner names it: 'CUDA graph' or 'CUDA graph (nccl)' on
+    a card, 'eager (CPU)', or 'eager (gloo cannot be captured)' where the
+    mesh's collectives run on a backend other than NCCL, whose
+    collectives a graph cannot hold."""
+    if torch.device(device).type != "cuda":
+        return "eager (CPU)"
+    if mesh is None or mesh.group is None:
+        return "CUDA graph"
+    backend = dist.get_backend(mesh.group)
+    if backend == "nccl":
+        return "CUDA graph (nccl)"
+    return f"eager ({backend} cannot be captured)"
 
 
 class _ChunkTrainer:
     """N optimizer steps of `body` a call (the port's `lax.scan` over a
     chunk): eagerly on the CPU, the plain version; on the card as one CUDA
     graph, captured at the first call for a state and input layout and
-    replayed at every later one.
+    replayed at every later one. Under a `mesh` the steps' collectives
+    (the gradient all-reduce, BatchNorm's statistics, the mosaic's
+    gather) are in the graph with NCCL, every rank warming up and
+    capturing in the same order; with `gloo`, whose collectives cannot be
+    captured, the same steps run eagerly on the card (`chunk_path`). A
+    capture that fails raises.
 
     train_steps(state, *resident, *chunk) -> (state, metrics): `chunk`
     tensors have N leading (and B next) and are copied into the graph's
@@ -712,10 +763,12 @@ class _ChunkTrainer:
     `load_state_dict`) is captured anew, never read through freed
     memory."""
 
-    def __init__(self, spec, body, select, n_resident=0, ema=False):
+    def __init__(self, spec, body, select, n_resident=0, ema=False,
+                 mesh=None):
         self.spec, self.body, self.select = spec, body, select
         self.n_resident = n_resident
         self.ema = ema
+        self.mesh = mesh
         self._graph = None
 
     def _steps(self, state, ema, resident, chunk, draws, metrics, count):
@@ -728,10 +781,11 @@ class _ChunkTrainer:
         state, ema = carry if self.ema else (carry, None)
         resident, chunk = args[:self.n_resident], args[self.n_resident:]
         n, b = chunk[0].shape[:2]
-        if chunk[0].device.type == "cpu":
-            draws = ChunkDraws(self.spec, n, b, "cpu")
+        device = chunk[0].device
+        if chunk_path(device, self.mesh).startswith("eager"):
+            draws = ChunkDraws(self.spec, n, b, device, self.mesh)
             draws.load(state.step)
-            metrics = torch.empty((n, len(METRIC_KEYS)))
+            metrics = torch.empty((n, len(METRIC_KEYS)), device=device)
             self._steps(state, ema, resident, chunk, draws, metrics, n)
         else:
             metrics = self._replay(state, ema, resident, chunk, n, b)
@@ -770,7 +824,7 @@ class _ChunkTrainer:
         inputs = [torch.empty_like(t) for t in chunk]
         for dst, src in zip(inputs, chunk):
             dst.copy_(src)
-        draws = ChunkDraws(self.spec, n, b, device)
+        draws = ChunkDraws(self.spec, n, b, device, self.mesh)
         draws.load(state.step)
         metrics = torch.zeros((n, len(METRIC_KEYS)), device=device)
         graph = graphs.capture(
@@ -805,7 +859,7 @@ def make_train_step_multi_compact(cfg: YoloConfig, quirk_640: bool = False,
                                   augment_seed: int = 0,
                                   device_mosaic: bool = False,
                                   sparse_loss: bool = False, af_hp=None,
-                                  step_lr=None, ema_decay=None):
+                                  step_lr=None, ema_decay=None, mesh=None):
     """Scanned multi-step trainer fed by compact labels, both heads:
     train_steps(state, images (N, B, S, S, 3) uint8 or float32, labels
     (N, B, K, 5), counts (N, B)) -> (state, metrics averaged over the N
@@ -822,14 +876,19 @@ def make_train_step_multi_compact(cfg: YoloConfig, quirk_640: bool = False,
     ema_model), images, labels, counts) -> ((state, ema_model), metrics),
     `ema_model` from `train/ema.py::ema_init`, updated in place. Each
     step's index comes from the chunk's static device row (`ChunkDraws`),
-    so a graph replays each step's own learning rate and decay."""
+    so a graph replays each step's own learning rate and decay.
+
+    With a 1-D `mesh` (`--stream --distributed`) each step is the
+    data-parallel step of `make_train_step(mesh=)` on this rank's columns
+    of the chunk (`ChunkStream(process_shard=)`), its collectives inside
+    the chunk's graph with NCCL, eager with `gloo` (`chunk_path`)."""
     spec, body = _make_step_body(
         cfg, quirk_640, device, device_augment=device_augment,
         augment_seed=augment_seed, compact_targets=True,
         device_mosaic=device_mosaic, sparse_loss=sparse_loss, af_hp=af_hp,
-        step_lr=step_lr, ema_decay=ema_decay)
+        step_lr=step_lr, ema_decay=ema_decay, mesh=mesh)
     return _ChunkTrainer(spec, body, lambda _, c, i: (
-        c[0][i], (c[1][i], c[2][i])), ema=ema_decay is not None)
+        c[0][i], (c[1][i], c[2][i])), ema=ema_decay is not None, mesh=mesh)
 
 
 def _pool_batch(pool, chunk, i):
