@@ -267,6 +267,31 @@ and prints no result):
    version with the device ms as in phase 22 (b). Two ranks of NCCL
    cannot share one card, so the NCCL chunk graph at a world larger than
    one is not run here.
+25. `--spatial N` on P5 grids that N does not divide (the block plan of
+   `parallel/mesh.py::row_split`), on phase 16's data, 's' nc=80 compact
+   labels: (a) ranks on the one card (`gloo`), a global batch of 4, the
+   three meshes at once: 1 x 2 @608 (P5 rows 10 / 9), 1 x 3 @640
+   (7 / 7 / 6) and 1 x 4 @96 (1 / 1 / 1 / 0), float32 TF32 off against
+   one process at phase 22 (a)'s gradient and BatchNorm tolerances (the
+   loss at phase 21 (c)'s 1e-4, phase 22's 1e-6 logged), both heads, every rank's
+   state bit-equal; at 608 and 640 also bf16 with K2 on against one
+   process with K2 (loss 5e-3 relative), K2's launches a rank held to the
+   gated convs and the tiles it ran at logged; (c) the CLI's
+   `--distributed --spatial 2` in two processes a run, the four at once:
+   both heads `--compact-targets --img-size 608 --val-det` (the same
+   epoch line on both ranks, K1 on every rank, K2 held to the gated
+   convs, rank 0's checkpoint served through K1), `--compact-targets
+   --multi-scale` at 640 (buckets 480 / 640 / 800, one step each) and a
+   dense `--img-size 608` run, which exits 1 on both ranks with the line
+   that says JAX refuses it too; (b) once they are done, K2 at those
+   blocks' haloed tiles (B=8 bf16: 42x76, 38x76, 22x38, 20x38 at 608;
+   30x80, 26x80, 16x40, 14x40 at 640) against its plain version, with
+   the device ms of the kernel, the plain version and the library call
+   beside the bound; (d) `utils/roofline.py::summarize` for 's' @640 b8
+   bf16 (nc=1 and nc=80): forward GFLOP, the step floor, the roofline
+   img/s and the MFU of phases 9 and 18's rates in this run; then
+   `utils/metrics_log.py::profiler_trace` around two training steps with
+   K2 on: the trace file, its CUDA kernel events and K2's 32 among them.
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
@@ -277,12 +302,13 @@ inputs; the NMS kernel also its launches, device ms and bound on phase
 on phase 17's compact paths, on phase 18's stream paths, on phase
 19's recipe paths, on phase 20's int8 and artifact paths, on phase
 21's data-parallel paths, on phase 22's spatial paths, on phase 23's
-model-parallel paths and on phase 24's world compositions (K2's
+model-parallel paths, on phase 24's world compositions (K2's
 `mosaic_launches`, `stream_world_launches` and
-`multiscale_world_launches`, K1's `multiscale_world_launches`), K2 also
+`multiscale_world_launches`, K1's `multiscale_world_launches`) and on
+phase 25's unequal blocks (`uneven_launches`), K2 also
 its times and bounds at phase 22's
-haloed tiles, phase 23's global shapes and phase 24 (c)'s tiles
-(`multiscale_world_tiles`); Q1 and Q2
+haloed tiles, phase 23's global shapes, phase 24 (c)'s tiles
+(`multiscale_world_tiles`) and phase 25 (b)'s (`uneven_tiles`); Q1 and Q2
 their launches on phase 20's main path and in the artifacts, with their
 times, bounds and yardsticks summed over the 24 shapes at B=32); the last
 line is `{"ok": true, "device": {...}}`.
@@ -562,6 +588,30 @@ WC_SPATIAL_IMG = 768  # (c): buckets 576 / 768 / 960, P5 rows 18 / 24 / 30
 # a rank: the 72x72 and 36x36 grids' blocks of 36 and 18 rows, one halo
 # row on each side
 WC_K2_CASES = ((8, 38, 72, torch.bfloat16), (8, 20, 36, torch.bfloat16))
+# phase 25: --spatial N on P5 grids that N does not divide
+# (a): (N, image size), P5 rows a rank 10 / 9, 7 / 7 / 6, 1 / 1 / 1 / 0
+UN_MESHES = ((2, 608), (3, 640), (4, 96))
+UN_K2_MESHES = ((2, 608), (3, 640))  # (a) also bf16 with K2 on
+# (a) float32 ranks vs one process, the loss relative: phases 8, 21 (c)
+# and 24 (a)'s bound for ranks whose tiles have shapes of their own, so
+# that cuDNN picks float32 algorithms of their own (on an NVIDIA H100
+# 80GB HBM3 at 700 W: 3.59e-06 at 608 / 2, where one process's own loss
+# moves 1.02e-06 with its convs off cuDNN); phase 22's 1e-6 is logged
+# beside it
+UN_LOSS_RTOL = PARITY_LOSS_TOL
+UN_BF16_LOSS_RTOL = 5e-3  # (a) bf16 + K2 ranks vs one process, relative
+UN_AF_TRIES = 2       # (a) candidate batches of the anchor-free head
+# (b): K2 at the haloed tiles of those blocks, B=8: @608 / 2 the P3 grid's
+# 76-wide blocks of 40 and 36 rows and the P4 grid's 38-wide ones of 20
+# and 18, @640 / 3 the 80-wide blocks of 28 and 24 rows and the 40-wide
+# ones of 14 and 12, one halo row on each side
+UN_K2_CASES = tuple((8, h, w, torch.bfloat16) for h, w in (
+    (42, 76), (38, 76), (22, 38), (20, 38), (30, 80), (26, 80), (16, 40),
+    (14, 40)))
+UN_CLI_IMG = 608      # (c): P5 rows 10 / 9
+# (a), (c): 17 processes share the host's 8 cores: two CPU threads each
+UN_ENV = dict(os.environ, OMP_NUM_THREADS="2")
+UN_MS_IMG = 640       # (c): buckets 480 / 640 / 800, P5 rows 15 / 20 / 25
 
 
 def log(msg):
@@ -4071,12 +4121,15 @@ for run in job["runs"]:
                                                          job["lr"]))
     step = steps.make_train_step(cfg, device=mesh.device, mesh=mesh,
                                  **run["kw"])
-    # a step that cuts the rows itself (the device mosaic) takes whole images
+    # a step that cuts the rows itself (the device mosaic) takes whole
+    # images; rows follow the block plan of the run's P5 grid
+    grid = (cfg.img_size // 32,) if job["axis"] == "space" else ()
     images = torch.from_numpy(np.ascontiguousarray(
-        (batch_sharding if step.takes_whole_images else shard_images)(
-            mesh, run["images"]))).to(mesh.device)
+        batch_sharding(mesh, run["images"]) if step.takes_whole_images
+        else shard_images(mesh, run["images"], *grid))).to(mesh.device)
     targets = [torch.from_numpy(np.ascontiguousarray(
-        shard_targets(mesh, t))).to(mesh.device) for t in run["targets"]]
+        shard_targets(mesh, t, *grid))).to(mesh.device)
+        for t in run["targets"]]
     seen.pop("fg", None)
     seen["k2_shapes"] = []
     torch.cuda.synchronize()
@@ -4231,23 +4284,37 @@ def _single_step(dev, run, state_dict):
             seen.get("fg"))
 
 
-def _mesh_ranks(axis, n, runs, states, workdir, what):
-    """`MESH_RANK_SCRIPT`'s steps of `runs` in `n` ranks on the card (1 x
-    n, the mesh axis `axis`): each rank's results, and the seconds both
-    took with start-up."""
-    job = workdir / f"{axis}_job.pt"
+def _start_mesh_ranks(axis, n, runs, states, workdir, tag="", env=None):
+    """Start `MESH_RANK_SCRIPT`'s steps of `runs` in `n` ranks on the card
+    (1 x n, the mesh axis `axis`; `tag` names their files; `env` theirs):
+    (the processes, their start time)."""
+    job = workdir / f"{axis}{tag}_job.pt"
     torch.save({"runs": runs, "states": states, "lr": DP_LR, "axis": axis,
                 "n": n}, job)
-    t0 = time.perf_counter()
-    _run_ranks(MESH_RANK_SCRIPT, lambda r: (str(job),
-                                            str(workdir / f"{axis}_rank{r}.pt")),
-               n, Path(__file__).resolve().parent, what)
-    ranks = [torch.load(workdir / f"{axis}_rank{r}.pt", weights_only=False)
-             for r in range(n)]
+    return (_start_ranks(MESH_RANK_SCRIPT, lambda r: (
+        str(job), str(workdir / f"{axis}{tag}_rank{r}.pt")), n,
+        Path(__file__).resolve().parent, env), time.perf_counter())
+
+
+def _join_mesh_ranks(axis, n, started, workdir, what, tag=""):
+    """Join `_start_mesh_ranks`' ranks: each rank's results, and the
+    seconds they took with start-up."""
+    procs, t0 = started
+    _join_ranks(procs, what)
+    ranks = [torch.load(workdir / f"{axis}{tag}_rank{r}.pt",
+                        weights_only=False) for r in range(n)]
     if any(r["backend"] != "gloo" for r in ranks):
         raise AssertionError(f"{what}: the ranks sharing the card are not "
                              f"on gloo")
     return ranks, time.perf_counter() - t0
+
+
+def _mesh_ranks(axis, n, runs, states, workdir, what):
+    """`MESH_RANK_SCRIPT`'s steps of `runs` in `n` ranks on the card (1 x
+    n, the mesh axis `axis`): each rank's results, and the seconds both
+    took with start-up."""
+    return _join_mesh_ranks(axis, n, _start_mesh_ranks(
+        axis, n, runs, states, workdir), workdir, what)
 
 
 def _matched_single(dev, runs, ranks, states, head, what):
@@ -5060,6 +5127,335 @@ def check_world_multiscale(dev, card, started):
     return k1_total, k2_total
 
 
+def _un_runs(yaml_path, img, bf16):
+    """Phase 25 (a)'s steps at `img`: both heads on compact labels (one
+    batch of SP_BATCH images for the anchor head, AF_TRIES candidates for
+    the anchor-free one), float32, and with `bf16` the first batch in
+    bf16 with K2 on; the heads' seeded weights."""
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    train = load_dataset_yaml(yaml_path)["train"]
+    runs, states = [], {}
+    for head in ("anchor", "anchor_free"):
+        cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=img,
+                                   head_type=head)
+        states[head] = YOLO(cfg).reset_parameters(
+            torch.Generator().manual_seed(SEED)).state_dict()
+        ds = YoloDataset(train, AF_NC, cfg.anchors_array, img,
+                         backend="pil", head_type=head)
+        for t in range(1 if head == "anchor" else UN_AF_TRIES):
+            images, labels, counts = ds.load_batch_compact(
+                range(t * SP_BATCH, (t + 1) * SP_BATCH), capacity=COMPACT_K)
+            for dtype in ("float32", "bfloat16"):
+                if dtype == "bfloat16" and (t or not bf16):
+                    continue
+                runs.append(dict(
+                    name=(head, dtype, t), cfg=dict(
+                        num_classes=AF_NC, img_size=img,
+                        width_mult=cfg.width_mult, depth_mult=cfg.depth_mult,
+                        head_type=head, compute_dtype=dtype),
+                    images=images, targets=[labels, counts],
+                    kw=dict(compact_targets=True),
+                    fused=dtype == "bfloat16"))
+    return runs, states
+
+
+def phase_uneven_step(dev, workdir, yaml_path, card):
+    """(a) `--spatial N` on P5 grids N does not divide, 's' nc=80 on
+    compact labels, a global batch of SP_BATCH, ranks on the one card
+    (`gloo` on CUDA tensors), the three meshes at once: 1 x 2 @608 (P5
+    rows 10 / 9), 1 x 3 @640 (7 / 7 / 6) and 1 x 4 @96 (1 / 1 / 1 / 0).
+    float32 TF32 off against one process on the same batch, both heads, at
+    phase 22 (a)'s gradient and BatchNorm tolerances and the loss at
+    UN_LOSS_RTOL, every rank's state bit-equal (the
+    anchor-free head on the first batch whose foreground masks agree);
+    then at 608 and 640 bf16 with K2 on against one process with K2: the
+    loss within UN_BF16_LOSS_RTOL, K2's launches a rank held to the gated
+    convs, the tiles K2 ran at. One process's steps run while the ranks
+    do. Returns K2's launches summed over the ranks."""
+    from yolo_from_scratch_tpu_torch.parallel.mesh import row_split
+
+    started = {}
+    for n, img in UN_MESHES:
+        runs, states = _un_runs(yaml_path, img, (n, img) in UN_K2_MESHES)
+        started[(n, img)] = (runs, states, _start_mesh_ranks(
+            "space", n, runs, states, workdir, f"_un{n}_{img}", UN_ENV))
+    singles = {}
+    for (n, img), (runs, states, _) in started.items():
+        for run in runs:
+            conv_bwd.launches = 0
+            single = _single_step(dev, run, states[run["cfg"]["head_type"]])
+            singles[(n, img, run["name"])] = (single, conv_bwd.launches)
+    k2_total, failed = 0, []
+    for (n, img), (runs, states, st) in started.items():
+        what = f"phase 25 (a) 1 x {n} @{img}"
+        ranks, rank_s = _join_mesh_ranks("space", n, st, workdir, what,
+                                         f"_un{n}_{img}")
+        blocks = row_split(img // 32, n)
+        for head in ("anchor", "anchor_free"):
+            for t in range(1 if head == "anchor" else UN_AF_TRIES):
+                name = (head, "float32", t)
+                (loss, grads, state, fg), _ = singles[(n, img, name)]
+                got = [r[name] for r in ranks]
+                n_diff = 0 if fg is None else int((got[0]["fg"] != fg).sum())
+                if n_diff == 0:
+                    break
+                log(f"{what} {head}: images {t * SP_BATCH}-"
+                    f"{(t + 1) * SP_BATCH - 1}: {n_diff} of {int(fg.sum())} "
+                    f"fg cells differ from one process's; the next batch")
+            else:
+                raise AssertionError(f"{what}: {head} fg masks differ on "
+                                     f"all {UN_AF_TRIES} batches")
+            total = sum(r["metrics"]["loss"] for r in got)
+            rel_loss = abs(total - loss) / abs(loss)
+
+            worst = _worst(got[0]["grads"], grads)
+            bn_worst = _bn_worst(got[0]["state"], state)
+            across = sorted({k for r in got[1:]
+                             for k in _ranks_differ(got[0]["state"],
+                                                    r["state"])})
+            log(f"{what} {head}, P5 rows a rank {blocks} ({card}; gloo on "
+                f"CUDA tensors; {rank_s:.1f} s for the ranks' steps with "
+                f"start-up), 's' nc={AF_NC} compact labels, float32 TF32 "
+                f"off, a global batch of {SP_BATCH} (images {t * SP_BATCH}-"
+                f"{(t + 1) * SP_BATCH - 1}) vs one process: loss "
+                f"{total:.7f} vs {loss:.7f} ({rel_loss:.2e} relative, tol "
+                f"{UN_LOSS_RTOL}; phase 22's {SP_LOSS_RTOL[head]} met: "
+                f"{rel_loss <= SP_LOSS_RTOL[head]}); worst gradient "
+                f"{worst[0]:.2e} of its "
+                f"tensor's max ({worst[1]}; tol {PARITY_GRAD_TOL}); BatchNorm "
+                f"statistics worst {bn_worst[0]:.2e} of the tensor's max "
+                f"({bn_worst[1]}; tol {SP_BN_TOL}); state tensors differing "
+                f"between the ranks: {len(across)}")
+            if (rel_loss > UN_LOSS_RTOL or worst[0] > PARITY_GRAD_TOL
+                    or bn_worst[0] > SP_BN_TOL or across):
+                failed.append(f"{what} {head}: the step differs from one "
+                              f"process's")
+            if (n, img) not in UN_K2_MESHES:
+                continue
+            name = (head, "bfloat16", 0)
+            bf16 = [r[name] for r in ranks]
+            (loss, _, _, _), single_k2 = singles[(n, img, name)]
+            cfg = YoloConfig(**next(r["cfg"] for r in runs
+                                    if r["name"] == name))
+            want = sum(_gated_convs(cfg).values()) * conv_bwd.LAUNCHES_PER_CALL
+            total = sum(r["metrics"]["loss"] for r in bf16)
+            rel_loss = abs(total - loss) / abs(loss)
+            tiles = [sorted({x[2:] for x, _, _ in r["k2_shapes"]})
+                     for r in bf16]
+            across = sorted({k for r in bf16[1:]
+                             for k in _ranks_differ(bf16[0]["state"],
+                                                    r["state"])})
+            log(f"{what} {head} bf16, YOLO_FUSED_CONV_BWD=1 ({card}): K2 "
+                f"launches a rank {[r['k2'] for r in bf16]} for one step "
+                f"(want {want}; one process {single_k2}) at the haloed "
+                f"tiles (H, W) a rank {tiles}; loss {total:.6f} vs one "
+                f"process with K2 {loss:.6f} ({rel_loss:.2e} relative, tol "
+                f"{UN_BF16_LOSS_RTOL}); state tensors differing between the "
+                f"ranks: {len(across)}")
+            if (any(r["k2"] != want for r in bf16) or single_k2 != want
+                    or rel_loss > UN_BF16_LOSS_RTOL or across
+                    or not np.isfinite(total)):
+                failed.append(f"{what} {head} bf16: K2's launches, the "
+                              f"ranks or the step")
+            k2_total += sum(r["k2"] for r in bf16)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return k2_total
+
+
+def start_uneven_cli(workdir, yaml_path):
+    """(c) start the CLI's `--distributed --data-parallel --spatial 2` in
+    two processes a run, all at once, K2 on: both heads with
+    `--compact-targets --img-size 608 --val-det` (one epoch of 2 steps),
+    `--compact-targets --multi-scale` at 640 (3 epochs of one step: the
+    buckets 480, 640 and 800, P5 rows 15, 20 and 25), and the anchor head
+    with dense targets at 608. Returns the started runs."""
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(UN_ENV, YOLO_FUSED_CONV_BWD="1", PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    common = [str(yaml_path), "--size", "s", "--data-parallel", "--spatial",
+              "2"]
+    runs = {
+        "anchor": common + ["--epochs", "1", "--batch-size", "8",
+                            "--img-size", str(UN_CLI_IMG), "--val-det",
+                            "--compact-targets"],
+        "anchor_free": common + ["--epochs", "1", "--batch-size", "8",
+                                 "--img-size", str(UN_CLI_IMG), "--val-det",
+                                 "--compact-targets", "--head",
+                                 "anchor_free"],
+        "multi_scale": common + ["--epochs", "3", "--batch-size", "16",
+                                 "--img-size", str(UN_MS_IMG),
+                                 "--multi-scale", "--compact-targets"],
+        "dense": common + ["--epochs", "1", "--batch-size", "8",
+                           "--img-size", str(UN_CLI_IMG)]}
+    started = {}
+    for name, args in runs.items():
+        run_dir = workdir / f"un_cli_{name}"
+        run_dir.mkdir()
+        started[name] = (run_dir, _start_ranks(
+            MESH_CLI_SCRIPT, lambda r, args=args: args, 2, run_dir, env))
+    return started, time.perf_counter()
+
+
+def check_uneven_cli(dev, card, started):
+    """(c) join `start_uneven_cli`'s runs: every rank prints the 2-D
+    banner and the same epoch lines; at 608 K1's launches rise on every
+    rank and K2's equal the gated convs, rank 0's checkpoint (its head)
+    serves one request through K1; the --multi-scale run names its
+    buckets and trains each; the dense run exits 1 on both ranks with the
+    corrected line before training. Returns (K1, K2) launches summed
+    over the ranks and the requests."""
+    runs, t0 = started
+    k1_total = k2_total = 0
+    banner = "2-D mesh: data=1 x space=2 over 2 process(es)"
+    for name, (run_dir, procs) in runs.items():
+        what = f"phase 25 (c) {name}"
+        if name == "dense":
+            outs = []
+            for p in procs:
+                out, err = p.communicate(timeout=SP_JOIN_S)
+                outs.append(out)
+                if p.returncode != 1:
+                    raise AssertionError(f"{what}: exit {p.returncode}, not "
+                                         f"1:\n{out[-2000:]}\n{err[-2000:]}")
+            line = (f"ERROR: --spatial 2 needs the P5 grid (img_size / 32 = "
+                    f"{UN_CLI_IMG // 32} rows at {UN_CLI_IMG}) to divide by 2 "
+                    f"with dense targets")
+            if any(line not in out or "Training YOLO model" in out
+                   or "pads" in out for out in outs):
+                raise AssertionError(f"{what}: not refused as JAX is:\n"
+                                     f"{outs[0][-2000:]}")
+            log(f"{what}: --img-size {UN_CLI_IMG} without --compact-targets "
+                f"exits 1 on both ranks before training: "
+                f"{next(ln for ln in outs[0].splitlines() if ln.startswith('ERROR'))}")
+            continue
+        outs = _join_ranks(procs, what)
+        wall = time.perf_counter() - t0
+        epochs, launches = [], []
+        for r, out in enumerate(outs):
+            lines = re.findall(r"Epoch \d+: .* \| LR: ", out)
+            counts = re.search(r"LAUNCHES K1 (\d+) K2 (\d+)", out)
+            if not lines or not counts or banner not in out.splitlines():
+                raise AssertionError(f"{what} rank {r}:\n{out[-3000:]}")
+            epochs.append(lines)
+            launches.append((int(counts.group(1)), int(counts.group(2))))
+        if len({tuple(e) for e in epochs}) != 1:
+            raise AssertionError(f"{what}: the ranks' epoch lines differ")
+        if name == "multi_scale":
+            sizes = cli.multi_scale_sizes(UN_MS_IMG)
+            rows = [s // 32 for s in sizes]
+            if (f"Multi-scale buckets: {sizes} (epoch-rotated)" not in outs[0]
+                    or len(epochs[0]) != 3):
+                raise AssertionError(f"{what}: buckets or epochs:\n"
+                                     f"{outs[0][-3000:]}")
+            log(f"{what} CLI --distributed --spatial 2 --compact-targets "
+                f"--multi-scale @{UN_MS_IMG} over 2 processes on one card "
+                f"({card}): buckets {sizes} (P5 rows {rows}, a rank "
+                f"{[_p5_split(r) for r in rows]}), one "
+                f"bf16 step each, done {wall:.1f} s after the runs' start; "
+                f"epoch lines equal on both ranks: {epochs[0]}; (K1, K2) "
+                f"launches a rank {launches}")
+            k2_total += sum(k2 for _, k2 in launches)
+            continue
+        cfg = YoloConfig.from_size("s", num_classes=AF_NC, img_size=UN_CLI_IMG,
+                                   compute_dtype="bfloat16", head_type=name)
+        want_k2 = (sum(_gated_convs(cfg).values()) * TRAIN_STEPS
+                   * conv_bwd.LAUNCHES_PER_CALL)
+        ckpt = sorted(run_dir.glob("yolo_*.ckpt"))
+        if len(ckpt) != 1:
+            raise AssertionError(f"{what}: checkpoints {ckpt}")
+        sd, ckpt_cfg, _ = load_checkpoint(ckpt[0])
+        img = np.random.default_rng(SEED).integers(
+            0, 256, (UN_CLI_IMG, UN_CLI_IMG, 3), dtype=np.uint8)
+        nms_cuda.launches = 0
+        dets = Predictor(sd, ckpt_cfg, conf_threshold=1e-6, device=dev)(img)
+        torch.cuda.synchronize()
+        k1_request = nms_cuda.launches
+        log(f"{what} CLI --distributed --spatial 2 --compact-targets "
+            f"--img-size {UN_CLI_IMG} --val-det over 2 processes on one card "
+            f"({card}), P5 rows a rank {_p5_split(UN_CLI_IMG // 32)}, 1 bf16 "
+            f"epoch of {TRAIN_STEPS} steps, K2 on: done {wall:.1f} s after "
+            f"the runs' start; epoch lines equal on both ranks "
+            f"({epochs[0][0][:60]}...); (K1, K2) launches a rank {launches} "
+            f"(K2 want {want_k2}); rank 0's checkpoint "
+            f"({ckpt_cfg.head_type}) served {len(dets)} detections, K1 "
+            f"launched {k1_request} times")
+        if (" | Det: P " not in epochs[0][0] or ckpt_cfg.head_type != name
+                or any(k1 < 1 or k2 != want_k2 for k1, k2 in launches)
+                or not dets or k1_request < 1):
+            raise AssertionError(f"{what}: a kernel's launches, the "
+                                 f"checkpoint or the request")
+        k1_total += sum(k1 for k1, _ in launches) + k1_request
+        k2_total += sum(k2 for _, k2 in launches)
+    return k1_total, k2_total
+
+
+def _p5_split(grid):
+    from yolo_from_scratch_tpu_torch.parallel.mesh import row_split
+
+    return row_split(grid, 2)
+
+
+def phase_tooling(dev, workdir, yaml_path, card, rates, stream_rates):
+    """(d) the model roofline (`utils/roofline.py::summarize`) of the
+    configurations phases 9 and 18 time, 's' @640 b8 bf16 (nc=1 and
+    nc=80), with the MFU of their rates measured earlier in this run; then
+    `utils/metrics_log.py::profiler_trace` around two training steps of
+    phase 9's, K2 on: the trace file, its CUDA kernel events and K2's
+    among them (the gated convs' launches). Returns K2's launches in the
+    traced steps."""
+    from yolo_from_scratch_tpu_torch.utils.metrics_log import profiler_trace
+
+    measured = {
+        (1, "phase 9 eager, K2 on"): statistics.mean(rates["1"]),
+        (1, "phase 9 eager, K2 off"): statistics.mean(rates["0"]),
+        **{(AF_NC, f"phase 18 {k}"): v for k, v in stream_rates.items()}}
+    for nc in (1, AF_NC):
+        cfg = YoloConfig.from_size("s", num_classes=nc, img_size=IMG_SIZE,
+                                   compute_dtype="bfloat16")
+        s = roofline.summarize(cfg, batch=8)
+        mfu = {k: roofline.summarize(cfg, 8, v)["mfu"]
+               for (c, k), v in measured.items() if c == nc}
+        log(f"phase 25 (d) roofline 's' @{IMG_SIZE} nc={nc} b8 bf16 (H100 "
+            f"data sheet {s['peak_flops'] / 1e12:.0f} TFLOP/s, "
+            f"{roofline.H100_BYTES_PER_S / 1e12:.2f} TB/s; "
+            f"{len(s['convs'])} convs): forward {s['fwd_flops'] / 1e9:.2f} "
+            f"GFLOP, training-step floor {s['train_t_min_ms']:.4f} ms, "
+            f"roofline {s['roofline_img_s']:.1f} img/s; MFU of this run's "
+            f"rates: " + ", ".join(
+                f"{k} {measured[(nc, k)]:.1f} img/s -> {v:.4%}"
+                for k, v in mfu.items()) + f" ({card})")
+    cfg = YoloConfig.from_size("s", num_classes=1, img_size=IMG_SIZE,
+                               compute_dtype="bfloat16")
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    images, targets = _batch(yaml_path, "train", 8, dev)
+    state = create_train_state(cfg, 1e-3, seed=SEED, device=dev)
+    step = make_train_step(cfg, device=dev)
+    step(state, images, targets)
+    torch.cuda.synchronize()
+    want = 2 * GATED_CONVS_BF16 * conv_bwd.LAUNCHES_PER_CALL
+    for attempt in range(TRACE_ATTEMPTS):
+        logdir = workdir / f"trace{attempt}"
+        with profiler_trace(logdir):
+            for _ in range(2):
+                step(state, images, targets)
+            torch.cuda.synchronize()
+        path = logdir / "trace.json"
+        events = json.loads(path.read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        k2 = sum("conv3x3_bwd" in e.get("name", "") for e in kernels)
+        log(f"phase 25 (d) profiler_trace around 2 bf16 training steps, K2 "
+            f"on ({card}): {path.name} {path.stat().st_size} bytes, "
+            f"{len(events)} events, {len(kernels)} CUDA kernel events, K2's "
+            f"{k2} (want {want}: {GATED_CONVS_BF16} gated convs x "
+            f"{conv_bwd.LAUNCHES_PER_CALL} x 2 steps), attempt {attempt + 1}")
+        if kernels and k2 == want:
+            return k2
+    raise AssertionError(f"phase 25 (d): no trace with K2's {want} "
+                         f"launches in {TRACE_ATTEMPTS} attempts")
+
+
 def main():
     t_main = time.perf_counter()
 
@@ -5195,7 +5591,7 @@ def main():
         stream_yaml, cache = phase_stream_setup(Path(tmp))
         stream_k2 = phase_stream_graph(dev, cache)
         phase_stream_capturable(dev, cache)
-        phase_stream_throughput(dev, cache)
+        stream_rates = phase_stream_throughput(dev, cache)
         stream_k1, stream_k2_calls = phase_stream_cli(Path(tmp), stream_yaml)
         log(f"stream path's kernel launches: NMS {stream_k1} (--val-det, "
             f"both CLI runs); conv backward in one replay of {STREAM_N} "
@@ -5301,6 +5697,29 @@ def main():
             f"{time.perf_counter() - t24:.1f} s ({card})")
         done(24)
 
+        # 25. --spatial N on P5 grids N does not divide: unequal row blocks
+        # on the card against one process, K2 at their haloed tiles, the
+        # CLI (compact runs train, a dense one exits 1); the model roofline
+        # with the MFU of phases 9 and 18, profiler_trace around two steps
+        t25 = time.perf_counter()
+        for sub in ("p25", "p25_cli", "p25_trace"):
+            (Path(tmp) / sub).mkdir()
+        un_cli = start_uneven_cli(Path(tmp) / "p25_cli", af_yaml)
+        un_k2_step = phase_uneven_step(dev, Path(tmp) / "p25", af_yaml, card)
+        un_k1, un_k2_cli = check_uneven_cli(dev, card, un_cli)
+        un_err, un_times = phase_mesh_k2(
+            dev, card, UN_K2_CASES, SEED + 70,
+            "phase 25 (b) K2 at the unequal blocks' haloed tile")
+        un_k2_trace = phase_tooling(dev, Path(tmp) / "p25_trace", yaml_path,
+                                    card, rates, stream_rates)
+        log(f"unequal blocks' kernel launches: conv backward {un_k2_step} "
+            f"(one bf16 step a rank, both heads, @608 / 2 and @640 / 3) + "
+            f"{un_k2_cli} (the CLI runs) + {un_k2_trace} (the traced "
+            f"steps); NMS {un_k1} (--val-det on every rank of the two 608 "
+            f"runs, and their checkpoints' requests); phase 25 took "
+            f"{time.perf_counter() - t25:.1f} s ({card})")
+        done(25)
+
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
         "route": "cuda",
@@ -5335,13 +5754,14 @@ def main():
         "spatial_launches": sp_k1,
         "model_parallel_launches": tp_k1,
         "multiscale_world_launches": wc_ms_k1,
+        "uneven_launches": un_k1,
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
         "source": "yolo_from_scratch_tpu_torch/csrc/conv_bwd.cu",
         "replaces": "yolo_from_scratch_tpu/ops/conv_bwd.py:89",
         "launches": k2_launches,
-        "max_abs_err": max(k2_err, ms_err, sp_err, tp_err, wc_err),
+        "max_abs_err": max(k2_err, ms_err, sp_err, tp_err, wc_err, un_err),
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound[0],
@@ -5377,6 +5797,12 @@ def main():
                                     "plain_ms": t[1], "library_ms": t[2],
                                     "bound_ms": t[3]}
                                    for (b, h, w), t in wc_times.items()],
+        "uneven_launches": un_k2_step + un_k2_cli + un_k2_trace,
+        # K2 at the haloed tiles of unequal row blocks (phase 25 (b))
+        "uneven_tiles": [{"shape": [b, h, w, 64], "ms": t[0],
+                          "plain_ms": t[1], "library_ms": t[2],
+                          "bound_ms": t[3]}
+                         for (b, h, w), t in un_times.items()],
     }, *({
         "name": name,
         "route": "cuda",

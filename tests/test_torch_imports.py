@@ -273,15 +273,16 @@ def _imported_modules(path):
 
 
 PORT_SOURCES = sorted(PORT_DIR.rglob("*.py")) + [
-    REPO_ROOT / "chip_smoke.py", REPO_ROOT / "train_torch.py"]
+    REPO_ROOT / "chip_smoke.py", REPO_ROOT / "train_torch.py",
+    REPO_ROOT / "eval_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES,
                          ids=[str(p.relative_to(REPO_ROOT))
                               for p in PORT_SOURCES])
 def test_port_source_imports_nothing_of_the_jax_package(path):
-    """Static check: no import in the port's sources, chip_smoke.py or
-    train_torch.py names `yolo_from_scratch_tpu` or one of its submodules, at module level
+    """Static check: no import in the port's sources, chip_smoke.py,
+    train_torch.py or eval_torch.py names `yolo_from_scratch_tpu` or one of its submodules, at module level
     or inside a function."""
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib", "flax")]

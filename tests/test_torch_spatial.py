@@ -776,9 +776,10 @@ def test_cli_spatial_flag_rules(argv, rc, says, temp_dataset_dir, capsys):
 @pytest.mark.parametrize("img_size,n", [(160, 2), (96, 2), (128, 8)])
 def test_cli_refuses_a_p5_grid_that_does_not_divide(
         img_size, n, temp_dataset_dir, monkeypatch, capsys):
-    """An --img-size whose P5 grid does not divide by N exits 1 and names
-    the rule (the mesh is faked: the refusal comes before any
-    collective)."""
+    """An --img-size whose P5 grid does not divide by N exits 1 with dense
+    targets, as the JAX CLI does (its `device_put` of the dense maps
+    raises), and the line says so (the mesh is faked: the refusal comes
+    before any collective)."""
     def fake_mesh(n_space, device):
         return port_mesh.Mesh(0, n_space, torch.device("cpu"),
                               group=object(), n_space=n_space)
@@ -791,16 +792,22 @@ def test_cli_refuses_a_p5_grid_that_does_not_divide(
     out = capsys.readouterr().out
     assert f"2-D mesh: data=1 x space={n} over {n} process(es)" in out
     assert (f"--spatial {n} needs the P5 grid (img_size / 32 = "
-            f"{img_size // 32} rows at {img_size}) to divide by {n}") in out
+            f"{img_size // 32} rows at {img_size}) to divide by {n} with "
+            f"dense targets, as the JAX CLI does") in out
+    assert "--compact-targets splits the rows unequally" in out
+    assert "pads" not in out
 
 
-@pytest.mark.parametrize("img_size,n,refused", [
-    (160, 2, True), (640, 3, True), (128, 4, False), (640, 2, False),
-    (640, 4, False), (640, 1, False)])
-def test_p5_rule(img_size, n, refused, capsys):
+@pytest.mark.parametrize("img_size,n,dense,refused", [
+    (160, 2, True, True), (640, 3, True, True), (128, 4, True, False),
+    (640, 2, True, False), (640, 4, True, False), (640, 1, True, False),
+    (160, 2, False, False), (640, 3, False, False), (96, 4, False, False)])
+def test_p5_rule(img_size, n, dense, refused, capsys):
+    """Dense targets need a P5 grid that N divides; compact labels take
+    any grid (unequal row blocks)."""
     args = cli.build_parser().parse_args(["--spatial", str(n)])
-    assert cli._spatial_refused(args, _cfg().with_(img_size=img_size)) \
-        == refused
+    assert cli._spatial_refused(args, _cfg().with_(img_size=img_size),
+                                dense) == refused
     assert ("needs the P5 grid" in capsys.readouterr().out) == refused
 
 

@@ -48,9 +48,11 @@ world of one. `--spatial N` makes the mesh 2-D, `data x space` (JAX's
 layout: rank r holds rows r % N of data shard r // N): every image's
 rows are split N ways over the ranks of a space group, for training and
 evaluation, both heads; the JAX CLI's rules hold (exit 1 without
-`--data-parallel`, with `--model-parallel` or with `--stream`), and an
-`--img-size` whose P5 grid (img_size / 32) does not divide by N exits 1
-(JAX pads such shards; the port does not). `--model-parallel N` makes it
+`--data-parallel`, with `--model-parallel` or with `--stream`). Where N
+does not divide the P5 grid (img_size / 32) the blocks differ by a P5
+row (`parallel/mesh.py::row_split`; ranks past the grid hold none) for
+compact labels, which the JAX CLI trains there too; dense targets exit 1
+before training, where the JAX CLI's `device_put` of them exits 1. `--model-parallel N` makes it
 `data x model` (rank r is model index r % N of data shard r // N): the
 large convs' output channels, their BatchNorm and Adam moments are split
 N ways over the ranks of a model group (`parallel/tensor.py`), for
@@ -61,7 +63,8 @@ or on a world that N does not divide). `--stream-pool` with a mesh exits
 1, as the JAX CLI's does. Under every mesh `--compact-targets
 --device-mosaic` draws its partners from the global batch (gathered over
 the ranks) and `--multi-scale` takes one step and one sharded loader a
-bucket (under `--spatial N` every bucket's P5 grid must divide by N).
+bucket (under `--spatial N` with dense targets every bucket's P5 grid
+must divide by N).
 `--stream --distributed` runs when every process is on one host: the
 port's counterpart of the JAX CLI's `--stream --data-parallel` over one
 host's chips, `--batch-size` per process, each chunk's collectives in its
@@ -505,17 +508,20 @@ def _run_mesh(args, device):
     return mesh, None
 
 
-def _spatial_refused(args, cfg, what=""):
-    """True (after the message) when --spatial N cannot split cfg's P5
-    grid (`what`: which size, when not --img-size's) into equal row
-    blocks."""
+def _spatial_refused(args, cfg, dense, what=""):
+    """True (after the message) when --spatial N would split cfg's P5
+    grid (`what`: which size, when not --img-size's) into unequal row
+    blocks for `dense` host targets. The JAX CLI exits 1 there (its
+    `device_put` cannot shard the dense maps on `space`); compact labels
+    it trains, and so does the port, on the block plan of
+    `parallel/mesh.py`."""
     rows = cfg.img_size // P5_STRIDE
-    if args.spatial > 1 and rows % args.spatial:
+    if dense and args.spatial > 1 and rows % args.spatial:
         print(f"ERROR: --spatial {args.spatial} needs the P5 grid{what} "
               f"(img_size / {P5_STRIDE} = {rows} rows at {cfg.img_size}) to "
-              f"divide by {args.spatial}; other sizes are not ported yet "
-              f"(ROADMAP.md A8c; the JAX CLI pads the shards): use `python "
-              f"train.py` for them")
+              f"divide by {args.spatial} with dense targets, as the JAX CLI "
+              f"does (its dense targets do not shard on such a grid); "
+              f"--compact-targets splits the rows unequally")
         return True
     return False
 
@@ -545,7 +551,8 @@ def _evaluate(args, config, ckpt_file):
     state_dict, cfg, _ = load_checkpoint(ckpt_file)
     if args.dtype != "auto":
         cfg = cfg.with_(compute_dtype=args.dtype)
-    if _spatial_refused(args, cfg):
+    compact = args.compact_targets if cfg.head_type == "anchor" else 0
+    if _spatial_refused(args, cfg, dense=not compact):
         return 1
     print(f"Evaluating model from {ckpt_file}")
     print(f"Number of classes: {cfg.num_classes}")
@@ -555,7 +562,6 @@ def _evaluate(args, config, ckpt_file):
     model = YOLO(cfg)
     model.load_state_dict(state_dict)
     model.to(device)
-    compact = args.compact_targets if cfg.head_type == "anchor" else 0
     if args.compact_targets and not compact:
         print("NOTE: --compact-targets ignored (anchor head only)")
     eval_step = make_eval_step(cfg, quirk_640=args.reference_quirks,
@@ -694,11 +700,12 @@ def _train(args, config):
                                    num_classes=config.get("nc", 1),
                                    img_size=args.img_size,
                                    compute_dtype=dtype, head_type=args.head)
-    if _spatial_refused(args, cfg):
+    dense = not args.compact_targets
+    if _spatial_refused(args, cfg, dense):
         return 1
     sizes = multi_scale_sizes(cfg.img_size) if args.multi_scale else []
     for size in sizes:
-        if _spatial_refused(args, cfg.with_(img_size=size),
+        if _spatial_refused(args, cfg.with_(img_size=size), dense,
                             f" of the --multi-scale bucket {size}"):
             return 1
     if args.stream:

@@ -15,6 +15,9 @@ halo_rows`): a 3x3 conv 1 row above and 1 below (at stride 2, 1 above
 only: its symmetric padding of 1 reads rows 2i-1 .. 2i+1, and the local
 heights are even), each 5x5 pool of SPPF 2 and 2 of -inf. The conv then
 pads the columns alone. Upsample, concat and 1x1 convs stay local.
+A rank whose block holds no rows (a P5 grid smaller than the space axis)
+runs each op on a tile padded to the op's size and keeps no output row
+(`parallel/spatial.py::fit_rows`), so that it joins every exchange.
 Without a space axis nothing changes.
 
 On a `data x model` mesh (`--model-parallel N`) a conv that
@@ -38,8 +41,8 @@ from yolo_from_scratch_tpu_torch.ops.conv_bwd import (
     conv3x3_same,
     use_fused_bwd,
 )
-from yolo_from_scratch_tpu_torch.parallel.mesh import spatial_mesh
-from yolo_from_scratch_tpu_torch.parallel.spatial import halo_rows
+from yolo_from_scratch_tpu_torch.parallel.mesh import global_rows, spatial_mesh
+from yolo_from_scratch_tpu_torch.parallel.spatial import fit_rows, halo_rows
 from yolo_from_scratch_tpu_torch.parallel.tensor import (
     conv3x3_same_tp,
     gather_channels,
@@ -72,8 +75,9 @@ class ConvBNSiLU(nn.Module):
     `self.conv` holds the float32 parameters and their stride and padding.
     A conv that `use_fused_bwd` selects runs `conv3x3_same`: the same
     forward, the fused backward. On a row block (`--spatial`) the gate
-    reads the global height, so that the same convs are selected as in
-    one process, and `conv3x3_same` runs unchanged on the haloed tile
+    reads the global height (the block plan's, `parallel/mesh.py::
+    global_rows`), so that the same convs are selected as in one process
+    on every rank, and `conv3x3_same` runs unchanged on the haloed tile
     (h + 2 rows) of which the first and last output rows are dropped: its
     backward then gets zero dy there, so its dW is exact, and the halo
     rows' dx goes back through the exchange.
@@ -112,24 +116,24 @@ class ConvBNSiLU(nn.Module):
         w = cast(conv.weight, self.dtype)
         k, stride, pad = conv.kernel_size[0], conv.stride[0], conv.padding[0]
         mesh = spatial_mesh()
-        n = mesh.n_space if mesh is not None else 1
-        if conv.bias is None and use_fused_bwd(
-                k, stride, x.shape[1], conv.out_channels, x.shape[2] * n,
-                x.shape[3], self.dtype):
-            if mesh is None:
-                y = conv3x3_same(x, w)
-            else:
-                y = conv3x3_same(halo_rows(x, 1, 1, 0.0, mesh), w)[:, :, 1:-1]
-        elif mesh is None or k == 1:
-            y = F.conv2d(x, w, cast(conv.bias, self.dtype), conv.stride,
-                         conv.padding)
+        bias = cast(conv.bias, self.dtype)
+        gated = conv.bias is None and use_fused_bwd(
+            k, stride, x.shape[1], conv.out_channels,
+            global_rows(x.shape[2], x.shape[3]), x.shape[3], self.dtype)
+        if gated and mesh is None:
+            y = conv3x3_same(x, w)
+        elif gated and x.shape[2]:  # a rank without rows: the conv below
+            y = conv3x3_same(halo_rows(x, 1, 1, 0.0, mesh), w)[:, :, 1:-1]
+        elif mesh is None:
+            y = F.conv2d(x, w, bias, conv.stride, conv.padding)
         else:
             # output row o reads input rows o*stride - pad .. + k - 1: the
             # block's outputs read `pad` rows above it and k - stride - pad
-            # below
-            x = halo_rows(x, pad, k - stride - pad, 0.0, mesh)
-            y = F.conv2d(x, w, cast(conv.bias, self.dtype), conv.stride,
-                         (0, conv.padding[1]))
+            # below (a rank without rows: its halo, and no output row)
+            if k > 1:
+                x = halo_rows(x, pad, k - stride - pad, 0.0, mesh)
+            y = fit_rows(lambda t: F.conv2d(t, w, bias, conv.stride,
+                                            (0, conv.padding[1])), x, k)
         return self.bn(y, train)
 
     def _forward_tp(self, x, train):
@@ -153,7 +157,8 @@ def pred_conv(conv, x, dtype):
     mesh = getattr(conv, "tp", None)
     w, b = cast(conv.weight, dtype), cast(conv.bias, dtype)
     if mesh is None:
-        return F.conv2d(x, w, b)
+        # a row block of no rows (`--spatial`) keeps its place in the graph
+        return fit_rows(lambda t: F.conv2d(t, w, b), x, 1)
     return gather_channels(F.conv2d(model_input(x, mesh), w, b), mesh)
 
 
@@ -204,7 +209,8 @@ def maxpool_same(x, k: int):
     if mesh is None:
         return F.max_pool2d(x, k, 1, k // 2)
     x = halo_rows(x, k // 2, k // 2, -torch.inf, mesh)
-    return F.max_pool2d(x, k, 1, (0, k // 2))
+    return fit_rows(lambda t: F.max_pool2d(t, k, 1, (0, k // 2)), x, k,
+                    -torch.inf)
 
 
 class SPPF(nn.Module):
@@ -228,5 +234,7 @@ class SPPF(nn.Module):
 
 
 def upsample_nearest_2x(x):
-    """Nearest-neighbor 2x upsample of an NCHW tensor."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    """Nearest-neighbor 2x upsample of an NCHW tensor (of a row block of
+    no rows too, `fit_rows`)."""
+    return fit_rows(lambda t: F.interpolate(t, scale_factor=2,
+                                            mode="nearest"), x, 1)

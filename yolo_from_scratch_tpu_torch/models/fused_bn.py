@@ -27,9 +27,12 @@ sums behind mean(dz) and mean(dz * xhat) over the ranks (the gradients of
 scale and bias stay this rank's part; the step sums them with the rest).
 The running statistics then move by the global mean and variance, equal
 on every rank. On a 2-D mesh (`--spatial`) each rank holds a block of
-rows of its data shard's batch; the blocks are equal, so the same shares
-of 1 / world over the world group give the statistics of the whole
-global batch, data x space (`tests/test_torch_spatial.py` holds them).
+rows of its data shard's batch. Where the blocks are equal the same
+shares of 1 / world over the world group give the statistics of the
+whole global batch, data x space (`tests/test_torch_spatial.py` holds
+them); where they differ (`parallel/mesh.py::uneven`) each rank's sums
+over the global count do (`global_elements`; a rank without rows adds
+zeros), and the backward's means divide by that count.
 On a `data x model` mesh (`--model-parallel`) a channel-sharded conv's
 BatchNorm holds its slice of the channels, and the ranks of a model group
 hold one batch: the statistics of the slice are reduced over the data
@@ -44,17 +47,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolo_from_scratch_tpu_torch.parallel.mesh import all_reduce, reduce_mesh
+from yolo_from_scratch_tpu_torch.parallel.mesh import (
+    all_reduce,
+    global_elements,
+    reduce_mesh,
+    uneven,
+)
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 _C = (1, -1, 1, 1)  # a per-channel vector against an NCHW tensor
 
 
-def _stats(x, mesh=None):
+def _stats(x, mesh=None, count=None):
     """float32 fast-variance batch statistics per channel of NCHW x, over
-    `mesh`'s global batch when one is given (equal local batches)."""
+    `mesh`'s global batch when one is given: equal local batches, or
+    unequal row blocks of `count` elements a channel in all."""
     xf = x.float()
+    if mesh is not None and uneven():
+        sums = torch.stack([xf.sum(dim=(0, 2, 3)),
+                            torch.square(xf).sum(dim=(0, 2, 3))])
+        mu, mu2 = all_reduce(sums / count, mesh).unbind()
+        return mu, torch.clamp(mu2 - torch.square(mu), min=0.0)
     mu = xf.mean(dim=(0, 2, 3))
     mu2 = torch.square(xf).mean(dim=(0, 2, 3))
     if mesh is not None:
@@ -76,7 +90,9 @@ class _BNSiLUTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
         ctx.mesh = reduce_mesh()
-        mu, var = _stats(x, ctx.mesh)
+        # the global batch's elements a channel: (B, h, W) blocks, rows at 1
+        ctx.count = global_elements(x[:, 0])
+        mu, var = _stats(x, ctx.mesh, ctx.count)
         ctx.save_for_backward(x, mu, var, scale, bias)
         ctx.eps = eps
         ctx.mark_non_differentiable(mu, var)
@@ -90,7 +106,7 @@ class _BNSiLUTrain(torch.autograd.Function):
         z = (xhat * scale.view(_C) + bias.view(_C)).to(x.dtype)
         s = torch.sigmoid(z)
         dz = (dy * (s * (1.0 + z * (1.0 - s)))).float()
-        m = x.numel() // x.shape[1]
+        m = ctx.count
         dbeta = dz.sum(dim=(0, 2, 3))
         dgamma = (dz * xhat).sum(dim=(0, 2, 3))
         sum_dz, sum_dzx = dbeta, dgamma
@@ -99,7 +115,6 @@ class _BNSiLUTrain(torch.autograd.Function):
             # all-reduces run in the same order on every rank)
             sum_dz, sum_dzx = all_reduce(torch.stack([dbeta, dgamma]),
                                          ctx.mesh).unbind()
-            m = m * ctx.mesh.size
         dx = (scale * r).view(_C) * (dz - (sum_dz / m).view(_C)
                                      - xhat * (sum_dzx / m).view(_C))
         return dx.to(x.dtype), dgamma, dbeta, None

@@ -42,7 +42,11 @@ from yolo_from_scratch_tpu_torch.models.blocks import (
     uniform_fan_in_,
     upsample_nearest_2x,
 )
-from yolo_from_scratch_tpu_torch.parallel.mesh import spatial_mesh
+from yolo_from_scratch_tpu_torch.parallel.mesh import (
+    level_blocks,
+    row_grid,
+    spatial_mesh,
+)
 
 HEAD_PRIOR = 0.01  # objectness prior of a fresh head: bias -log((1-p)/p)
 
@@ -179,8 +183,10 @@ class YOLO(nn.Module):
         """Head outputs for NHWC x at any multiple of 32 (the multi-scale
         trainer's buckets share one model); their grids must be the
         input's size / stride. On a row block (`--spatial N`, inside
-        `data_parallel` with a 2-D mesh) x holds size / N of the image's
-        rows, and each grid gs / N of its rows."""
+        `data_parallel` with a 2-D mesh) x holds this rank's block of the
+        image's rows, and each grid its block of the grid's rows
+        (`parallel/mesh.py::level_blocks`: size / N and gs / N where the
+        blocks are equal)."""
         size = x.shape[2]
         mesh = spatial_mesh()
         n_space = mesh.n_space if mesh is not None else 1
@@ -216,9 +222,11 @@ class YOLO(nn.Module):
                 self.head_p5(p5_panet, train)]
         for out, stride in zip(outs, STRIDES):
             gs = size // stride
-            if out.shape[1:3] != (gs // n_space, gs):
+            rows = (gs if mesh is None else level_blocks(
+                gs, n_space, row_grid())[mesh.space_index])
+            if out.shape[1:3] != (rows, gs):
                 raise ValueError(f"head grid {tuple(out.shape[1:3])} != "
-                                 f"({gs // n_space}, {gs}) for an input of "
+                                 f"({rows}, {gs}) for an input of "
                                  f"{size} over space={n_space}")
         # heads return float32 so decode runs in full precision even when
         # the convs compute in bfloat16

@@ -16,7 +16,9 @@ all-reduce), a plain mean is this rank's part of the global one, so the
 ranks' losses sum to the loss of the global batch. On a 2-D mesh every
 term stays local to the rank's rows (each cell's loss reads that cell
 alone), decoded with the block's row offset (`parallel/mesh.py::
-local_rows`); the normalizers already span every rank.
+local_rows`); the normalizers already span every rank, and over unequal
+blocks a plain mean is the local sum over the global count
+(`global_mean`).
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def yolo_loss(predictions, targets, anchors, num_classes=1, img_size=640):
     (A, 2) pixels (a tensor on the predictions' device avoids a copy).
     Returns (total, bbox, obj, cls), total weighted 0.05 / 1.0 / 0.5."""
     decoded = decode_predictions(predictions, anchors, img_size,
-                                 *local_rows(predictions.shape[1]))
+                                 *local_rows(*predictions.shape[1:3]))
     obj_mask = targets[..., 4] > 0.5
 
     bbox = ciou_loss(decoded[..., 0:4], targets[..., 0:4], mask=obj_mask)

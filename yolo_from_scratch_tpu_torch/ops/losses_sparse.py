@@ -24,7 +24,8 @@ count N and the objectness mean are the global batch's, as in
 space group and the predictions its row block: each rank keeps the
 winners whose slot lies in its rows, gathers them at their local index
 and decodes them at their global row; the counts are summed over every
-rank, so each winner counts once.
+rank, so each winner counts once, and the cell count N is the global
+grid's whatever the blocks hold (`parallel/mesh.py::global_elements`).
 
 Equal to the dense path up to summation order, with gradients that agree
 (d/dl of the objectness rewrite is (sigmoid(l) - [winner]) / N, the dense
@@ -47,7 +48,7 @@ from yolo_from_scratch_tpu_torch.ops.losses import (
     sigmoid_bce,
 )
 from yolo_from_scratch_tpu_torch.parallel.mesh import (
-    global_count,
+    global_elements,
     global_mean,
     global_sum,
     local_rows,
@@ -63,14 +64,19 @@ def _scale_loss(pred, gt_boxes, onehot, win, slot, anchors, num_classes,
     (B, K) bool; slot (B, K) global flat (gy*gs + gx)*A + anchor; anchors
     (A, 2) pixels."""
     b, h, gs, na, d = pred.shape
-    n_cells = float(global_count(b * h * gs * na))
+    logit = pred[..., 4]
+    n_cells = float(global_elements(logit))
     flat = pred.reshape(b, h * gs * na, d)
 
-    # the winners in this rank's rows (all of them without a space axis)
-    off = local_rows(h)[0] * gs * na
+    # the winners in this rank's rows (all of them without a space axis;
+    # none on a rank that holds no rows, which has nothing to gather)
+    off = local_rows(h, gs)[0] * gs * na
     win = win & (slot >= off) & (slot < off + h * gs * na)
     idx = torch.where(win, slot - off, 0)
-    g = torch.gather(flat, 1, idx[..., None].expand(b, idx.shape[1], d))
+    if h:
+        g = torch.gather(flat, 1, idx[..., None].expand(b, idx.shape[1], d))
+    else:
+        g = flat.new_zeros((b, idx.shape[1], d))
 
     # decode the gathered rows as ops/decode.py decodes those cells
     anchor_i = idx % na
@@ -95,7 +101,6 @@ def _scale_loss(pred, gt_boxes, onehot, win, slot, anchors, num_classes,
 
     # objectness against the {0, 1} winner grid, via BCE(l, 1) = BCE(l, 0)
     # - l: no scattered target grid
-    logit = pred[..., 4]
     obj_all = global_mean(sigmoid_bce(logit, torch.zeros_like(logit)))
     obj = obj_all - (g[..., 4] * winf).sum() / n_cells
 

@@ -17,12 +17,14 @@ from yolo_from_scratch_tpu_torch.parallel.mesh import (
     data_parallel,
     gather_batch,
     image_sharding,
+    level_blocks,
     local_rows,
     make_mesh,
     make_mesh_2d,
     make_mesh_dm,
     pad_batch_to_multiple,
     replicated_sharding,
+    row_split,
     shard_batch,
     space_rows,
     target_sharding,
@@ -57,7 +59,9 @@ __all__ = [
     "gather_batch",
     "gather_rows",
     "halo_rows",
+    "level_blocks",
     "local_rows",
+    "row_split",
     "space_rows",
     "MODEL_AXIS",
     "MIN_SHARD_SIZE",

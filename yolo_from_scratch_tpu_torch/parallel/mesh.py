@@ -22,14 +22,24 @@ of per-rank losses):
   one flattened all-reduce (`all_reduce_grads_`) before the clip.
 
 The 2-D `data x space` mesh of `--spatial N` (`make_mesh_2d`) lays the
-ranks out as JAX reshapes its devices, `(world / N, N)`: rank r holds
-rows [s * H / N, (s + 1) * H / N) (s = r % N) of the images of data shard
-r // N. Every element of the global batch still lives on exactly one
-rank, so the rules above hold unchanged over the world group (equal local
-element counts). What GSPMD adds for the rows, the port adds by hand
+ranks out as JAX reshapes its devices, `(world / N, N)`: rank r (s = r %
+N) holds a block of rows of the images of data shard r // N. The block
+plan (`row_split`, `level_blocks`) splits the P5 grid, g = img_size / 32
+rows: rank s holds g // N + (s < g % N) of them, and k times as many rows
+of a level k times finer (32 times as many image rows). Where N divides
+g the blocks are equal, rows [s * H / N, (s + 1) * H / N) of every level;
+where it does not they differ by one P5 row, and where g < N the last
+ranks hold none (they still join every collective, with zero rows). The
+plan is the port's own: GSPMD pads the last shard instead. Every element
+of the global batch lives on exactly one rank, so the rules above hold
+over the world group; with equal blocks the local element counts are
+equal and a mean's share is 1 / size, with unequal ones the means and the
+statistics divide the local sums by the global count (`global_elements`,
+`uneven`). What GSPMD adds for the rows, the port adds by hand
 (`parallel/spatial.py`): the halo rows of every 3x3 conv and pool, the
 gather of the anchor-free head's outputs over the space group, and the
-row offset of every decode (`local_rows`).
+row offset of every decode (`local_rows`). The images are square, and so
+is each grid of the model: a level's global height is its width.
 
 The 2-D `data x model` mesh of `--model-parallel N` (`make_mesh_dm`)
 breaks that rule: the N ranks of a model group (rank r is model index
@@ -56,6 +66,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -237,29 +248,54 @@ def batch_sharding(mesh: Mesh, arr):
     return arr[mesh.data_index * b:(mesh.data_index + 1) * b]
 
 
-def space_rows(mesh: Mesh, arr):
+def row_split(grid: int, n: int) -> list[int]:
+    """The block plan of `--spatial n`: the P5 rows of each rank of a
+    space group, in rank order, for a P5 grid of `grid` rows. Rank s holds
+    grid // n + (s < grid % n): the blocks differ by one row at most, the
+    first grid % n ranks hold the longer ones, and where grid < n the last
+    ranks hold none. Where n divides the grid the blocks are equal."""
+    return [grid // n + (s < grid % n) for s in range(n)]
+
+
+def level_blocks(rows: int, n: int, grid: int | None = None) -> list[int]:
+    """Each rank's rows of a level of `rows` global rows (the image or a
+    grid of the model) under the plan of the P5 grid `grid`: a level
+    rows / grid times as fine as P5 holds that many times each rank's P5
+    rows. Without a grid, `rows` in n equal blocks (ValueError on a
+    remainder)."""
+    if grid is None:
+        h, rem = divmod(rows, n)
+        if rem:
+            raise ValueError(f"{rows} rows do not divide over space={n}")
+        return [h] * n
+    f, rem = divmod(rows, grid)
+    if rem or not f:
+        raise ValueError(f"{rows} rows are no level of a P5 grid of {grid}")
+    return [f * r for r in row_split(grid, n)]
+
+
+def space_rows(mesh: Mesh, arr, grid: int | None = None):
     """This rank's block of dimension 1 (image or grid rows) of a batch
-    held whole by its space group: rows [s * H / N, (s + 1) * H / N). A
-    view; the array itself without a space axis."""
+    held whole by its space group, under the plan of the P5 grid `grid`
+    (`level_blocks`; without one, equal blocks). A view; the array itself
+    without a space axis."""
     if not mesh.spatial:
         return arr
-    h, rem = divmod(arr.shape[1], mesh.n_space)
-    if rem:
-        raise ValueError(f"{arr.shape[1]} rows do not divide over "
-                         f"space={mesh.n_space}")
-    return arr[:, mesh.space_index * h:(mesh.space_index + 1) * h]
+    blocks = level_blocks(arr.shape[1], mesh.n_space, grid)
+    start = sum(blocks[:mesh.space_index])
+    return arr[:, start:start + blocks[mesh.space_index]]
 
 
-def image_sharding(mesh: Mesh, arr):
+def image_sharding(mesh: Mesh, arr, grid: int | None = None):
     """This rank's part of an NHWC image batch: its data shard's images,
-    and on a 2-D mesh its block of their rows."""
-    return space_rows(mesh, batch_sharding(mesh, arr))
+    and on a 2-D mesh its block of their rows (`space_rows`)."""
+    return space_rows(mesh, batch_sharding(mesh, arr), grid)
 
 
-def target_sharding(mesh: Mesh, arr):
+def target_sharding(mesh: Mesh, arr, grid: int | None = None):
     """This rank's part of a dense target batch (B, gs, gs, ...): rows
     follow the image rows, so the loss stays local to each row block."""
-    return image_sharding(mesh, arr)
+    return image_sharding(mesh, arr, grid)
 
 
 def replicated_sharding(mesh: Mesh, arr):
@@ -267,13 +303,13 @@ def replicated_sharding(mesh: Mesh, arr):
     return arr
 
 
-def batch_sharding_for(mesh: Mesh, arr):
+def batch_sharding_for(mesh: Mesh, arr, grid: int | None = None):
     """This rank's part of a batch-leading array: dense spatial maps
     (ndim >= 4: images, targets) by `target_sharding`; low-rank arrays
     (compact labels (B, K, 5), counts (B,)) by the batch alone, whole on
     every rank of a space group."""
     if arr.ndim >= 4:
-        return target_sharding(mesh, arr)
+        return target_sharding(mesh, arr, grid)
     return batch_sharding(mesh, arr)
 
 
@@ -318,30 +354,35 @@ def gather_batch(mesh: Mesh, images, labels, counts):
     return tuple(out)
 
 
-def shard_batch(mesh: Mesh, images, targets):
+def shard_batch(mesh: Mesh, images, targets, grid: int | None = None):
     """This rank's part of a global host batch: (images, [targets]) by
-    `image_sharding` and `batch_sharding_for`."""
-    return (image_sharding(mesh, images),
-            [batch_sharding_for(mesh, t) for t in targets])
+    `image_sharding` and `batch_sharding_for`, rows under the plan of
+    the P5 grid `grid`."""
+    return (image_sharding(mesh, images, grid),
+            [batch_sharding_for(mesh, t, grid) for t in targets])
 
 
 _active = None
+_grid = None
 
 
 @contextlib.contextmanager
-def data_parallel(mesh):
+def data_parallel(mesh, grid: int | None = None):
     """Inside, the losses and train-mode BatchNorm compute the global
     batch's values over `mesh`'s process group, and on a 2-D mesh the
     convs and pools take halo rows from their neighbours and the decodes
-    offset their rows (module docstring). A mesh without a group, or
-    None, changes nothing."""
-    global _active
-    prev = _active
+    offset their rows (module docstring). `grid`: the P5 grid of the
+    batch in flight (img_size / 32), whose plan sets the row blocks on a
+    2-D mesh; without one every level's blocks are equal. A mesh without
+    a group, or None, changes nothing."""
+    global _active, _grid
+    prev = _active, _grid
     _active = mesh if mesh is not None and mesh.group is not None else None
+    _grid = grid
     try:
         yield
     finally:
-        _active = prev
+        _active, _grid = prev
 
 
 def active_mesh():
@@ -355,12 +396,49 @@ def spatial_mesh():
     return _active if _active is not None and _active.spatial else None
 
 
-def local_rows(h: int):
-    """(row offset, global rows) of a grid whose h local rows are this
-    rank's block under the active mesh; (0, h) without a space axis."""
+def row_grid():
+    """The P5 grid of the active `data_parallel`, or None."""
+    return _grid
+
+
+def active_blocks(h: int, width: int | None = None) -> list[int]:
+    """Every rank's rows, in space order, of a level of which this rank
+    holds h rows under the active 2-D mesh: the active grid's plan of the
+    level's global rows, which are its `width` (`level_blocks`); without a
+    grid, equal blocks of h. Raises where the plan gives this rank another
+    height."""
+    mesh = _active
+    if _grid is None:
+        return [h] * mesh.n_space
+    blocks = level_blocks(width, mesh.n_space, _grid)
+    if blocks[mesh.space_index] != h:
+        raise ValueError(f"{h} rows at rank {mesh.space_index} of space="
+                         f"{mesh.n_space}; the plan of the P5 grid of {_grid} "
+                         f"gives {blocks} at a width of {width}")
+    return blocks
+
+
+def uneven() -> bool:
+    """Whether the row blocks of the active 2-D mesh differ (its grid
+    does not divide by the space axis)."""
+    return (_active is not None and _active.spatial and _grid is not None
+            and _grid % _active.n_space != 0)
+
+
+def local_rows(h: int, width: int | None = None):
+    """(row offset, global rows) of a grid whose h local rows, of a level
+    `width` wide, are this rank's block under the active mesh
+    (`active_blocks`); (0, h) without a space axis."""
     if _active is None or not _active.spatial:
         return 0, h
-    return _active.space_index * h, h * _active.n_space
+    blocks = active_blocks(h, width)
+    return sum(blocks[:_active.space_index]), sum(blocks)
+
+
+def global_rows(h: int, width: int) -> int:
+    """The global rows of a level of which this rank holds h rows, `width`
+    wide: h without a space axis."""
+    return local_rows(h, width)[1]
 
 
 def reduce_mesh():
@@ -399,20 +477,40 @@ def global_max(t):
     return all_reduce(t.detach().clone(), mesh, dist.ReduceOp.MAX)
 
 
+def global_elements(t, rows_dim: int = 1) -> int:
+    """The global batch's count of the elements of which `t` is this
+    rank's part: t.numel() times the ranks of the active batch mesh, or,
+    for a row block under a space axis (its rows at `rows_dim`, its width
+    next), the count of the level's whole rows over the data shards. The
+    same integer as t.numel() * size where the blocks are equal."""
+    mesh = reduce_mesh()
+    if mesh is None:
+        return t.numel()
+    if not mesh.spatial:
+        return t.numel() * mesh.size
+    shape = list(t.shape)
+    shape[rows_dim] = global_rows(shape[rows_dim], shape[rows_dim + 1])
+    return math.prod(shape) * mesh.n_data
+
+
 def global_mean(t):
-    """This rank's part of the mean of `t` over the global batch: the
-    local mean times the local share (1 / size over equal local batches),
-    so that the parts sum to the global mean over the ranks; t.mean() with
-    no active batch mesh."""
+    """This rank's part of the mean of `t` (a row block's rows at
+    dimension 1) over the global batch: the local mean times the local
+    share (1 / size over equal local batches), or over unequal row blocks
+    the local sum over the global count, so that the parts sum to the
+    global mean over the ranks; t.mean() with no active batch mesh."""
     mesh = reduce_mesh()
     if mesh is None:
         return t.mean()
+    if uneven():
+        return t.sum() / global_elements(t)
     return t.mean() * (1.0 / mesh.size)
 
 
 def global_count(n):
     """A count of elements of the local batch (a Python number) as the
-    global batch's count, over equal local batches."""
+    global batch's count, over equal local batches (the images of a batch;
+    a row block's elements count with `global_elements`)."""
     mesh = reduce_mesh()
     return n if mesh is None else n * mesh.size
 

@@ -13,11 +13,20 @@ the global image's edge. A halo may be wider than a rank's block (SPPF's
 further away. Backward, each halo row's gradient goes back to the rank
 that owns the row and is added to that rank's gradient there.
 
+The blocks follow the plan of `parallel/mesh.py` (`active_blocks`): they
+may differ by a P5 row, and a rank may hold none (a P5 grid smaller than
+the space axis). Such a rank still joins every exchange, with nothing in
+its slot; its halo rows then come from the ranks before it, and an op on
+its tile, too short for the op, runs on a tile padded to the op's size
+and keeps none of its output rows (`fit_rows`), so that its graph, and
+so its backward's exchanges, are every other rank's.
+
 Both exchanges are one `all_reduce` over the space group of a buffer with
 one slot a rank, zero but in this rank's slot: every rank writes its
-first and last m = min(halo, h) rows (or its whole block, for the gather)
-into its slot, and the sum leaves every rank's rows in every rank's copy
-(x + 0 is exact, so the rows arrive bit for bit). `all_reduce` is what
+first and last rows (as many as the widest halo, at most its block; or
+its whole block, for the gather) into its slot, and the sum leaves every
+rank's rows in every rank's copy (x + 0 is exact, so the rows arrive bit
+for bit). `all_reduce` is what
 `gloo` runs on CUDA tensors too (`parallel/mesh.py`), so two ranks can
 share one card; bf16 rows travel as float32, which holds them exactly,
 since not every backend sums bf16. A failed collective raises; nothing
@@ -26,10 +35,13 @@ falls back to an unsharded path.
 
 from __future__ import annotations
 
+import bisect
+
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
-from yolo_from_scratch_tpu_torch.parallel.mesh import Mesh
+from yolo_from_scratch_tpu_torch.parallel.mesh import Mesh, active_blocks
 
 
 def _wire(dtype):
@@ -38,25 +50,29 @@ def _wire(dtype):
     return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
 
 
-def _halo_plan(s: int, n: int, h: int, top: int, bottom: int):
-    """Where each halo row of rank s (of n ranks with h rows each) comes
-    from: (m, above, below), with m the rows a rank puts in each half of
-    its slot and `above` / `below` lists of indices into the gathered
-    (n * 2m) rows, slot r holding rank r's first m rows then its last m,
-    or None for a row beyond the global edge. A row above comes from the
-    owner's last m rows, a row below from its first m, so every halo row
-    has one source."""
-    m = min(max(top, bottom), h)
+def _halo_plan(s: int, blocks, top: int, bottom: int):
+    """Where each halo row of rank s comes from, the ranks' heights
+    `blocks`: (m, above, below), with m the rows a slot's half holds (the
+    widest halo, at most the largest block; rank r fills min(m, h_r) of
+    them) and `above` / `below` lists of indices into the gathered
+    (n * 2m) rows, slot r holding rank r's first rows then its last ones,
+    or None for a row beyond the global edge. A row above comes from its
+    owner's last rows, a row below from its first, so every halo row has
+    one source."""
+    m = min(max(top, bottom), max(blocks))
+    starts = [sum(blocks[:r]) for r in range(len(blocks))]
+    total = sum(blocks)
 
     def source(g, from_end):
-        if g < 0 or g >= n * h:
+        if g < 0 or g >= total:
             return None
-        r, i = divmod(g, h)
-        return r * 2 * m + (m + i - (h - m) if from_end else i)
+        r = bisect.bisect_right(starts, g) - 1
+        i, h = g - starts[r], blocks[r]
+        return r * 2 * m + (m + i - (h - min(m, h)) if from_end else i)
 
-    above = [source(g, True) for g in range(s * h - top, s * h)]
-    below = [source(g, False) for g in range((s + 1) * h,
-                                             (s + 1) * h + bottom)]
+    lo, hi = starts[s], starts[s] + blocks[s]
+    above = [source(g, True) for g in range(lo - top, lo)]
+    below = [source(g, False) for g in range(hi, hi + bottom)]
     return m, above, below
 
 
@@ -75,10 +91,11 @@ class _HaloRows(torch.autograd.Function):
     def forward(ctx, x, mesh, top, bottom, fill):
         b, c, h, w = x.shape
         n, s = mesh.n_space, mesh.space_index
-        m, above, below = _halo_plan(s, n, h, top, bottom)
+        m, above, below = _halo_plan(s, active_blocks(h, w), top, bottom)
+        k = min(m, h)
         buf = x.new_zeros((n, 2 * m, b, c, w), dtype=_wire(x.dtype))
-        buf[s, :m] = x[:, :, :m].permute(2, 0, 1, 3)
-        buf[s, m:] = x[:, :, h - m:].permute(2, 0, 1, 3)
+        buf[s, :k] = x[:, :, :k].permute(2, 0, 1, 3)
+        buf[s, m:m + k] = x[:, :, h - k:].permute(2, 0, 1, 3)
         dist.all_reduce(buf, group=mesh.space_group)
         buf = buf.reshape(n * 2 * m, b, c, w)
         ctx.mesh, ctx.plan, ctx.shape = mesh, (m, above, below), x.shape
@@ -91,7 +108,7 @@ class _HaloRows(torch.autograd.Function):
         mesh = ctx.mesh
         n, s = mesh.n_space, mesh.space_index
         m, above, below = ctx.plan
-        top = len(above)
+        top, k = len(above), min(m, h)
         buf = dy.new_zeros((n * 2 * m, b, c, w), dtype=_wire(dy.dtype))
         for j, i in enumerate(above):
             if i is not None:
@@ -103,8 +120,8 @@ class _HaloRows(torch.autograd.Function):
         dist.all_reduce(buf, group=mesh.space_group)
         mine = buf[s].permute(1, 2, 0, 3)  # (B, C, 2m, W)
         dx = dy[:, :, top:top + h].to(buf.dtype)
-        dx[:, :, :m] += mine[:, :, :m]
-        dx[:, :, h - m:] += mine[:, :, m:]
+        dx[:, :, :k] += mine[:, :, :k]
+        dx[:, :, h - k:] += mine[:, :, m:m + k]
         return dx.to(dy.dtype), None, None, None, None
 
 
@@ -121,24 +138,39 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
         n, s = mesh.n_space, mesh.space_index
-        buf = x.new_zeros((n, *x.shape), dtype=_wire(x.dtype))
-        buf[s] = x
+        blocks = active_blocks(x.shape[1], x.shape[2])
+        buf = x.new_zeros((n, x.shape[0], max(blocks), *x.shape[2:]),
+                          dtype=_wire(x.dtype))
+        buf[s, :, :x.shape[1]] = x
         dist.all_reduce(buf, group=mesh.space_group)
-        ctx.mesh, ctx.h = mesh, x.shape[1]
-        return buf.movedim(0, 1).reshape(
-            x.shape[0], n * x.shape[1], *x.shape[2:]).to(x.dtype)
+        ctx.rows = sum(blocks[:s]), x.shape[1]
+        return torch.cat([buf[r, :, :h] for r, h in enumerate(blocks)],
+                         dim=1).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        s, h = ctx.mesh.space_index, ctx.h
-        return dy[:, s * h:(s + 1) * h].contiguous(), None
+        start, h = ctx.rows
+        return dy[:, start:start + h].contiguous(), None
 
 
 def gather_rows(x, mesh: Mesh):
     """The whole images of this rank's data shard from its row blocks:
-    dimension 1 of x (B, h, ...) gathered over `mesh`'s space group in
-    rank order, (B, n_space * h, ...). Backward keeps this rank's rows of
-    the gradient: the caller computes the same function of the gathered
-    tensor on every rank of the group, so the gradient of one copy,
-    summed over the ranks' rows, is the gradient of the function."""
+    dimension 1 of x (B, h, W, ...) gathered over `mesh`'s space group in
+    rank order (the blocks of the active plan, `active_blocks`), (B, H,
+    W, ...). Backward keeps this rank's rows of the gradient: the caller
+    computes the same function of the gathered tensor on every rank of
+    the group, so the gradient of one copy, summed over the ranks' rows,
+    is the gradient of the function."""
     return _GatherRows.apply(x, mesh)
+
+
+def fit_rows(op, x, need: int, fill: float = 0.0):
+    """op(x) on an NCHW tile; on a tile of fewer than `need` rows (a rank
+    that holds no rows, its halo alone), op on the tile padded below with
+    rows of `fill` to `need` rows, none of its output rows kept: an empty
+    output joined to x and to op's weights in the graph, whose backward
+    gives them zeros."""
+    short = need - x.shape[2]
+    if short <= 0:
+        return op(x)
+    return op(F.pad(x, (0, 0, 0, short), value=fill))[:, :, :0]

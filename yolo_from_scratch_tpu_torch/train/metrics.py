@@ -35,7 +35,7 @@ def grid_metric_counts(pred, target, anchors, img_size, conf_threshold=0.5,
     """TP/FP/FN counts for one scale: int32 scalars, or (B,) vectors when
     `per_image` (so a caller can drop padded batch rows)."""
     decoded = decode_predictions(pred, anchors, 640 if quirk_640 else img_size,
-                                 *local_rows(pred.shape[1]))
+                                 *local_rows(*pred.shape[1:3]))
     pm = torch.sigmoid(pred[..., 4]) > conf_threshold
     tm = target[..., 4] > conf_threshold
     iou = box_iou_center(decoded[..., 0:4], target[..., 0:4], eps=1e-6)
@@ -64,7 +64,7 @@ def grid_metric_counts_anchor_free(pred, target, stride, img_size,
     often picks a neighbouring cell); `--map` / `--val-det` score the
     detections."""
     decoded = decode_anchor_free(pred, stride, img_size,
-                                 local_rows(pred.shape[1])[0])
+                                 local_rows(*pred.shape[1:3])[0])
     pm = torch.sigmoid(pred[..., 4 * REG_MAX:]).amax(dim=-1) > conf_threshold
     tm = target[..., 4] > conf_threshold
     iou = box_iou_center(decoded[..., 0:4], target[..., 0:4], eps=1e-6)

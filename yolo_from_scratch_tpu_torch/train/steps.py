@@ -66,7 +66,8 @@ then composes this rank's rows of the mosaic from it.
 
 On a 2-D mesh (`parallel/mesh.py::make_mesh_2d`, `--spatial N`) the
 images and dense targets a step takes are this rank's block of rows of
-its data shard's batch (compact labels stay whole: each rank builds the
+its data shard's batch (the block plan of the P5 grid `p5_grid(cfg)`,
+equal or not: the steps run inside `data_parallel(mesh, p5_grid(cfg))`) (compact labels stay whole: each rank builds the
 whole images' dense maps and keeps its rows), the model and the losses
 run on the blocks (`models/blocks.py`, `ops/`), and the gradients are
 summed over the world. With the device mosaic, which composes quadrants
@@ -482,6 +483,13 @@ def _rank_draws(spec: DrawSpec, step: int, b: int, mesh) -> dict:
     return out
 
 
+def p5_grid(cfg: YoloConfig) -> int:
+    """The P5 grid of cfg's images, img_size / 32 rows: the grid whose
+    plan sets the row blocks under `--spatial` (`parallel/mesh.py::
+    level_blocks`)."""
+    return cfg.img_size // STRIDES[-1]
+
+
 def _report_share(cfg: YoloConfig, mesh) -> float:
     """The part of a step's loss a rank reports: 1 / n_space for the
     anchor-free loss on a 2-D mesh (every rank of a space group holds it
@@ -586,6 +594,7 @@ def _make_expand(cfg: YoloConfig, compact_targets: bool, device=None, *,
     gather = (mosaic and mesh is not None
               and mesh.data_view().group is not None)
     whole = mosaic and mesh is not None and mesh.spatial
+    grid = p5_grid(cfg)
 
     def expand(step, images, targets, draws=None):
         if not compact_targets:
@@ -608,12 +617,12 @@ def _make_expand(cfg: YoloConfig, compact_targets: bool, device=None, *,
             images, labels = augment_compact_batch(images, labels, valid,
                                                    *draws["augment"])
         if whole:
-            images = space_rows(mesh, images).contiguous()
+            images = space_rows(mesh, images, grid).contiguous()
         if sparse:
             return images, (labels, valid)
         if af:
             return images, _af_gt(labels, valid, cfg.num_classes)
-        return images, [space_rows(mesh, t) if mesh is not None else t
+        return images, [space_rows(mesh, t, grid) if mesh is not None else t
                         for t in assign_targets_device_masked_batch(
                             labels, valid, anchors, cfg.img_size,
                             cfg.num_classes)]
@@ -663,7 +672,7 @@ def _make_step_body(cfg: YoloConfig, quirk_640: bool, device, *,
             images, targets = aug(state.step, images, targets,
                                   draws["augment"])
         state.optimizer.zero_grad(set_to_none=True)
-        with data_parallel(mesh):
+        with data_parallel(mesh, p5_grid(cfg)):
             total, (bbox, obj, cls) = loss_fn(state.model, images, targets)
             total.backward()
         grads = [p.grad for p in state.model.parameters()]
@@ -953,7 +962,7 @@ def make_train_step_accum(cfg: YoloConfig, n_accum: int,
                 draws = _upload_draws(_rank_draws(spec, key, imgs.shape[0],
                                                   mesh), imgs.device)
                 imgs, targets = aug(key, imgs, targets, draws["augment"])
-            with data_parallel(mesh):
+            with data_parallel(mesh, p5_grid(cfg)):
                 total, (bbox, obj, cls) = loss_fn(state.model, imgs, targets)
                 total.backward()  # .grad holds the running sum
             per.append(torch.stack([t.detach()
@@ -992,7 +1001,7 @@ def make_eval_step(cfg: YoloConfig, conf_threshold=0.5, iou_threshold=0.5,
 
         @torch.no_grad()
         def eval_step_af(model, images, targets):
-            with data_parallel(sub):
+            with data_parallel(sub, p5_grid(cfg)):
                 preds = model(_normalize(images), train=False)
                 if compact_targets:
                     labels, counts = targets
@@ -1002,8 +1011,8 @@ def make_eval_step(cfg: YoloConfig, conf_threshold=0.5, iou_threshold=0.5,
                         cfg.num_classes, cfg.img_size)
                     maps = assign_targets_anchor_free_device_batch(
                         labels, counts, cfg.img_size, cfg.num_classes)
-                    targets = [space_rows(sub, t) if sub is not None else t
-                               for t in maps]
+                    targets = [space_rows(sub, t, p5_grid(cfg))
+                               if sub is not None else t for t in maps]
                 else:
                     loss, _, _ = yolo_loss_anchor_free(
                         preds, targets, cfg.num_classes, cfg.img_size)
@@ -1023,7 +1032,7 @@ def make_eval_step(cfg: YoloConfig, conf_threshold=0.5, iou_threshold=0.5,
     @torch.no_grad()
     def eval_step(model, images, targets):
         images, targets = expand(0, images, targets)
-        with data_parallel(sub):
+        with data_parallel(sub, p5_grid(cfg)):
             preds = model(images, train=False)
             loss, _, _, _ = yolo_loss_multiscale(
                 preds, targets, anchors, cfg.num_classes, cfg.img_size,
