@@ -292,6 +292,29 @@ and prints no result):
    img/s and the MFU of phases 9 and 18's rates in this run; then
    `utils/metrics_log.py::profiler_trace` around two training steps with
    K2 on: the trace file, its CUDA kernel events and K2's 32 among them.
+26. the space-to-depth packed layouts (`--packed stem|interior|p3`,
+   `models/packed.py`), 's' @640: (a) seeded random weights carried into
+   the packed and the unpacked model, both heads, each layout: float32
+   TF32 off, eval and train-mode outputs within 1e-4 of their max,
+   BatchNorm statistics within 1e-5, gradients within 1e-3 of each
+   tensor's max; bf16 with K2 on, the mean train-mode loss over phase
+   18's 64 images (8 batches of 8) within 5e-3 relative of the unpacked
+   model's, beside the noise floor (the unpacked model on NCHW-contiguous
+   images, whose bf16 loss parts from itself by 1-4% a batch), and K2's
+   launches in a train step from the profiler (16 / 20 unpacked and under
+   stem, 20 / 24 under interior and p3, anchor / anchor-free); a graphed
+   chunk of 4 packed p3 steps (phase 18's anchor
+   recipe, the packed mosaic and flip) bit-equal to 4 eager steps; (b) K2
+   at the packed C3a conv (B=8, 64 x 80 x 80 bf16) against its plain
+   version, its device ms beside the library call's; (c) the CLI:
+   `--packed p3` training 2 steps with `--val-det`, both heads (K2 held to
+   the gated convs, K1 launched), a request from each checkpoint;
+   `--packed p3 --stream` one epoch from a packed cache; `--packed stem
+   --data-parallel` at a world of one; `--packed p3 --int8` exits 2; (d)
+   packed against unpacked on the card: the stem's and the whole
+   forward's device ms at b8 bf16, an eager step's device and host-clock
+   ms, the graphed chunk's img/s at N=4, a B=32 `BatchPredictor` call's
+   p50, each beside the card's name and power limit.
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
@@ -305,8 +328,10 @@ on phase 17's compact paths, on phase 18's stream paths, on phase
 model-parallel paths, on phase 24's world compositions (K2's
 `mosaic_launches`, `stream_world_launches` and
 `multiscale_world_launches`, K1's `multiscale_world_launches`) and on
-phase 25's unequal blocks (`uneven_launches`), K2 also
-its times and bounds at phase 22's
+phase 25's unequal blocks (`uneven_launches`) and on phase 26's packed
+paths (`packed_launches`), K2 also
+its times and bounds at phase 26 (b)'s packed C3a conv (`packed_c3a`),
+phase 22's
 haloed tiles, phase 23's global shapes, phase 24 (c)'s tiles
 (`multiscale_world_tiles`) and phase 25 (b)'s (`uneven_tiles`); Q1 and Q2
 their launches on phase 20's main path and in the artifacts, with their
@@ -343,6 +368,7 @@ from yolo_from_scratch_tpu_torch.data import (
     YoloDataset,
     assign_device,
 )
+from yolo_from_scratch_tpu_torch.data.cache import cache_dir_for
 from yolo_from_scratch_tpu_torch.data.dataset import assign_targets
 from yolo_from_scratch_tpu_torch.data.letterbox import (
     letterbox_device_bucketed,
@@ -361,7 +387,8 @@ from yolo_from_scratch_tpu_torch.infer.predict import (
 from yolo_from_scratch_tpu_torch.kernels.build import build, load_library
 from yolo_from_scratch_tpu_torch.models import anchor_free
 from yolo_from_scratch_tpu_torch.models.blocks import ConvBNSiLU
-from yolo_from_scratch_tpu_torch.models.yolo import YOLO
+from yolo_from_scratch_tpu_torch.models.packed import pack_s2d, pack_s2d_host
+from yolo_from_scratch_tpu_torch.models.yolo import YOLO, cast_convs_
 from yolo_from_scratch_tpu_torch.ops import conv_bwd
 from yolo_from_scratch_tpu_torch.ops import nms as nms_plain
 from yolo_from_scratch_tpu_torch.ops import nms_cuda
@@ -612,6 +639,32 @@ UN_CLI_IMG = 608      # (c): P5 rows 10 / 9
 # (a), (c): 17 processes share the host's 8 cores: two CPU threads each
 UN_ENV = dict(os.environ, OMP_NUM_THREADS="2")
 UN_MS_IMG = 640       # (c): buckets 480 / 640 / 800, P5 rows 15 / 20 / 25
+# phase 26: the packed layouts (models/packed.py)
+PK_LAYOUTS = {"stem": dict(packed_stem=True),
+              "interior": dict(packed_stem=True, packed_interior=True),
+              "p3": dict(packed_stem=True, packed_interior=True,
+                         packed_p3=True)}
+PK_BATCH = 2          # (a) float32 parity batch
+# (a) packed vs unpacked, float32 TF32 off, relative to the reference's
+# largest magnitude: outputs (eval and train mode) 1e-4, BatchNorm
+# statistics 1e-5, each gradient 1e-3 (phase 8's bound; the conv biases
+# in front of a BatchNorm, whose gradient is rounding noise, left out as
+# there)
+PK_OUT_TOL, PK_BN_TOL, PK_GRAD_TOL = 1e-4, 1e-5, PARITY_GRAD_TOL
+# (a) bf16: the mean train-mode loss over the 64 images of phase 18's data
+# (8 batches of 8), packed vs unpacked, relative. One batch's bf16 loss is
+# not held: rounding flips from another accumulation order spread through
+# the random-init net, and the unpacked model fed NCHW-contiguous images
+# (other cuDNN kernels, the same math) parts from itself by 1-4% a batch
+# on the H100 (`PERF.md` §6), logged beside as the noise floor
+PK_BF16_LOSS_RTOL = 5e-3
+# (a) K2 launches in one bf16 step (profiler): unpacked / stem, and
+# interior / p3, which add the two packed C3a bottleneck convs (x 2
+# launches a call)
+PK_K2 = {"anchor": (16, 20), "anchor_free": (20, 24)}
+PK_K2_CASE = (8, 80, 80, torch.bfloat16)  # (b) the packed C3a conv at 640
+PK_TIMED = 10         # (d) host-clock steps and graphed replays, each turn
+PK_CALLS = 5          # (d) timed B=32 BatchPredictor calls
 
 
 def log(msg):
@@ -1655,10 +1708,9 @@ def _gated_convs(cfg):
     counts = collections.Counter()
 
     def pre_hook(mod, args):
-        x, conv = args[0], mod.conv
-        if conv.bias is None and conv_bwd.fused_bwd_fits(
-                conv.kernel_size[0], conv.stride[0], x.shape[1],
-                conv.out_channels, x.shape[2], x.shape[3], mod.dtype):
+        x = args[0]
+        shape = mod.gate_shape(x)  # a packed conv's: its packed kernel's
+        if shape is not None and conv_bwd.fused_bwd_fits(*shape):
             counts[(x.shape[2], x.shape[3])] += 1
 
     for module in model.modules():
@@ -5456,6 +5508,353 @@ def phase_tooling(dev, workdir, yaml_path, card, rates, stream_rates):
                          f"launches in {TRACE_ATTEMPTS} attempts")
 
 
+def _pk_cfg(head, layout=None, dtype="float32", nc=AF_NC):
+    """'s' @IMG_SIZE, `layout` a key of PK_LAYOUTS or None (unpacked)."""
+    return YoloConfig.from_size("s", num_classes=nc, img_size=IMG_SIZE,
+                                compute_dtype=dtype, head_type=head,
+                                **PK_LAYOUTS.get(layout, {}))
+
+
+def _pk_pass(cfg, variables, x, dev):
+    """cfg's model holding `variables`, float32 with TF32 off, on the NHWC
+    batch x: (eval outputs, train-mode outputs, the BatchNorm statistics
+    the train-mode pass moved, the gradients of sum(mean(out^2)))."""
+    model = YOLO(cfg)
+    model.load_state_dict(from_flax_variables(variables, model))
+    model.to(dev)
+    with tf32_disabled():
+        with torch.no_grad():
+            evals = [o.clone() for o in model(x, train=False)]
+        outs = model(x, train=True)
+        sum(o.square().mean() for o in outs).backward()
+    torch.cuda.synchronize()
+    return (evals, [o.detach() for o in outs],
+            {k: b.detach().clone() for k, b in model.named_buffers()},
+            {k: p.grad for k, p in model.named_parameters()})
+
+
+def _pk_bf16(cfg, batches, dev, contiguous=False):
+    """cfg's bf16 model from the seed's fresh weights (K2 on) on the pixel
+    batches, packed on the card for a packed cfg: (the train-mode loss of
+    each batch, K2's launches in one train step on the first batch, from
+    the profiler). `contiguous`: the images in NCHW-contiguous memory
+    instead of NHWC (the same math; cuDNN takes other kernels)."""
+    state = create_train_state(cfg, 1e-3, seed=SEED, device=dev)
+
+    def layout(images):
+        x = pack_s2d(images) if cfg.packed_stem else images
+        if contiguous:
+            x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        return x
+
+    loss_fn = make_loss_fn(cfg, device=dev)
+    with torch.no_grad():
+        losses = [loss_fn(state.model, layout(images), targets)[0].item()
+                  for images, targets in batches]
+    step = make_train_step(cfg, device=dev)
+    counts = _launch_counts(lambda: step(state, layout(batches[0][0]),
+                                         batches[0][1]))
+    return np.array(losses), sum(n for k, (n, _) in counts.items()
+                                 if "conv3x3_bwd" in k)
+
+
+def _pk_batches(yaml_path, head, dev):
+    """Phase 18's 64 train images (nc=80) as 8 batches of 8 with the
+    head's dense targets, on the card."""
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    ds = YoloDataset(load_dataset_yaml(yaml_path)["train"], AF_NC,
+                     YoloConfig().anchors_array, IMG_SIZE, head_type=head)
+    out = []
+    for i in range(0, STREAM_TRAIN, 8):
+        images, targets = ds.load_batch(range(i, i + 8))
+        out.append((torch.from_numpy(images).to(dev),
+                    [torch.from_numpy(t).to(dev) for t in targets]))
+    return out
+
+
+def _pk_graph(dev, cache):
+    """Phase 18's anchor recipe (sparse loss, device mosaic and augment)
+    under packing p3: a graphed chunk of STREAM_N steps on the packed
+    chunk against STREAM_N eager steps, bit for bit, deterministic."""
+    from yolo_from_scratch_tpu_torch.train.steps import (
+        make_train_step_multi_compact,
+    )
+
+    head, flags, wd, _ = STREAM_RECIPES[0]
+    cfg = _stream_cfg(head).with_(**PK_LAYOUTS["p3"])
+    chunk = _chunk(cache, STREAM_N, 0, dev)
+    chunk[0] = pack_s2d(chunk[0])
+    with _deterministic():
+        eager = create_train_state(cfg, 1e-3, seed=SEED, device=dev,
+                                   weight_decay=wd)
+        step = make_train_step(cfg, device=dev, compact_targets=True,
+                               augment_seed=SEED, **flags)
+        for i in range(STREAM_N):
+            eager, _ = step(eager, chunk[0][i], (chunk[1][i], chunk[2][i]))
+        want = _state_tensors(eager)
+        del eager, step
+        state = create_train_state(cfg, 1e-3, seed=SEED, device=dev,
+                                   weight_decay=wd)
+        state, _ = make_train_step_multi_compact(
+            cfg, device=dev, augment_seed=SEED, **flags)(state, *chunk)
+        got = _state_tensors(state)
+    torch.cuda.synchronize()
+    diff = _differ("packed graph vs eager", got, want)
+    log(f"phase 26 (a) packed p3 {head} ({' '.join(STREAM_FLAGS[head])}): "
+        f"a graphed chunk of {STREAM_N} vs {STREAM_N} eager steps (packed "
+        f"chunk {tuple(chunk[0].shape)}): {len(got) - len(diff)} / "
+        f"{len(got)} state tensors bit-equal")
+    if diff:
+        raise AssertionError(f"packed graphed chunk differs from the eager "
+                             f"steps: {sorted(diff.items())[:8]}")
+
+
+def phase_packed_parity(dev, stream_yaml, cache, card):
+    """(a) packed against unpacked on the card: float32 outputs, BatchNorm
+    statistics and gradients, each layout, both heads; bf16 losses over
+    phase 18's 64 images and K2's launches in a step; the packed graphed
+    chunk against eager steps. Returns the K2 launches of the packed bf16
+    steps."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 80)
+    x = rng.random((PK_BATCH, IMG_SIZE, IMG_SIZE, 3)).astype(np.float32)
+    xs = (torch.from_numpy(x).to(dev),
+          torch.from_numpy(pack_s2d_host(x)).to(dev))
+    for head in ("anchor", "anchor_free"):
+        base = _pk_cfg(head)
+        variables = random_variables(YOLO(base, device="meta"), seed=SEED)
+        ref = _pk_pass(base, variables, xs[0], dev)
+        for layout in PK_LAYOUTS:
+            got = _pk_pass(_pk_cfg(head, layout), variables, xs[1], dev)
+            ev, tr = (_worst(dict(enumerate(got[i])),
+                             dict(enumerate(ref[i])))[0] for i in (0, 1))
+            bn, gr = _worst(got[2], ref[2]), _worst(got[3], ref[3])
+            log(f"phase 26 (a) {head} {layout} vs unpacked, float32 TF32 "
+                f"off, b{PK_BATCH}: eval outputs {ev:.2e}, train outputs "
+                f"{tr:.2e} of max (tol {PK_OUT_TOL}); BatchNorm statistics "
+                f"{bn[0]:.2e} ({bn[1]}; tol {PK_BN_TOL}); gradients "
+                f"{gr[0]:.2e} of the tensor's max ({gr[1]}; tol "
+                f"{PK_GRAD_TOL})")
+            if (ev > PK_OUT_TOL or tr > PK_OUT_TOL or bn[0] > PK_BN_TOL
+                    or gr[0] > PK_GRAD_TOL):
+                raise AssertionError(f"{head} {layout}: packed differs from "
+                                     f"unpacked on the card")
+        del ref, got
+    torch.cuda.empty_cache()
+
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    k2_packed = 0
+    for head in ("anchor", "anchor_free"):
+        batches = _pk_batches(stream_yaml, head, dev)
+        base = _pk_cfg(head, dtype="bfloat16")
+        ref, k2 = _pk_bf16(base, batches, dev)
+        floor = _pk_bf16(base, batches, dev, contiguous=True)[0]
+        row = [f"unpacked {ref.mean():.5f} (K2 {k2}); the noise floor, "
+               f"unpacked on NCHW-contiguous images: "
+               f"{abs(floor.mean() - ref.mean()) / ref.mean():.2e} "
+               f"(a batch up to {(np.abs(floor - ref) / ref).max():.2e})"]
+        want = PK_K2[head]
+        bad = k2 != want[0]
+        for layout in PK_LAYOUTS:
+            cfg = _pk_cfg(head, layout, "bfloat16")
+            got, k2 = _pk_bf16(cfg, batches, dev)
+            rel = abs(got.mean() - ref.mean()) / ref.mean()
+            k2_want = want[0] if layout == "stem" else want[1]
+            row.append(f"{layout} {got.mean():.5f} ({rel:.2e} relative, a "
+                       f"batch up to {(np.abs(got - ref) / ref).max():.2e}; "
+                       f"K2 {k2})")
+            bad |= (rel > PK_BF16_LOSS_RTOL or k2 != k2_want
+                    or k2 != _k2_per_step(cfg))
+            k2_packed += k2
+        log(f"phase 26 (a) {head} bf16, K2 on: the mean train-mode loss "
+            f"over {len(batches)} batches of 8: " + ", ".join(row)
+            + f" (tol {PK_BF16_LOSS_RTOL} relative; K2 launches in a "
+            f"step from the profiler, want {want[0]} unpacked and stem, "
+            f"{want[1]} interior and p3)")
+        if bad:
+            raise AssertionError(f"{head}: packed bf16 differs")
+    _pk_graph(dev, cache)
+    log(f"phase 26 (a) took {time.perf_counter() - t0:.1f} s ({card})")
+    return k2_packed
+
+
+def phase_packed_cli(dev, workdir, yaml_path, af_yaml, stream_yaml, card):
+    """(c) the CLI under packing: --packed p3 training with --val-det, both
+    heads, and a request from each checkpoint; --packed p3 --stream from
+    a packed cache; --packed stem --data-parallel at a world of one;
+    --packed p3 --int8 exits 2. Returns (K1 launches, K2 launches)."""
+    t0 = time.perf_counter()
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    size = ["--size", "s", "--img-size", str(IMG_SIZE), "--batch-size", "8"]
+    k1 = k2 = 0
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        ckpts = {}
+        for head, y, nc in (("anchor", yaml_path, 1),
+                            ("anchor_free", af_yaml, AF_NC)):
+            want = (_k2_per_step(_pk_cfg(head, "p3", "bfloat16", nc))
+                    * TRAIN_STEPS)
+            conv_bwd.launches = nms_cuda.launches = 0
+            rc, out = _cli([str(y), *size, "--epochs", "1", "--head", head,
+                            "--packed", "p3", "--val-det"])
+            launches = (nms_cuda.launches, conv_bwd.launches)
+            epoch = EPOCH_LINE.search(out)
+            if (rc != 0 or not epoch or " | Det: P " not in epoch.group(0)
+                    or launches[0] < 1 or launches[1] != want):
+                raise AssertionError(f"--packed p3 {head} training: rc {rc}, "
+                                     f"launches (K1, K2) {launches}, want K2 "
+                                     f"{want}, output:\n{out}")
+            ckpts[head] = workdir / _saved(out, f"--packed p3 {head}")
+            image = sorted((Path(y).parent / "val" / "images").glob(
+                "*.jpg"))[0]
+            nms_cuda.launches = 0
+            rc, req = _cli([str(image), str(ckpts[head]), "--packed", "p3"])
+            if rc != 0 or nms_cuda.launches != 1:
+                raise AssertionError(f"--packed p3 {head} request: rc {rc}, "
+                                     f"{nms_cuda.launches} NMS launches")
+            k1 += launches[0] + 1
+            k2 += launches[1]
+            log(f"phase 26 (c) --packed p3 --head {head} --val-det: exit 0, "
+                f"{epoch.group(1)} img/s, K2 {launches[1]} (= "
+                f"{want // TRAIN_STEPS} a step x {TRAIN_STEPS}), K1 "
+                f"{launches[0]}; its checkpoint served one request through "
+                f"K1 ({card})")
+
+        conv_bwd.launches = nms_cuda.launches = 0
+        rc, out = _cli([str(stream_yaml), *size, "--epochs", "1", "--packed",
+                        "p3", "--stream", "--stream-chunk", str(STREAM_N),
+                        "--compact-targets", "--device-mosaic",
+                        "--device-augment", "--sparse-loss"])
+        cache = Path(cache_dir_for(str(Path(stream_yaml).parent / "train"
+                                       / "images"), IMG_SIZE, COMPACT_K,
+                                   packed=True))
+        meta = (json.loads((cache / "meta.json").read_text())
+                if (cache / "meta.json").exists() else {})
+        if (rc != 0 or not meta.get("packed")
+                or not EPOCH_LINE.search(out)):
+            raise AssertionError(f"--packed p3 --stream: rc {rc}, cache "
+                                 f"meta {meta}, output:\n{out}")
+        k2 += conv_bwd.launches
+        log(f"phase 26 (c) --packed p3 --stream: exit 0, "
+            f"{EPOCH_LINE.search(out).group(1)} img/s, packed cache "
+            f"{cache.name} {meta['image_shape']}, K2 {conv_bwd.launches} "
+            f"wrapper calls (warm-up and capture) ({card})")
+
+        conv_bwd.launches = 0
+        rc, out = _cli([str(yaml_path), *size, "--epochs", "1",
+                        "--packed-stem", "--data-parallel"])
+        if rc != 0 or "Data-parallel mesh over 1 process(es)" not in out:
+            raise AssertionError(f"--packed-stem --data-parallel: rc {rc}, "
+                                 f"output:\n{out}")
+        k2 += conv_bwd.launches
+        log(f"phase 26 (c) --packed-stem --data-parallel (a world of one): "
+            f"exit 0, K2 {conv_bwd.launches}")
+
+        rc, out = _cli([str(image), str(ckpts["anchor_free"]), "--packed",
+                        "p3", "--int8"])
+        if rc != 2 or "--int8" not in out:
+            raise AssertionError(f"--packed p3 --int8: rc {rc}, output:\n"
+                                 f"{out}")
+        log(f"phase 26 (c) --packed p3 --int8: exit 2, {out.strip()}")
+    finally:
+        os.chdir(cwd)
+    log(f"phase 26 (c) took {time.perf_counter() - t0:.1f} s ({card})")
+    return k1, k2
+
+
+def phase_packed_times(dev, cache, card):
+    """(d) packed p3 (and stem, interior where it differs) against
+    unpacked on the card, 's' @640 nc=80 anchor head bf16, K2 on: the
+    stem's and the forward's device ms at b8, an eager step's device and
+    host-clock ms, the graphed chunk's img/s at N=4, a B=32
+    BatchPredictor call's p50."""
+    from yolo_from_scratch_tpu_torch.train.steps import (
+        make_train_step_multi_compact,
+    )
+
+    t0 = time.perf_counter()
+    os.environ["YOLO_FUSED_CONV_BWD"] = "1"
+    head, flags, _, _ = STREAM_RECIPES[0]
+    chunk = _chunk(cache, STREAM_N, 0, dev)
+    images = chunk[0][0].float() * float(INV255)
+    rows = {}
+    layouts = (None, "stem", "interior", "p3")
+    with torch.inference_mode():
+        for layout in layouts:
+            cfg = _stream_cfg(head).with_(**PK_LAYOUTS.get(layout, {}))
+            model = cast_convs_(YOLO(cfg).reset_parameters(
+                torch.Generator().manual_seed(SEED)).to(dev),
+                torch.bfloat16).eval()
+            x = pack_s2d(images) if layout else images
+            xs = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+            rows[layout] = {
+                "stem": device_ms(lambda: model.stem1(model.stem0(xs))),
+                "forward": device_ms(lambda: model(x))}
+            del model
+    for layout in (None, "p3"):
+        cfg = _stream_cfg(head).with_(**PK_LAYOUTS.get(layout, {}))
+        state = create_train_state(cfg, 1e-3, seed=SEED, device=dev)
+        step = make_train_step(cfg, device=dev, compact_targets=True,
+                               augment_seed=SEED, **flags)
+        ch = [pack_s2d(chunk[0]) if layout else chunk[0], *chunk[1:]]
+
+        def one(i=0):
+            step(state, ch[0][i], (ch[1][i], ch[2][i]))
+
+        for _ in range(3):
+            one()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(PK_TIMED):
+            one(i % STREAM_N)
+        torch.cuda.synchronize()
+        rows[layout]["step"] = (time.perf_counter() - t1) / PK_TIMED * 1e3
+        rows[layout]["step_busy"] = _busy_ms(one)
+        trainer = make_train_step_multi_compact(cfg, device=dev,
+                                                augment_seed=SEED, **flags)
+        trainer(state, *ch)  # capture + one replay
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(PK_TIMED):
+            trainer(state, *ch)
+        torch.cuda.synchronize()
+        rows[layout]["graph_img_s"] = (8 * STREAM_N * PK_TIMED
+                                       / (time.perf_counter() - t1))
+        sd = {k: v.detach().clone() for k, v in
+              state.model.state_dict().items()}
+        del trainer, step, state
+        torch.cuda.empty_cache()
+        predictor = BatchPredictor(sd, cfg, conf_threshold=CONF,
+                                   iou_threshold=IOU, device=dev)
+        rng = np.random.default_rng(SEED + 2)
+        batch = [rng.integers(0, 256, (IMG_SIZE, IMG_SIZE, 3),
+                              dtype=np.uint8) for _ in range(BATCH)]
+        predictor(batch)
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(PK_CALLS):
+            t1 = time.perf_counter()
+            predictor(batch)
+            lat.append((time.perf_counter() - t1) * 1e3)
+        rows[layout]["batch_p50"] = statistics.median(lat)
+        del predictor
+    for layout, r in rows.items():
+        name = layout or "unpacked"
+        more = ("" if "step" not in r else
+                f"; eager step {r['step']:.2f} ms host clock ({PK_TIMED} "
+                f"steps), {r['step_busy']:.2f} ms device (profiler); graphed "
+                f"N={STREAM_N} {r['graph_img_s']:.1f} img/s ({PK_TIMED} "
+                f"replays); B={BATCH} BatchPredictor p50 "
+                f"{r['batch_p50']:.2f} ms ({PK_CALLS} calls, host clock)")
+        log(f"phase 26 (d) {name}, 's' @{IMG_SIZE} nc={AF_NC} b8 bf16 "
+            f"K2 on: stem {r['stem']:.4f} ms, forward {r['forward']:.4f} ms "
+            f"device (profiler, eval){more}; {card}")
+    log(f"phase 26 (d) took {time.perf_counter() - t0:.1f} s ({card})")
+    return rows
+
+
 def main():
     t_main = time.perf_counter()
 
@@ -5720,6 +6119,25 @@ def main():
             f"{time.perf_counter() - t25:.1f} s ({card})")
         done(25)
 
+        # 26. the packed layouts: packed against unpacked on the card
+        # (float32 parity, a bf16 step with K2, the graphed chunk), K2 at
+        # the packed C3a conv, the CLI under --packed, the card's times
+        t26 = time.perf_counter()
+        pk_k2_step = phase_packed_parity(dev, stream_yaml, cache, card)
+        pk_err, pk_times = phase_mesh_k2(
+            dev, card, (PK_K2_CASE,), SEED + 80,
+            "phase 26 (b) K2 at the packed C3a conv")
+        (Path(tmp) / "p26").mkdir()
+        pk_k1, pk_k2_cli = phase_packed_cli(dev, Path(tmp) / "p26",
+                                            yaml_path, af_yaml, stream_yaml,
+                                            card)
+        phase_packed_times(dev, cache, card)
+        log(f"packed paths' kernel launches: conv backward {pk_k2_step} "
+            f"(the packed bf16 steps of (a)) + {pk_k2_cli} (the CLI runs); "
+            f"NMS {pk_k1} (--val-det and a request, both heads); phase 26 "
+            f"took {time.perf_counter() - t26:.1f} s ({card})")
+        done(26)
+
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
         "route": "cuda",
@@ -5755,13 +6173,15 @@ def main():
         "model_parallel_launches": tp_k1,
         "multiscale_world_launches": wc_ms_k1,
         "uneven_launches": un_k1,
+        "packed_launches": pk_k1,
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
         "source": "yolo_from_scratch_tpu_torch/csrc/conv_bwd.cu",
         "replaces": "yolo_from_scratch_tpu/ops/conv_bwd.py:89",
         "launches": k2_launches,
-        "max_abs_err": max(k2_err, ms_err, sp_err, tp_err, wc_err, un_err),
+        "max_abs_err": max(k2_err, ms_err, sp_err, tp_err, wc_err, un_err,
+                           pk_err),
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound[0],
@@ -5803,6 +6223,12 @@ def main():
                           "plain_ms": t[1], "library_ms": t[2],
                           "bound_ms": t[3]}
                          for (b, h, w), t in un_times.items()],
+        "packed_launches": pk_k2_step + pk_k2_cli,
+        # K2 at the packed C3a bottleneck conv (phase 26 (b))
+        "packed_c3a": [{"shape": [b, h, w, 64], "ms": t[0],
+                        "plain_ms": t[1], "library_ms": t[2],
+                        "bound_ms": t[3]}
+                       for (b, h, w), t in pk_times.items()],
     }, *({
         "name": name,
         "route": "cuda",

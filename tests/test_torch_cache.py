@@ -2,7 +2,7 @@
 cache.py`) against the JAX package's (`yolo_from_scratch_tpu/data/
 cache.py`) on the same synthetic dataset: the files byte-equal, each
 package opens the other's cache, a stale fingerprint rebuilds, and the
-packed layout (not ported) raises."""
+packed (space-to-depth) layout's files are byte-equal too."""
 
 import os
 import shutil
@@ -14,6 +14,7 @@ import pytest
 
 from yolo_from_scratch_tpu.data import cache as jcache
 from yolo_from_scratch_tpu.data.dataset import YoloDataset as JaxDataset
+from yolo_from_scratch_tpu.models import packed as jpk
 from yolo_from_scratch_tpu_torch.data import cache as tcache
 from yolo_from_scratch_tpu_torch.data.dataset import YoloDataset
 
@@ -102,14 +103,32 @@ def test_stale_fingerprint_rebuilds(temp_dataset_multiclass, tmp_path):
 
 
 def test_packed_raises(caches, tmp_path):
-    ds, _, _ = caches
-    with pytest.raises(ValueError, match="packed"):
-        tcache.build_cache(ds, str(tmp_path / "p"), capacity=K, packed=True,
-                           log=None)
-    with pytest.raises(ValueError, match="packed"):
-        tcache.ensure_cache(ds, capacity=K, packed=True, log=None)
-    with pytest.raises(ValueError, match="packed"):
-        tcache.cache_dir_for("x", IMG, K, packed=True)
+    """The packed cache (`packed=True`, the layout of a packed model): its
+    files byte-equal to the JAX package's, in the JAX package's `_p4`
+    directory, opened by `ensure_cache(packed=True)` alone; an empty
+    dataset still raises."""
+    ds, port, _ = caches
+    jax_ds = JaxDataset(str(Path(ds.imgs[0]).parent), 3, img_size=IMG,
+                        backend="pil")
+    got = tcache.build_cache(ds, str(tmp_path / "p"), capacity=K,
+                             packed=True, batch=3, log=None)
+    want = jcache.build_cache(jax_ds, str(tmp_path / "j"), capacity=K,
+                              packed=True, batch=3, log=None)
+    for name in FILES:
+        assert (Path(got.dir) / name).read_bytes() == \
+            (Path(want.dir) / name).read_bytes(), name
+    assert got.packed and got.images.shape == (4, IMG // 4, IMG // 4, 48)
+    np.testing.assert_array_equal(
+        np.asarray(got.images),
+        jpk.pack_s2d_host(np.asarray(port.images)))
+    img_dir = str(Path(ds.imgs[0]).parent)
+    assert tcache.cache_dir_for(img_dir, IMG, K, packed=True) == \
+        jcache.cache_dir_for(img_dir, IMG, K, True)
+    assert tcache.cache_dir_for(img_dir, IMG, K, packed=True).endswith("_p4")
+    # each layout opens only its own cache
+    assert tcache.open_cache(got.dir, packed=False) is None
+    assert tcache.open_cache(port.dir, packed=True) is None
+    assert tcache.open_cache(got.dir, packed=True).packed
     with pytest.raises(ValueError, match="empty"):
         tcache.build_cache(ds.__class__(str(tmp_path), 3, img_size=IMG),
                            str(tmp_path / "e"), log=None)

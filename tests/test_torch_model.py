@@ -193,8 +193,25 @@ def test_pool_and_upsample_match_jax():
                                  "packed_p3": True},
                                 {"packed_stem": True}])
 def test_unported_variants_raise(cfg, kw):
-    with pytest.raises(NotImplementedError):
-        YOLO(cfg.with_(**kw), device="meta")
+    """The packed variants (`models/packed.py`), which once raised, build
+    and match the JAX package's packed forward on the host-packed image,
+    with the unpacked model's weights (the state dicts are the same)."""
+    from yolo_from_scratch_tpu.models.packed import pack_s2d_host
+
+    cfg = cfg.with_(**kw)
+    variables = random_variables(YOLO(cfg, device="meta"), seed=4)
+    assert sorted(from_flax_variables(variables, YOLO(cfg, device="meta"))) \
+        == sorted(YOLO(cfg.with_(packed_stem=False, packed_interior=False,
+                                 packed_p3=False), device="meta").state_dict())
+    x = pack_s2d_host(np.random.default_rng(4).random(
+        (2, cfg.img_size, cfg.img_size, 3)).astype(np.float32))
+    expected = jax.jit(lambda v, im: JaxYOLO(cfg).apply(v, im, train=False))(
+        variables, jnp.asarray(x))
+    with torch.no_grad():
+        got = _port(cfg, variables)(torch.from_numpy(x))
+    for g, e in zip(got, expected):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_bfloat16_forward_is_finite(cfg):

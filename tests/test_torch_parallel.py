@@ -180,14 +180,22 @@ def test_world_of_one_without_a_group(monkeypatch):
     (["--distributed", "--coordinator", "127.0.0.1:1"], 1, "together"),
     (["--distributed", "--num-processes", "2"], 1, "together"),
     (["--distributed"], 1, "torchrun"),
-    (["--packed-stem", "--data-parallel"], 2, "--packed-stem is not ported"),
+    # --packed-stem --data-parallel trains (a world of one); --packed with
+    # --spatial is not ported yet (ROADMAP A10b)
+    (["--packed-stem", "--data-parallel", "--device", "cpu", "--size", "n",
+      "--img-size", "64", "--batch-size", "2", "--epochs", "1"], 0,
+     "Data-parallel mesh over 1 process(es)"),
+    (["--packed", "p3", "--spatial", "2", "--data-parallel"], 2,
+     "--packed p3 with --spatial is not ported"),
     (["--model-parallel", "2"], 1, "--spatial/--model-parallel require "
                                    "--data-parallel"),
 ])
-def test_cli_flag_rules(argv, rc, says, capsys, monkeypatch):
+def test_cli_flag_rules(argv, rc, says, temp_dataset_dir, tmp_path, capsys,
+                        monkeypatch):
     for key in port_dist.TORCHRUN_ENV:
         monkeypatch.delenv(key, raising=False)
-    assert cli.main(["data.yaml", *argv]) == rc
+    monkeypatch.chdir(tmp_path)  # a training writes its checkpoint here
+    assert cli.main([str(temp_dataset_dir / "dataset.yaml"), *argv]) == rc
     assert says in capsys.readouterr().out
 
 

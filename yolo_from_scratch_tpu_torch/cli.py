@@ -69,9 +69,21 @@ must divide by N).
 port's counterpart of the JAX CLI's `--stream --data-parallel` over one
 host's chips, `--batch-size` per process, each chunk's collectives in its
 CUDA graph with NCCL (eager steps with `gloo`); ranks on several hosts
-exit 1 with the JAX CLI's line. A JAX-CLI flag the port does not have yet
-(`--packed*`) exits with status 2 and names the flag, as does any other
-mode.
+exit 1 with the JAX CLI's line.
+`--packed {auto,none,stem,interior,p3}` (or the aliases `--packed-stem`,
+`--packed-interior`, `--packed-p3`) runs the model in a space-to-depth
+packed layout (`models/packed.py`) in every mode: training (eager,
+graphed, `--stream`, `--resume` with the flag's layout, the data-parallel
+loaders), evaluation, inference, `--val-det` and `--map`; the loaders,
+the stream cache and the predictors pack the images on the host. It is a
+runtime knob: checkpoints hold no layout, and either layout loads the
+other's. `auto` is `none` here, on the card and on the CPU: the JAX CLI's
+`auto` is `p3` on any accelerator, where packing fills the MXU's lanes;
+which layout pays on the H100 is for the benchmark to decide. A conflicting
+`--packed` and alias exit 1 with the JAX CLI's message. Packing with
+`--int8`, `--export`, `--spatial` or `--model-parallel` is not ported yet
+(ROADMAP A10b): it exits 2 and names both flags, as does any mode the port
+does not have.
 """
 
 from __future__ import annotations
@@ -81,15 +93,21 @@ import sys
 
 import numpy as np
 
-from yolo_from_scratch_tpu_torch.config import YOLO_SIZES, YoloConfig
+from yolo_from_scratch_tpu_torch.config import (
+    YOLO_SIZES,
+    YoloConfig,
+    auto_fast_layout,
+)
 
 CKPT_EXTS = (".ckpt", ".msgpack")
 IMG_EXTS = (".jpg", ".png", ".jpeg")
 YAML_EXTS = (".yaml", ".yml")
 ART_EXTS = (".yexp",)  # frozen serving artifacts (infer/export.py)
 
-# JAX-CLI flags with no port yet
-UNPORTED_PREFIXES = ("--packed",)
+# --packed's levels, and the packed_* config fields each one sets
+PACKED_LEVELS = {"none": (), "stem": ("packed_stem",),
+                 "interior": ("packed_stem", "packed_interior"),
+                 "p3": ("packed_stem", "packed_interior", "packed_p3")}
 # the secondary mesh axes, which --stream refuses (exit 1); _train
 # refuses --augment, --ema, --multi-scale and --distributed over several
 # hosts
@@ -135,6 +153,22 @@ def build_parser():
                         help="detection head family: 'anchor' (the "
                              "reference's 3-anchor heads) or 'anchor_free' "
                              "(the YOLOv8-style decoupled head)")
+    parser.add_argument("--packed", default="auto",
+                        choices=["auto", *PACKED_LEVELS],
+                        help="space-to-depth packed conv layout level "
+                             "(models/packed.py): numerically equivalent, "
+                             "checkpoint-interchangeable. 'auto' (default) "
+                             "= 'none' on the card and on the CPU (the JAX "
+                             "CLI's 'auto' is 'p3' on an accelerator, where "
+                             "packing fills MXU lanes; which level pays on "
+                             "the H100 is not measured yet); an explicit "
+                             "level always wins")
+    parser.add_argument("--packed-stem", action="store_true",
+                        help="alias for --packed stem")
+    parser.add_argument("--packed-interior", action="store_true",
+                        help="alias for --packed interior")
+    parser.add_argument("--packed-p3", action="store_true",
+                        help="alias for --packed p3")
     parser.add_argument("--compact-targets", nargs="?", const=64, type=int,
                         default=0, metavar="K",
                         help="stream compact labels (up to K boxes an "
@@ -289,11 +323,37 @@ def build_parser():
     return parser
 
 
-def _unported_flag(argv):
-    for arg in argv:
-        name = arg.split("=", 1)[0]
-        if name.startswith(UNPORTED_PREFIXES):
-            return name
+def _resolve_packing(args):
+    """Resolve --packed and its aliases into `args.packed` (the level) and
+    `args.layout` (the packed_* config fields to set), as the JAX CLI
+    resolves them, but with 'auto' = 'none' (`config.py::
+    auto_fast_layout`). Returns an exit status on a conflict or an
+    unported composition, else None."""
+    level = args.packed
+    alias = ("p3" if args.packed_p3 else
+             "interior" if args.packed_interior else
+             "stem" if args.packed_stem else None)
+    if alias is not None:
+        if level not in ("auto", alias):
+            # '--packed p3 --packed-stem' must not silently downgrade
+            print(f"conflicting packing flags: --packed {level} vs the "
+                  f"--packed-{alias} alias", file=sys.stderr)
+            return 1
+        level = alias
+    if level == "auto":
+        auto = auto_fast_layout(args.device)
+        level = next(lvl for lvl in ("p3", "interior", "stem", "none")
+                     if all(auto[k] for k in PACKED_LEVELS[lvl]))
+    flag = f"--packed-{alias}" if alias else f"--packed {level}"
+    args.packed = level
+    args.layout = {k: k in PACKED_LEVELS[level] for k in PACKED_LEVELS["p3"]}
+    for other, on in (("--int8", args.int8), ("--export", args.export),
+                      ("--spatial", args.spatial > 1),
+                      ("--model-parallel", args.model_parallel > 1)):
+        if on and level != "none":
+            print(f"ERROR: {flag} with {other} is not ported yet (ROADMAP "
+                  f"A10b); use `python train.py` for it")
+            return 2
     return None
 
 
@@ -347,6 +407,7 @@ def _infer(args, image_file, ckpt_file):
     state_dict, cfg, _ = load_checkpoint(ckpt_file)
     if args.dtype != "auto":
         cfg = cfg.with_(compute_dtype=args.dtype)
+    cfg = cfg.with_(**args.layout)  # a runtime knob; weights interchangeable
     print(f"Running inference on {image_file}")
     print(f"Model: {ckpt_file}, Classes: {cfg.num_classes}, "
           f"Image size: {cfg.img_size}")
@@ -464,7 +525,7 @@ def _loader(config, split, cfg, batch_size, shuffle=False, seed=0,
                                   seed=seed),
                       batch_size=batch_size, shuffle=shuffle, seed=seed,
                       compact=compact, process_shard=process_shard,
-                      pad_shard=pad_shard)
+                      pad_shard=pad_shard, pack_images=cfg.packed_stem)
 
 
 def multi_scale_sizes(img_size):
@@ -551,6 +612,7 @@ def _evaluate(args, config, ckpt_file):
     state_dict, cfg, _ = load_checkpoint(ckpt_file)
     if args.dtype != "auto":
         cfg = cfg.with_(compute_dtype=args.dtype)
+    cfg = cfg.with_(**args.layout)
     compact = args.compact_targets if cfg.head_type == "anchor" else 0
     if _spatial_refused(args, cfg, dense=not compact):
         return 1
@@ -677,14 +739,15 @@ def _train(args, config):
         device = mesh.device
     dtype = args.dtype
     if dtype == "auto":
-        dtype = "bfloat16" if device.type == "cuda" else "float32"
+        dtype = auto_fast_layout(device.type)["compute_dtype"]
     state = resume_ema = save_path = None
     start_epoch = 0
     if args.resume:
         # the checkpoint's config governs the model, the loss and the data
         state, cfg, start_epoch, resume_ema = restore_train_state(
             args.resume, args.lr, device=device,
-            weight_decay=args.weight_decay, compute_dtype=dtype, mesh=mesh)
+            weight_decay=args.weight_decay, compute_dtype=dtype, mesh=mesh,
+            layout=args.layout)
         save_path = args.resume
         print(f"Resuming from {args.resume} at epoch {start_epoch + 1}")
         for flag, passed, kept, shown in (
@@ -699,7 +762,8 @@ def _train(args, config):
         cfg = YoloConfig.from_size(args.size,
                                    num_classes=config.get("nc", 1),
                                    img_size=args.img_size,
-                                   compute_dtype=dtype, head_type=args.head)
+                                   compute_dtype=dtype, head_type=args.head,
+                                   **args.layout)
     dense = not args.compact_targets
     if _spatial_refused(args, cfg, dense):
         return 1
@@ -805,6 +869,7 @@ def _train(args, config):
         # loader; process 0 writes the one cache, the others open it after
         cache = ensure_cache(train_loader.dataset,
                              capacity=args.compact_targets or 64,
+                             packed=cfg.packed_stem,
                              cache_dir=args.cache_dir,
                              rank=mesh.rank if mesh else 0,
                              wait=host_barrier())
@@ -873,12 +938,10 @@ def main(argv=None):
               f"--device-augment/--device-mosaic for augmentation on the "
               f"stream path")
         return 1
-    flag = _unported_flag(argv)
-    if flag:
-        print(f"ERROR: {flag} is not ported yet; use `python train.py` "
-              f"for it")
-        return 2
     args = build_parser().parse_args(argv)
+    rc = _resolve_packing(args)
+    if rc is not None:
+        return rc
     if not args.distributed:
         return _run(args)
     # before any mode: afterwards the group spans every process

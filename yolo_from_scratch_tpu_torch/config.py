@@ -1,7 +1,8 @@
 """Model / training configuration: the port's own copy of what it uses of
 `yolo_from_scratch_tpu/config.py`, with the same names and values bit for
-bit (`tests/test_torch_config_data.py` holds the two together). It loads
-only numpy.
+bit (`tests/test_torch_config_data.py` holds the two together), but for
+`auto_fast_layout`, whose packed layout the port leaves off. It loads only
+numpy.
 
 Mirrors the reference's hyperparameter surface (reference: train.py:336-397,
 1346-1352) while adding TPU-specific knobs (compute dtype, NMS capacity).
@@ -41,6 +42,21 @@ NUM_ANCHORS_PER_SCALE = 3
 # that lands ~1 ulp off numpy's true divide (measured 5.96e-8 max diff,
 # amplified to ~5e-5 loss divergence over a few Adam steps).
 INV255 = np.float32(1.0 / 255.0)
+
+
+def auto_fast_layout(platform: str) -> dict:
+    """The port's no-flags dtype and layout for a device type ('cuda' or
+    'cpu'), the counterpart of the JAX package's `auto_fast_layout`:
+    bfloat16 convs on the card, float32 on the CPU, and no packed layout
+    on either. The JAX package packs ('p3') on every accelerator because
+    packing fills the MXU's lanes; whether it pays on Hopper's tensor cores
+    is for the benchmark to decide, and an explicit `--packed` wins."""
+    return {
+        "compute_dtype": "float32" if platform == "cpu" else "bfloat16",
+        "packed_stem": False,
+        "packed_interior": False,
+        "packed_p3": False,
+    }
 
 
 def normalize_anchors(anchors: Any) -> np.ndarray:

@@ -3,17 +3,19 @@ compact labels, memory-mapped for epoch streaming (counterpart of
 `yolo_from_scratch_tpu/data/cache.py`; numpy only).
 
 Decode and letterbox are deterministic for a (file, img_size), so the
-first pass writes `images.u8`, a raw (n, S, S, 3) uint8 memmap, beside
-the compact labels `labels.f32` (n, K, 5), `counts.i32` (n,) and
-`meta.json`; every later epoch is a fancy index into the page cache away
-from the card. The files, their layout and the directory name
-(`.yolo_tpu_cache_s{S}_k{K}_p1`) are the JAX package's, so a cache
-written by either package opens in the other.
+first pass writes `images.u8`, a raw (n, S, S, 3) uint8 memmap, or with
+`packed` the space-to-depth packed (n, S/4, S/4, 48) one for a packed
+model (`models/packed.py::pack_s2d_host`), beside the compact labels
+`labels.f32` (n, K, 5), `counts.i32` (n,) and `meta.json`; every later
+epoch is a fancy index into the page cache away from the card. The files,
+their layout and the directory name (`.yolo_tpu_cache_s{S}_k{K}_p{1|4}`)
+are the JAX package's, so a cache written by either package opens in the
+other.
 
 The cache is keyed by content: a fingerprint over the sorted image paths,
 sizes and mtimes is stored in meta.json and checked on open, so a changed
-dataset rebuilds instead of serving stale pixels. The JAX package's
-packed (space-to-depth) layout is not ported: `packed=True` raises.
+dataset rebuilds instead of serving stale pixels; a cache of the other
+layout is not opened.
 """
 
 from __future__ import annotations
@@ -27,8 +29,7 @@ from pathlib import Path
 import numpy as np
 
 CACHE_VERSION = 1
-PACKED_NOT_PORTED = ("the packed (space-to-depth) cache layout is not "
-                     "ported; use packed=False")
+PACK_FACTOR = 4  # models/packed.py's
 
 
 def dataset_fingerprint(img_paths) -> str:
@@ -41,27 +42,21 @@ def dataset_fingerprint(img_paths) -> str:
     return h.hexdigest()
 
 
-def _check_unpacked(packed):
-    if packed:
-        raise ValueError(PACKED_NOT_PORTED)
-
-
 def cache_dir_for(img_dir: str, img_size: int, capacity: int,
                   packed: bool = False, root: str | None = None) -> str:
     """Default cache location: a sibling of the images dir (it lives with
     the dataset, like the labels dir), keyed by layout."""
-    _check_unpacked(packed)
     base = Path(root) if root else Path(img_dir).parent
-    return str(base / f".yolo_tpu_cache_s{img_size}_k{capacity}_p1")
+    pk = PACK_FACTOR if packed else 1
+    return str(base / f".yolo_tpu_cache_s{img_size}_k{capacity}_p{pk}")
 
 
 class ImageCache:
-    """An opened cache: `images` is a read-only uint8 memmap (n, S, S, 3);
-    `labels` (n, K, 5) float32 and `counts` (n,) int32 are small and
-    loaded into RAM."""
+    """An opened cache: `images` is a read-only uint8 memmap (n, S, S, 3),
+    or (n, S/4, S/4, 48) when `packed`; `labels` (n, K, 5) float32 and
+    `counts` (n,) int32 are small and loaded into RAM."""
 
     def __init__(self, cache_dir: str, meta: dict):
-        _check_unpacked(meta["packed"])
         self.dir = cache_dir
         self.meta = meta
         self.n = meta["n"]
@@ -87,15 +82,19 @@ class ImageCache:
         return self.n
 
 
-def open_cache(cache_dir: str, fingerprint: str | None = None):
+def open_cache(cache_dir: str, fingerprint: str | None = None,
+               packed: bool | None = None):
     """Open an existing cache; None when it is missing, of another version,
-    packed, or stale against `fingerprint`."""
+    stale against `fingerprint`, or of the other layout than `packed`
+    (when given)."""
     meta_path = Path(cache_dir) / "meta.json"
     try:
         meta = json.loads(meta_path.read_text())
     except (OSError, ValueError):
         return None
-    if meta.get("version") != CACHE_VERSION or meta.get("packed"):
+    if meta.get("version") != CACHE_VERSION:
+        return None
+    if packed is not None and bool(meta.get("packed")) != packed:
         return None
     if fingerprint is not None and meta.get("fingerprint") != fingerprint:
         return None
@@ -109,13 +108,18 @@ def build_cache(dataset, cache_dir: str, capacity: int = 64,
                 packed: bool = False, batch: int = 64, log=print):
     """One-time pass: decode and letterbox every image through the
     dataset's `load_batch_compact` and persist the uint8 pixels and compact
-    labels. Returns the opened ImageCache."""
-    _check_unpacked(packed)
+    labels, the images packed with `packed`. Returns the opened
+    ImageCache."""
     n = len(dataset)
     if n == 0:
         raise ValueError("cannot cache an empty dataset")
     s = dataset.img_size
-    shape = (s, s, 3)
+    if packed:
+        from yolo_from_scratch_tpu_torch.models.packed import pack_s2d_host
+
+        shape = (s // PACK_FACTOR, s // PACK_FACTOR, 3 * PACK_FACTOR ** 2)
+    else:
+        shape = (s, s, 3)
 
     d = Path(cache_dir)
     d.mkdir(parents=True, exist_ok=True)
@@ -128,6 +132,8 @@ def build_cache(dataset, cache_dir: str, capacity: int = 64,
         idx = list(range(i0, min(i0 + batch, n)))
         imgs, lab, cnt = dataset.load_batch_compact(
             idx, capacity=capacity, image_dtype="uint8")
+        if packed:
+            imgs = pack_s2d_host(imgs)
         images[i0 : i0 + len(idx)] = imgs
         labels[i0 : i0 + len(idx)] = lab
         counts[i0 : i0 + len(idx)] = cnt
@@ -145,7 +151,7 @@ def build_cache(dataset, cache_dir: str, capacity: int = 64,
         "n": n,
         "img_size": s,
         "capacity": capacity,
-        "packed": False,
+        "packed": packed,
         "image_shape": list(shape),
         "fingerprint": dataset_fingerprint(dataset.imgs),
         "num_classes": dataset.num_classes,
@@ -169,25 +175,25 @@ def ensure_cache(dataset, capacity: int = 64, packed: bool = False,
     every process until then, and the others open what it wrote. A cache
     they cannot open raises (RuntimeError): no two processes ever write
     one cache, and none reads a half-written one (meta.json is written
-    last)."""
-    _check_unpacked(packed)
+    last). `packed`: the space-to-depth layout of a packed model, in a
+    directory of its own."""
     img_dir = str(Path(dataset.imgs[0]).parent) if dataset.imgs else "."
     cache_dir = cache_dir or cache_dir_for(img_dir, dataset.img_size,
-                                           capacity)
+                                           capacity, packed)
     fp = dataset_fingerprint(dataset.imgs)
     cache = None
     if rank == 0:
-        cache = open_cache(cache_dir, fingerprint=fp)
+        cache = open_cache(cache_dir, fingerprint=fp, packed=packed)
         if cache is None:
             if log:
                 log(f"Building training cache at {cache_dir} "
                     f"(one-time decode+letterbox pass)")
             cache = build_cache(dataset, cache_dir, capacity=capacity,
-                                log=log)
+                                packed=packed, log=log)
     if wait is not None:
         wait()
     if cache is None:
-        cache = open_cache(cache_dir, fingerprint=fp)
+        cache = open_cache(cache_dir, fingerprint=fp, packed=packed)
         if cache is None:
             raise RuntimeError(f"process {rank}: no cache for this dataset "
                                f"at {cache_dir} after process 0 built it "

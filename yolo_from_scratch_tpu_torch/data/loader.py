@@ -56,11 +56,17 @@ class DataLoader:
     the same number of equal steps. `pad_shard=False` keeps the bare
     slice instead (evaluation, where no collective runs a batch and a
     padded image would be counted twice).
+
+    `pack_images`: the images space-to-depth packed 4x (`models/packed.py::
+    pack_s2d_host`, (B, S/4, S/4, 48)) for a packed model, on the prefetch
+    thread with the rest of the batch's preparation.
     """
 
     def __init__(self, dataset, batch_size=8, shuffle=False, seed=0,
-                 prefetch=2, compact=0, process_shard=None, pad_shard=True):
+                 prefetch=2, compact=0, process_shard=None, pad_shard=True,
+                 pack_images=False):
         self.compact = compact
+        self.pack_images = pack_images
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -98,6 +104,16 @@ class DataLoader:
             yield idx[i : i + self.batch_size]
 
     def _make_batch(self, indices):
+        images, targets = self._load(indices)
+        if self.pack_images:
+            from yolo_from_scratch_tpu_torch.models.packed import (
+                pack_s2d_host,
+            )
+
+            images = pack_s2d_host(images)
+        return images, targets
+
+    def _load(self, indices):
         if self.compact:
             images, labels, counts = self.dataset.load_batch_compact(
                 indices, capacity=self.compact)

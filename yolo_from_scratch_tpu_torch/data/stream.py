@@ -24,6 +24,10 @@ writes each finished slab into its pool slots in place, on the trainer's
 stream, between dispatches: a shuffle buffer with data echoing (Choi et
 al., 2019, arXiv:1907.05550). Both the trained-sample rate and the
 fresh-ingest rate are reported.
+
+Both feed the cache's images as they lie on disk: the packed (n, S/4,
+S/4, 48) slabs of a packed cache (`data/cache.py`, `packed=True`) go to a
+packed model's trainer unchanged.
 """
 
 from __future__ import annotations
@@ -105,9 +109,9 @@ def _means(metrics_acc):
 
 
 class ChunkStream:
-    """Iterate device-resident (images (N, B, S, S, 3), labels (N, B, K,
-    5), counts (N, B)) chunks over an ImageCache, one chunk ahead of the
-    consumer.
+    """Iterate device-resident (images (N, B, S, S, 3), or the cache's
+    packed (N, B, S/4, S/4, 48), labels (N, B, K, 5), counts (N, B)) chunks
+    over an ImageCache, one chunk ahead of the consumer.
 
     `process_shard` (index, count): this process's part of a job of
     `count` processes, each with `batch_size` images a step, so that a

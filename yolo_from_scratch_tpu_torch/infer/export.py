@@ -80,7 +80,11 @@ def export_serving(state_dict, cfg: YoloConfig, batch_size: int,
     (B,), pad_lefts (B,)) on its platform's device and returns (boxes
     (B, K, 4), scores (B, K), classes (B, K), valid (B, K)), K =
     `max_outputs`. `quantize_calib`: a list of images; the int8 program,
-    calibrated on them, is frozen instead."""
+    calibrated on them, is frozen instead. A packed config is not
+    exported yet (ROADMAP A10b): it raises."""
+    if cfg.packed_stem:
+        raise ValueError("exporting a packed model is not ported: export "
+                         "the unpacked config (the weights are the same)")
     from yolo_from_scratch_tpu_torch.infer.predict import (
         BatchPredictor,
         default_topk,

@@ -27,10 +27,18 @@ tensors.
 
 `quantize_calib` (a list of images) serves the int8 model instead
 (`infer/quantize.py`), calibrated on those images: every ConvBNSiLU but
-`stem0` runs Q1 and Q2 (`ops/quant.py`), kernels on the card.
+`stem0` runs Q1 and Q2 (`ops/quant.py`), kernels on the card. A packed
+model is not served in int8 (it raises).
 
-Not ported: the TPU's `approx_topk` prefilter and the packed stem; neither
-is accepted as an argument.
+A config with the packed layouts (`cfg.packed_stem`, `models/packed.py`)
+is served packed: the host letterboxes and packs each image 4x
+(`pack_s2d_host`) before the upload. Behind `device_letterbox=True` the
+device emits pixel images, and the predictors serve them through the
+unpacked model on the same weights, as the JAX package does.
+
+`approx_topk=True` asks for the JAX package's approximate top-k
+prefilter, which is approximate only on a TPU and exact elsewhere: here
+it selects the exact top-k, as without it.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from yolo_from_scratch_tpu_torch.infer.detections import (
     detections_per_image,
 )
 from yolo_from_scratch_tpu_torch.models.anchor_free import decode_anchor_free
+from yolo_from_scratch_tpu_torch.models.packed import pack_s2d_host
 from yolo_from_scratch_tpu_torch.models.yolo import (
     YOLO,
     cast_convs_,
@@ -141,17 +150,19 @@ def _unletterbox(boxes, img_size, scale, pad_top, pad_left):
 
 def make_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
                      iou_threshold=0.4, topk=None, max_outputs=None,
-                     use_cuda_nms=True):
+                     use_cuda_nms=True, approx_topk=False):
     """Build the forward+postprocess:
-    (img (1,S,S,3) uint8 or float, scale, pad_top, pad_left)
+    (img (1,S,S,3) uint8 or float, or a packed model's (1, S/4, S/4, 48),
+     scale, pad_top, pad_left)
       -> (boxes (K,4) px orig-image, scores (K,), classes (K,), valid (K,)),
     all on the image's device.
 
     `use_cuda_nms`: True sends NMS through the kernel's wrapper (the
     kernel on a CUDA tensor, the plain version on a CPU tensor); False runs
     the plain version on any device, which is what the kernel is checked
-    against. The returned function also carries its stages, `.decode` and
-    `.candidates`, for parity checks.
+    against. `approx_topk` takes the exact top-k (see the module's
+    docstring). The returned function also carries its stages, `.decode`
+    and `.candidates`, for parity checks.
     """
     img_size = cfg.img_size
     k = topk or default_topk(img_size, preds_per_cell(cfg))
@@ -193,8 +204,9 @@ def make_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
 
 def make_batch_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
                            iou_threshold=0.4, topk=None, max_outputs=300,
-                           use_cuda_nms=True):
-    """Batched serving path: (imgs (B, S, S, 3) uint8 or float, scales
+                           use_cuda_nms=True, approx_topk=False):
+    """Batched serving path: (imgs (B, S, S, 3) uint8 or float, or a
+    packed model's (B, S/4, S/4, 48), scales
     (B,), pad_tops (B,), pad_lefts (B,)) -> per-image fixed-shape
     detections (boxes (B, K, 4), scores (B, K), classes (B, K), valid
     (B, K)), K = `max_outputs`, all on the images' device.
@@ -204,9 +216,9 @@ def make_batch_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
     descending sort, then the first k), taken along dim 1; then ONE
     class-aware NMS over (B, k): on a CUDA tensor one launch of the
     kernel for the batch, on a CPU tensor its plain version.
-    `use_cuda_nms=False` runs the plain version on any device. The
-    returned function carries its stages, `.decode` and `.candidates`, for
-    parity checks.
+    `use_cuda_nms=False` runs the plain version on any device;
+    `approx_topk` takes the exact top-k. The returned function carries its
+    stages, `.decode` and `.candidates`, for parity checks.
     """
     img_size = cfg.img_size
     k = topk or default_topk(img_size, preds_per_cell(cfg))
@@ -306,6 +318,9 @@ def _quantize(model, state_dict, cfg, calib_images):
     """The predictors' PTQ: calibrate `model` on the letterboxed images and
     return its int8 copy, quantized from the float32 `state_dict` (the
     model's own conv weights are already cast to the compute dtype)."""
+    if cfg.packed_stem:
+        raise ValueError("int8 serving of a packed model is not ported: the "
+                         "int8 convs do not take the packed 2x2 shapes")
     from yolo_from_scratch_tpu_torch.infer.quantize import (
         calib_batches_from_images,
         quantize_model,
@@ -313,6 +328,22 @@ def _quantize(model, state_dict, cfg, calib_images):
 
     batches = calib_batches_from_images(calib_images, cfg.img_size)
     return quantize_model(model, batches, state_dict=state_dict)
+
+
+def _pixel_model(model, state_dict, cfg, device):
+    """The model that serves the device letterbox's pixel images: `model`
+    itself, or for a packed config an unpacked one on the same weights."""
+    if not cfg.packed_stem:
+        return model, cfg
+    cfg = cfg.with_(packed_stem=False, packed_interior=False,
+                    packed_p3=False)
+    return _load_model(state_dict, cfg, device), cfg
+
+
+def _host_pack(batch, cfg):
+    """A letterboxed (B, S, S, 3) uint8 host batch in the model's input
+    layout: packed 4x for a packed model (`pack_s2d_host`)."""
+    return pack_s2d_host(batch) if cfg.packed_stem else batch
 
 
 def _refuse_letterbox(quantize_calib, device_letterbox):
@@ -370,20 +401,24 @@ class Predictor:
             use_cuda_nms=use_cuda_nms,
         )
         if device_letterbox:
+            model, lb_cfg = _pixel_model(self.model, state_dict, cfg,
+                                         self.device)
             self._post_lb = _wrap_device_letterbox(
                 make_batch_postprocess(
-                    self.model, cfg, conf_threshold, iou_threshold, topk,
+                    model, lb_cfg, conf_threshold, iou_threshold, topk,
                     max_outputs or topk or default_topk(
                         cfg.img_size, preds_per_cell(cfg)),
                     use_cuda_nms=use_cuda_nms),
                 cfg.img_size)
 
     def stage(self, image):
-        """Letterbox on the host and upload as uint8 (4x fewer bytes than
-        float32; normalized on the device). Returns the postprocess args."""
+        """Letterbox on the host (and pack, for a packed model) and upload
+        as uint8 (4x fewer bytes than float32; normalized on the device).
+        Returns the postprocess args."""
         img_u8, scale, pad_top, pad_left = letterbox_input(image,
                                                            self.cfg.img_size)
-        img = torch.tensor(img_u8[None])  # a copy: PIL's arrays are read-only
+        # a copy: PIL's arrays are read-only
+        img = torch.tensor(_host_pack(img_u8[None], self.cfg))
         return (img.to(self.device), float(scale), float(pad_top),
                 float(pad_left))
 
@@ -484,13 +519,14 @@ class BatchPredictor:
     bucket of 256-px multiples (`_stage_batch`). `topk`: NMS candidates
     per image (default `default_topk`, 4096 @640 for either head).
     `quantize_calib`: serve the int8 model calibrated on these images (not
-    with `device_letterbox`).
+    with `device_letterbox`). `approx_topk`: the exact top-k (the module's
+    docstring).
     """
 
     def __init__(self, state_dict, cfg: YoloConfig, conf_threshold=0.5,
                  iou_threshold=0.4, max_outputs=300, device_letterbox=False,
-                 topk=None, quantize_calib=None, *, device,
-                 use_cuda_nms=True):
+                 topk=None, quantize_calib=None, approx_topk=False, *,
+                 device, use_cuda_nms=True):
         _refuse_letterbox(quantize_calib, device_letterbox)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -499,31 +535,44 @@ class BatchPredictor:
         if quantize_calib is not None:
             self.model = _quantize(self.model, state_dict, cfg,
                                    quantize_calib)
+        post = dict(topk=topk, max_outputs=max_outputs,
+                    use_cuda_nms=use_cuda_nms, approx_topk=approx_topk)
         self.postprocess = make_batch_postprocess(
-            self.model, cfg, conf_threshold, iou_threshold, topk=topk,
-            max_outputs=max_outputs, use_cuda_nms=use_cuda_nms)
+            self.model, cfg, conf_threshold, iou_threshold, **post)
+        self._lb_model = None  # a packed config's pixel-image model
         if device_letterbox:
-            self._post_lb = _wrap_device_letterbox(self.postprocess,
-                                                   cfg.img_size)
+            lb_model, lb_cfg = _pixel_model(self.model, state_dict, cfg,
+                                            self.device)
+            post_lb = self.postprocess
+            if lb_model is not self.model:
+                self._lb_model = lb_model
+                post_lb = make_batch_postprocess(
+                    lb_model, lb_cfg, conf_threshold, iou_threshold, **post)
+            self._post_lb = _wrap_device_letterbox(post_lb, cfg.img_size)
 
     def load_weights(self, state_dict):
         """Serve new weights (a training model's float32 master weights,
         say) without rebuilding: each tensor copied into the predictor's
-        own model and cast to its dtype; the source is left as it is."""
-        own = self.model.state_dict()
-        if own.keys() != state_dict.keys():
-            raise KeyError(f"state dicts differ in keys: "
-                           f"{sorted(own.keys() ^ state_dict.keys())}")
-        with torch.no_grad():
-            for key, t in own.items():
-                t.copy_(state_dict[key])
+        own model (both of a packed predictor's behind the device
+        letterbox) and cast to its dtype; the source is left as it is."""
+        for model in (self.model, self._lb_model):
+            if model is None:
+                continue
+            own = model.state_dict()
+            if own.keys() != state_dict.keys():
+                raise KeyError(f"state dicts differ in keys: "
+                               f"{sorted(own.keys() ^ state_dict.keys())}")
+            with torch.no_grad():
+                for key, t in own.items():
+                    t.copy_(state_dict[key])
 
     def stage(self, images):
-        """Host letterbox of every image, uploaded as one uint8 batch.
-        Returns the postprocess args."""
+        """Host letterbox of every image (packed, for a packed model),
+        uploaded as one uint8 batch. Returns the postprocess args."""
         staged = [letterbox_input(image, self.cfg.img_size)
                   for image in images]
-        batch = torch.from_numpy(np.stack([s[0] for s in staged]))
+        batch = torch.from_numpy(_host_pack(np.stack([s[0] for s in staged]),
+                                            self.cfg))
         params = torch.tensor([s[1:] for s in staged], dtype=torch.float32)
         return (batch.to(self.device),
                 *params.to(self.device).unbind(1))

@@ -1,6 +1,8 @@
 """Post-training int8 quantization of the serving model (counterpart of
-`yolo_from_scratch_tpu/infer/quantize.py`, its canonical layout; the
-packed layouts are not ported).
+`yolo_from_scratch_tpu/infer/quantize.py`, its canonical layout). int8
+under the packed layouts is not ported yet (ROADMAP A10b: Q2 does not take
+the packed 2x2 convs' (1, 0) padding): the predictors raise on it and the
+CLI's `--packed ... --int8` exits 2.
 
 - **BN folding**: each ConvBNSiLU collapses to conv(W', b') with
   W' = W * gamma / sqrt(var + eps) per out-channel and

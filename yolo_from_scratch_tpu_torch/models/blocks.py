@@ -109,6 +109,18 @@ class ConvBNSiLU(nn.Module):
             uniform_fan_in_(self.conv.bias, fan_in, generator)
         self.bn.reset_parameters()
 
+    def gate_shape(self, x):
+        """The arguments of K2's gate (`ops/conv_bwd.py::use_fused_bwd`)
+        for input x: kernel, stride, cin, cout, the global height, width
+        and the compute dtype; None for a conv with a bias, which the
+        gate never takes."""
+        conv = self.conv
+        if conv.bias is not None:
+            return None
+        return (conv.kernel_size[0], conv.stride[0], x.shape[1],
+                conv.out_channels, global_rows(x.shape[2], x.shape[3]),
+                x.shape[3], self.dtype)
+
     def forward(self, x, train: bool = False):
         if self.tp is not None:
             return self._forward_tp(x, train)
@@ -117,9 +129,8 @@ class ConvBNSiLU(nn.Module):
         k, stride, pad = conv.kernel_size[0], conv.stride[0], conv.padding[0]
         mesh = spatial_mesh()
         bias = cast(conv.bias, self.dtype)
-        gated = conv.bias is None and use_fused_bwd(
-            k, stride, x.shape[1], conv.out_channels,
-            global_rows(x.shape[2], x.shape[3]), x.shape[3], self.dtype)
+        gate = self.gate_shape(x)
+        gated = gate is not None and use_fused_bwd(*gate)
         if gated and mesh is None:
             y = conv3x3_same(x, w)
         elif gated and x.shape[2]:  # a rank without rows: the conv below

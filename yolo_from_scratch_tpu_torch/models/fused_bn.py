@@ -39,6 +39,12 @@ hold one batch: the statistics of the slice are reduced over the data
 group alone, with shares of 1 / n_data (`parallel/mesh.py::reduce_mesh`).
 Without an active mesh, or on a model mesh of one data shard, no
 collective is issued.
+
+`phases`: a space-to-depth packed map (`models/packed.py`) carries
+`phases` pixel phases on its channel axis, phase-major. The statistics
+then reduce over batch, space and phases per canonical channel, the
+affine terms are tiled over the phases, and the running statistics move
+per canonical channel: what BatchNorm computes on the unpacked map.
 """
 
 from __future__ import annotations
@@ -59,18 +65,34 @@ BN_EPS = 1e-5
 _C = (1, -1, 1, 1)  # a per-channel vector against an NCHW tensor
 
 
-def _stats(x, mesh=None, count=None):
-    """float32 fast-variance batch statistics per channel of NCHW x, over
-    `mesh`'s global batch when one is given: equal local batches, or
-    unequal row blocks of `count` elements a channel in all."""
+def _reduce(t, op, phases):
+    """`op` ("sum" or "mean") of NCHW t per canonical channel: over batch
+    and space, and over the phases of a packed map (`models/packed.py`,
+    phase-major: t viewed as (B, phases, C, H, W))."""
+    if phases == 1:
+        return getattr(t, op)(dim=(0, 2, 3))
+    return getattr(t.unflatten(1, (phases, -1)), op)(dim=(0, 1, 3, 4))
+
+
+def _vec(v, phases):
+    """A per-channel vector against an NCHW map of `phases` phases: tiled
+    over the phases (phase-major, as `jnp.tile`)."""
+    return (v if phases == 1 else v.repeat(phases)).view(_C)
+
+
+def _stats(x, mesh=None, count=None, phases=1):
+    """float32 fast-variance batch statistics per canonical channel of
+    NCHW x (over its phases too when packed), over `mesh`'s global batch
+    when one is given: equal local batches, or unequal row blocks of
+    `count` elements a channel in all."""
     xf = x.float()
     if mesh is not None and uneven():
-        sums = torch.stack([xf.sum(dim=(0, 2, 3)),
-                            torch.square(xf).sum(dim=(0, 2, 3))])
+        sums = torch.stack([_reduce(xf, "sum", phases),
+                            _reduce(torch.square(xf), "sum", phases)])
         mu, mu2 = all_reduce(sums / count, mesh).unbind()
         return mu, torch.clamp(mu2 - torch.square(mu), min=0.0)
-    mu = xf.mean(dim=(0, 2, 3))
-    mu2 = torch.square(xf).mean(dim=(0, 2, 3))
+    mu = _reduce(xf, "mean", phases)
+    mu2 = _reduce(torch.square(xf), "mean", phases)
     if mesh is not None:
         # a local mean times the local share, summed: at one rank the
         # product by 1.0 and the sum of one are exact, so the statistics
@@ -80,57 +102,63 @@ def _stats(x, mesh=None, count=None):
     return mu, torch.clamp(mu2 - torch.square(mu), min=0.0)
 
 
-def _affine_silu(x, mu, var, scale, bias, eps):
+def _affine_silu(x, mu, var, scale, bias, eps, phases=1):
     mul = torch.rsqrt(var + eps) * scale
-    z = ((x.float() - mu.view(_C)) * mul.view(_C) + bias.view(_C)).to(x.dtype)
+    z = ((x.float() - _vec(mu, phases)) * _vec(mul, phases)
+         + _vec(bias, phases)).to(x.dtype)
     return F.silu(z)
 
 
 class _BNSiLUTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, phases):
         ctx.mesh = reduce_mesh()
-        # the global batch's elements a channel: (B, h, W) blocks, rows at 1
-        ctx.count = global_elements(x[:, 0])
-        mu, var = _stats(x, ctx.mesh, ctx.count)
+        # the global batch's elements a channel: (B, h, W) blocks, rows at
+        # 1, times the phases of a packed map
+        ctx.count = global_elements(x[:, 0]) * phases
+        mu, var = _stats(x, ctx.mesh, ctx.count, phases)
         ctx.save_for_backward(x, mu, var, scale, bias)
-        ctx.eps = eps
+        ctx.eps, ctx.phases = eps, phases
         ctx.mark_non_differentiable(mu, var)
-        return _affine_silu(x, mu, var, scale, bias, eps), mu, var
+        return _affine_silu(x, mu, var, scale, bias, eps, phases), mu, var
 
     @staticmethod
     def backward(ctx, dy, _dmu, _dvar):
         x, mu, var, scale, bias = ctx.saved_tensors
+        ph = ctx.phases
         r = torch.rsqrt(var + ctx.eps)
-        xhat = (x.float() - mu.view(_C)) * r.view(_C)
-        z = (xhat * scale.view(_C) + bias.view(_C)).to(x.dtype)
+        xhat = (x.float() - _vec(mu, ph)) * _vec(r, ph)
+        z = (xhat * _vec(scale, ph) + _vec(bias, ph)).to(x.dtype)
         s = torch.sigmoid(z)
         dz = (dy * (s * (1.0 + z * (1.0 - s)))).float()
         m = ctx.count
-        dbeta = dz.sum(dim=(0, 2, 3))
-        dgamma = (dz * xhat).sum(dim=(0, 2, 3))
+        dbeta = _reduce(dz, "sum", ph)
+        dgamma = _reduce(dz * xhat, "sum", ph)
         sum_dz, sum_dzx = dbeta, dgamma
         if ctx.mesh is not None:
             # the global means of dz and dz * xhat (the backward's
             # all-reduces run in the same order on every rank)
             sum_dz, sum_dzx = all_reduce(torch.stack([dbeta, dgamma]),
                                          ctx.mesh).unbind()
-        dx = (scale * r).view(_C) * (dz - (sum_dz / m).view(_C)
-                                     - xhat * (sum_dzx / m).view(_C))
-        return dx.to(x.dtype), dgamma, dbeta, None
+        dx = _vec(scale * r, ph) * (dz - _vec(sum_dz / m, ph)
+                                    - xhat * _vec(sum_dzx / m, ph))
+        return dx.to(x.dtype), dgamma, dbeta, None, None
 
 
-def bn_silu_train(x, scale, bias, eps=BN_EPS):
-    """Train-mode fused BatchNorm+SiLU over NCHW x. Returns (y, mean,
-    var); mean and var feed the (undifferentiated) running-stat update."""
-    return _BNSiLUTrain.apply(x, scale, bias, eps)
+def bn_silu_train(x, scale, bias, eps=BN_EPS, phases=1):
+    """Train-mode fused BatchNorm+SiLU over NCHW x (of `phases` packed
+    phases). Returns (y, mean, var) per canonical channel; mean and var
+    feed the (undifferentiated) running-stat update."""
+    return _BNSiLUTrain.apply(x, scale, bias, eps, phases)
 
 
 class BNSiLU(nn.Module):
-    """`BatchNorm -> silu` over the channel axis of an NCHW tensor."""
+    """`BatchNorm -> silu` over the channel axis of an NCHW tensor, or over
+    the canonical channels of a map packed with `phases` phases."""
 
-    def __init__(self, features, device=None):
+    def __init__(self, features, device=None, phases=1):
         super().__init__()
+        self.phases = phases
         f32 = dict(dtype=torch.float32, device=device)
         self.scale = nn.Parameter(torch.ones(features, **f32))
         self.bias = nn.Parameter(torch.zeros(features, **f32))
@@ -147,8 +175,9 @@ class BNSiLU(nn.Module):
     def forward(self, x, train: bool = False):
         if not train:
             return _affine_silu(x, self.mean, self.var, self.scale, self.bias,
-                                BN_EPS)
-        y, mu, var = bn_silu_train(x, self.scale, self.bias, BN_EPS)
+                                BN_EPS, self.phases)
+        y, mu, var = bn_silu_train(x, self.scale, self.bias, BN_EPS,
+                                   self.phases)
         with torch.no_grad():
             self.mean.copy_(BN_MOMENTUM * self.mean + (1.0 - BN_MOMENTUM) * mu)
             self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)

@@ -1,5 +1,5 @@
 """YOLOv5-style FPN detector (counterpart of
-`yolo_from_scratch_tpu/models/yolo.py`, its unpacked branches).
+`yolo_from_scratch_tpu/models/yolo.py`).
 
 stem (2 stride-2 convs) -> backbone P3/P4/P5 -> SPPF -> FPN top-down with
 laterals -> PANet bottom-up -> three heads (2 ConvBNSiLU + 1x1 conv with
@@ -13,8 +13,14 @@ Parameters are float32 master weights, cast to the compute dtype at use
 (`models/blocks.py`); `reset_parameters(generator)` draws them from the JAX
 package's initial distributions.
 
-Not ported: the space-to-depth packed layouts (`packed_*`), which exist
-for TPU lane fill; they raise.
+The space-to-depth packed layouts (`cfg.packed_stem`, `packed_interior`,
+`packed_p3`; `models/packed.py`) run the same math on packed maps with the
+same parameters: the stem on the 4x-packed image, (B, S/4, S/4, 48) NHWC
+from the host (a (B, S, S, 3) image is packed on the device), then with
+`packed_interior` the 160x160 stage 2x2-packed, and with `packed_p3` the
+80x80 stage too, whose FPN upsample is a channel tile and whose head input
+is unpacked once. Under a row-block mesh (`--spatial`) or a model mesh the
+packed layouts are not ported; the CLI refuses them.
 """
 
 from __future__ import annotations
@@ -41,6 +47,14 @@ from yolo_from_scratch_tpu_torch.models.blocks import (
     pred_conv,
     uniform_fan_in_,
     upsample_nearest_2x,
+)
+from yolo_from_scratch_tpu_torch.models.packed import (
+    PACK_FACTOR,
+    GPackedConvBNSiLU,
+    PackedC3,
+    PackedConvBNSiLU,
+    pack_s2d,
+    unpack_nchw,
 )
 from yolo_from_scratch_tpu_torch.parallel.mesh import (
     level_blocks,
@@ -122,37 +136,56 @@ class YOLO(nn.Module):
 
     def __init__(self, cfg: YoloConfig, device=None):
         super().__init__()
-        if cfg.packed_stem or cfg.packed_interior or cfg.packed_p3:
-            raise NotImplementedError(
-                "packed_* layouts are TPU lane-fill layouts and are not "
-                "ported; checkpoints are interchangeable with the unpacked "
-                "layout")
         self.cfg = cfg
         dt = compute_dtype(cfg)
         kw = dict(dtype=dt, device=device)
         cs, c3, c4, c5 = cfg.c_stem, cfg.c_p3, cfg.c_p4, cfg.c_p5
         r1, r2 = cfg.repeats(1), cfg.repeats(2)
+        stem, interior = cfg.packed_stem, cfg.packed_interior
+        p3 = cfg.packed_p3
 
-        # backbone
-        self.stem0 = ConvBNSiLU(3, cs // 2, 3, 2, use_bias=True, **kw)
-        self.stem1 = ConvBNSiLU(cs // 2, cs, 3, 2, use_bias=True, **kw)
-        self.bb_p3_c3a = C3(cs, cs, r1, **kw)
-        self.bb_p3_down = ConvBNSiLU(cs, c3, 3, 2, use_bias=True, **kw)
-        self.bb_p3_c3b = C3(c3, c3, r2, **kw)
-        self.bb_p4_down = ConvBNSiLU(c3, c4, 3, 2, use_bias=True, **kw)
+        def g(cin, cout, k, s, fo=2, bias=False):  # a conv on a 2-packed map
+            return GPackedConvBNSiLU(cin, cout, k, s, 2, fo, use_bias=bias,
+                                     **kw)
+
+        # backbone; the packed modules keep the unpacked ones' names,
+        # parameters and registration order
+        if stem:
+            self.stem0 = PackedConvBNSiLU(3, cs // 2, PACK_FACTOR, **kw)
+            self.stem1 = (g(cs // 2, cs, 3, 2, bias=True) if interior else
+                          PackedConvBNSiLU(cs // 2, cs, 2, **kw))
+        else:
+            self.stem0 = ConvBNSiLU(3, cs // 2, 3, 2, use_bias=True, **kw)
+            self.stem1 = ConvBNSiLU(cs // 2, cs, 3, 2, use_bias=True, **kw)
+        if interior:
+            self.bb_p3_c3a = PackedC3(cs, cs, r1, **kw)
+            self.bb_p3_down = g(cs, c3, 3, 2, 2 if p3 else 1, bias=True)
+        else:
+            self.bb_p3_c3a = C3(cs, cs, r1, **kw)
+            self.bb_p3_down = ConvBNSiLU(cs, c3, 3, 2, use_bias=True, **kw)
+        if p3:
+            self.bb_p3_c3b = PackedC3(c3, c3, r2, **kw)
+            self.bb_p4_down = g(c3, c4, 3, 2, 1, bias=True)
+        else:
+            self.bb_p3_c3b = C3(c3, c3, r2, **kw)
+            self.bb_p4_down = ConvBNSiLU(c3, c4, 3, 2, use_bias=True, **kw)
         self.bb_p4_c3 = C3(c4, c4, r2, **kw)
         self.bb_p5_down = ConvBNSiLU(c4, c5, 3, 2, use_bias=True, **kw)
         self.bb_p5_c3 = C3(c5, c5, r1, **kw)
         self.sppf = SPPF(c5, c5, **kw)
         # FPN top-down
         self.lateral_p4 = ConvBNSiLU(c4, c4, 1, **kw)
-        self.lateral_p3 = ConvBNSiLU(c3, c3, 1, **kw)
+        self.lateral_p3 = (g(c3, c3, 1, 1) if p3 else
+                           ConvBNSiLU(c3, c3, 1, **kw))
         self.reduce_p5_for_p4 = ConvBNSiLU(c5, c4, 1, **kw)
         self.merge_p4 = C3(2 * c4, c4, r1, **kw)
         self.reduce_p4_for_p3 = ConvBNSiLU(c4, c3, 1, **kw)
-        self.merge_p3 = C3(2 * c3, c3, r1, **kw)
+        self.merge_p3 = (PackedC3(2 * c3, c3, r1,
+                                  in_segments=((2, c3), (2, c3)), **kw)
+                         if p3 else C3(2 * c3, c3, r1, **kw))
         # PANet bottom-up
-        self.downsample_p3_to_p4 = ConvBNSiLU(c3, c3, 3, 2, **kw)
+        self.downsample_p3_to_p4 = (g(c3, c3, 3, 2, 1) if p3 else
+                                    ConvBNSiLU(c3, c3, 3, 2, **kw))
         self.panet_merge_p4 = C3(c3 + c4, c4, r1, **kw)
         self.downsample_p4_to_p5 = ConvBNSiLU(c4, c4, 3, 2, **kw)
         self.panet_merge_p5 = C3(c4 + c5, c5, r1, **kw)
@@ -182,15 +215,24 @@ class YOLO(nn.Module):
     def forward(self, x, train: bool = False):
         """Head outputs for NHWC x at any multiple of 32 (the multi-scale
         trainer's buckets share one model); their grids must be the
-        input's size / stride. On a row block (`--spatial N`, inside
-        `data_parallel` with a 2-D mesh) x holds this rank's block of the
-        image's rows, and each grid its block of the grid's rows
-        (`parallel/mesh.py::level_blocks`: size / N and gs / N where the
-        blocks are equal)."""
-        size = x.shape[2]
+        input's size / stride. Under `cfg.packed_stem` x is the
+        4x-packed image (B, S/4, S/4, 48), or a (B, S, S, 3) one, packed
+        here. On a row block (`--spatial N`, inside `data_parallel` with
+        a 2-D mesh) x holds this rank's block of the image's rows, and
+        each grid its block of the grid's rows (`parallel/mesh.py::
+        level_blocks`: size / N and gs / N where the blocks are
+        equal)."""
+        cfg = self.cfg
         mesh = spatial_mesh()
+        if mesh is not None and cfg.packed_stem:
+            raise ValueError("the packed layouts on a row block (--spatial) "
+                             "are not ported")
         n_space = mesh.n_space if mesh is not None else 1
-        x = x.to(compute_dtype(self.cfg)).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        x = x.to(compute_dtype(cfg))
+        if cfg.packed_stem and x.shape[-1] == 3:
+            x = pack_s2d(x, PACK_FACTOR)  # a pixel image, packed here
+        size = x.shape[2] * (PACK_FACTOR if cfg.packed_stem else 1)
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
 
         x = self.stem1(self.stem0(x, train), train)
         x = self.bb_p3_down(self.bb_p3_c3a(x, train), train)
@@ -206,8 +248,16 @@ class YOLO(nn.Module):
         p4_fpn = self.merge_p4(
             torch.cat([upsample_nearest_2x(p5_red), p4_lateral], dim=1), train)
         p4_red = self.reduce_p4_for_p3(p4_fpn, train)
-        p3_fpn = self.merge_p3(
-            torch.cat([upsample_nearest_2x(p4_red), p3_lateral], dim=1), train)
+        if cfg.packed_p3:
+            # the 2x nearest upsample in the 2x2-packed layout: every phase
+            # of a packed cell reads the same source cell, a channel tile
+            up = torch.cat([p4_red] * 4, dim=1)
+            p3_fpn = self.merge_p3(torch.cat([up, p3_lateral], dim=1), train)
+            p3_head_in = unpack_nchw(p3_fpn, 2)
+        else:
+            p3_fpn = p3_head_in = self.merge_p3(
+                torch.cat([upsample_nearest_2x(p4_red), p3_lateral], dim=1),
+                train)
 
         p3_down = self.downsample_p3_to_p4(p3_fpn, train)
         p4_panet = self.panet_merge_p4(torch.cat([p3_down, p4_fpn], dim=1),
@@ -218,7 +268,7 @@ class YOLO(nn.Module):
         p5_panet = self.panet_merge_p5(
             torch.cat([p4_down, p5_backbone], dim=1), train)
 
-        outs = [self.head_p3(p3_fpn, train), self.head_p4(p4_panet, train),
+        outs = [self.head_p3(p3_head_in, train), self.head_p4(p4_panet, train),
                 self.head_p5(p5_panet, train)]
         for out, stride in zip(outs, STRIDES):
             gs = size // stride

@@ -52,9 +52,17 @@ def augment_draws(generator, b: int, jitter: bool = True):
     return do_flip, gain, bias
 
 
-def flip_images_lr(imgs):
-    """Horizontal flip of (..., H, W, C) images."""
-    return torch.flip(imgs, dims=(-2,))
+def flip_images_lr(imgs, packed: bool = False, f: int = 4):
+    """Horizontal flip of (..., H, W, C) images. On a space-to-depth packed
+    batch (`models/packed.py`: channel (a*f + b)*C + c for pixel phase (a,
+    b)) the flip of the packed W axis also reverses the column phase b
+    within the channels."""
+    x = torch.flip(imgs, dims=(-2,))
+    if not packed:
+        return x
+    *lead, h, w, cc = x.shape
+    x = x.reshape(*lead, h, w, f, f, cc // (f * f)).flip(-2)
+    return x.reshape(*lead, h, w, cc)
 
 
 def flip_targets_lr(t, x_axis: int):
@@ -75,18 +83,18 @@ def _jitter(images, gain, bias):
 
 
 def augment_batch(images, targets, do_flip, gain=None, bias=None,
-                  anchor_free: bool = False):
+                  anchor_free: bool = False, packed: bool = False):
     """Per-image hflip of images and dense targets, then brightness and
     contrast jitter where `gain` and `bias` are given.
 
     Args:
-        images: (B, H, W, C) float32 in [0, 1].
+        images: (B, H, W, C) float32 in [0, 1], packed or not (`packed`).
         targets: [t_p3, t_p4, t_p5] dense maps with a batch axis.
         do_flip: (B,) bool; gain, bias: (B,) float32 or None.
 
     Returns (images, targets)."""
     images = torch.where(do_flip[:, None, None, None],
-                         flip_images_lr(images), images)
+                         flip_images_lr(images, packed), images)
     x_axis = -2 if anchor_free else -3
     out_targets = []
     for t in targets:
@@ -96,19 +104,19 @@ def augment_batch(images, targets, do_flip, gain=None, bias=None,
 
 
 def augment_compact_batch(images, labels, valid, do_flip, gain=None,
-                          bias=None):
+                          bias=None, packed: bool = False):
     """`augment_batch` for compact labels (the anchor-free compact path,
     whose TAL reads GT lists, and the sparse anchor loss): hflip of images
     and cx -> 1 - cx on valid rows, then the jitter.
 
     Args:
-        images: (B, H, W, C) float32.
+        images: (B, H, W, C) float32, packed or not (`packed`).
         labels: (B, K, 5) [class, cx, cy, w, h].
         valid: (B, K) bool row mask (flip-invariant).
 
     Returns (images, labels)."""
     images = torch.where(do_flip[:, None, None, None],
-                         flip_images_lr(images), images)
+                         flip_images_lr(images, packed), images)
     cx = torch.where(do_flip[:, None] & valid, 1.0 - labels[..., 1],
                      labels[..., 1])
     labels = torch.cat([labels[..., 0:1], cx[..., None], labels[..., 2:]],
@@ -125,7 +133,8 @@ def make_device_augment(cfg, seed: int = 0, jitter: bool = True):
     an upload it captured once.
 
     `jitter=False` is the flip alone: photometric jitter is label noise
-    where the class is carried by colour."""
+    where the class is carried by colour. The images are packed where
+    `cfg.packed_stem` is set."""
     anchor_free = cfg.head_type == "anchor_free"
 
     def aug(step, images, targets, draws=None):
@@ -133,6 +142,6 @@ def make_device_augment(cfg, seed: int = 0, jitter: bool = True):
             draws = [upload(t, images.device) for t in augment_draws(
                 step_generator(seed, step), images.shape[0], jitter=jitter)]
         return augment_batch(images, targets, *draws,
-                             anchor_free=anchor_free)
+                             anchor_free=anchor_free, packed=cfg.packed_stem)
 
     return aug

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from yolo_from_scratch_tpu_torch.models.packed import pack_s2d, unpack_s2d
+
 MOSAIC_P = 0.5  # the host path's (data/dataset.py __getitem__)
 
 
@@ -43,11 +45,13 @@ def mosaic_draws(generator, b: int):
 
 
 def mosaic_compact_batch(images, labels, counts, min_box, do, idx,
-                         source=None):
+                         source=None, packed: bool = False):
     """Per-image 4-mosaic of a batch with compact labels.
 
     Args:
-        images: (B, S, S, 3) float32 in [0, 1].
+        images: (B, S, S, 3) float32 in [0, 1], or with `packed` the
+            space-to-depth packed layout (`models/packed.py`), which is
+            unpacked, composed in pixel space and packed again.
         labels: (B, K, 5) float32 [class, cx, cy, w, h].
         counts: (B,) valid-row counts.
         min_box: floor on the scaled w and h (use 2 / img_size).
@@ -64,14 +68,18 @@ def mosaic_compact_batch(images, labels, counts, min_box, do, idx,
     sources' padding (`assign_targets_device_masked_batch` takes it).
     """
     k = labels.shape[1]
-    down = _down2(images)
+    pixels = unpack_s2d if packed else (lambda t: t)
+    down = _down2(pixels(images))
     if source is None:
         src_down, src_labels, src_counts = down, labels, counts
     else:
-        src_down, src_labels, src_counts = _down2(source[0]), *source[1:]
+        src_down, src_labels, src_counts = (_down2(pixels(source[0])),
+                                            *source[1:])
     canvas = torch.cat([torch.cat([down, src_down[idx[0]]], dim=2),
                         torch.cat([src_down[idx[1]], src_down[idx[2]]],
                                   dim=2)], dim=1)
+    if packed:
+        canvas = pack_s2d(canvas)
     images_out = torch.where(do[:, None, None, None], canvas, images)
 
     ar = torch.arange(k, device=labels.device)

@@ -230,9 +230,12 @@ def shard_model_(model, mesh: Mesh | None, min_size: int = MIN_SHARD_SIZE):
     becomes its rows, and each conv that holds them gathers its output
     over `mesh`'s model group (`ConvBNSiLU.tp`, a prediction conv's `tp`).
     `model.tp_mesh` and `model.tp_keys` record the cut. Nothing changes
-    without a model axis. Returns `model`."""
+    without a model axis. Returns `model`. A packed model (`cfg.
+    packed_stem`) is not cut yet (ROADMAP A10b): it raises."""
     if mesh is None or mesh.n_model == 1:
         return model
+    if getattr(getattr(model, "cfg", None), "packed_stem", False):
+        raise ValueError("--model-parallel of a packed model is not ported")
     state = model.state_dict()
     keys = sharded_keys(state, mesh.n_model, min_size)
     for name, module, weight in _sharded_convs(model):

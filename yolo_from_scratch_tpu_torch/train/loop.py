@@ -310,7 +310,7 @@ def _fit_epochs(state, ema, schedule, eval_step, val_loader, cfg, device,
 
 def restore_train_state(ckpt_path, learning_rate=1e-2, *, device,
                         weight_decay: float = 0.0, compute_dtype=None,
-                        mesh=None):
+                        mesh=None, layout=None):
     """Rebuild a train state from a checkpoint of either package for
     `--resume` (the JAX package's `restore_train_state`). Returns (state,
     cfg, start_epoch, ema_state_dict):
@@ -327,12 +327,16 @@ def restore_train_state(ckpt_path, learning_rate=1e-2, *, device,
       checkpoint's epoch + 1.
 
     cfg is the checkpoint's (it governs the model, the loss and the data),
-    with `compute_dtype` when given. On a model mesh the model is cut
+    with `compute_dtype` when given and the packed layout `layout` (the
+    `packed_*` fields; a runtime knob no checkpoint holds: the weights of
+    either layout load into the other). On a model mesh the model is cut
     (`create_train_state(mesh=)`) and takes its rows of the checkpoint's
     canonical weights and moments; `ema_state_dict` stays full size."""
     model_sd, cfg, meta = load_checkpoint(ckpt_path)
     if compute_dtype is not None:
         cfg = cfg.with_(compute_dtype=compute_dtype)
+    if layout:
+        cfg = cfg.with_(**layout)
     extra = meta.get("extra") or {}
     state = create_train_state(cfg, learning_rate, device=device,
                                weight_decay=weight_decay, mesh=mesh)

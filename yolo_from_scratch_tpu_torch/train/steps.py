@@ -582,7 +582,9 @@ def _make_expand(cfg: YoloConfig, compact_targets: bool, device=None, *,
     maps, built whole from the whole labels, are cut to the same rows;
     with the mosaic the images are whole and cut after it. Under a `mesh`
     whose data shards differ, the mosaic draws its partners from the
-    global batch (`gather_batch`, uint8 images)."""
+    global batch (`gather_batch`, uint8 images). Under `cfg.packed_stem`
+    the images are the packed batch: the mosaic composes in pixel space
+    and packs again, the flip reverses the column phases too."""
     if mosaic and not compact_targets:
         raise ValueError("device mosaic requires compact targets (it "
                          "transforms raw labels, not dense maps)")
@@ -610,12 +612,13 @@ def _make_expand(cfg: YoloConfig, compact_targets: bool, device=None, *,
                 source = (_normalize(source[0]), *source[1:])
             images, labels, valid = mosaic_compact_batch(
                 images, labels, counts, 2.0 / cfg.img_size, *draws["mosaic"],
-                source=source)
+                source=source, packed=cfg.packed_stem)
         else:
             valid = prefix_valid(counts, labels.shape[1])
         if label_augment:
-            images, labels = augment_compact_batch(images, labels, valid,
-                                                   *draws["augment"])
+            images, labels = augment_compact_batch(
+                images, labels, valid, *draws["augment"],
+                packed=cfg.packed_stem)
         if whole:
             images = space_rows(mesh, images, grid).contiguous()
         if sparse:
