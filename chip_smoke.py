@@ -310,11 +310,32 @@ and prints no result):
    `--packed p3` training 2 steps with `--val-det`, both heads (K2 held to
    the gated convs, K1 launched), a request from each checkpoint;
    `--packed p3 --stream` one epoch from a packed cache; `--packed stem
-   --data-parallel` at a world of one; `--packed p3 --int8` exits 2; (d)
+   --data-parallel` at a world of one; (d)
    packed against unpacked on the card: the stem's and the whole
    forward's device ms at b8 bf16, an eager step's device and host-clock
    ms, the graphed chunk's img/s at N=4, a B=32 `BatchPredictor` call's
    p50, each beside the card's name and power limit.
+27. The packed layouts' compositions, 's' @640 nc=80 bf16 on phase 17's
+   checkpoints and phase 16's data: (a) Q2 at the packed 2x2 convs padded
+   (1, 0) of each layout (4 shapes), B=1 and 32, bit-equal to its plain
+   version, two runs bit-equal, its device ms beside the bound, the bf16
+   F.conv2d and torch._int_mm on the im2col; (b) `--packed p3 --int8`,
+   both heads: the CLI's request and a B=32 `BatchPredictor` call (Q1,
+   Q2, K1 counted, and from the profiler), probabilities within 2e-3 of
+   the unpacked int8 and the packed float paths, request p50 and card
+   time beside the unpacked int8 path's; (c) packed p3 artifacts, float
+   and int8, exported at B=8 and served in fresh interpreters, equal to
+   the live packed predictor, K1 and Q2 in the profiler; (d) the packed
+   p3 step on row blocks, 2 and 3 gloo ranks at 640 (P5 rows 10 / 10 and
+   7 / 7 / 6), float32 against one process at phase 22's and 25's
+   tolerances, bf16 with K2 on the packed C3a convs' haloed tiles, K2 at
+   those tiles against its plain version and the library call; (e) the
+   packed p3 step on a 1 x 2 model mesh against one process at phase
+   23's tolerances, K2's launches at the global shapes, the share of
+   parameters and moments a rank holds; (f) the CLI's `--packed-stem
+   --export` (its artifact serving a request) and `--packed-interior
+   --model-parallel 2` and `--packed stem --spatial 2` in two processes
+   each, exit 0 (`--packed p3 --int8` ran in (b)).
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
@@ -328,14 +349,19 @@ on phase 17's compact paths, on phase 18's stream paths, on phase
 model-parallel paths, on phase 24's world compositions (K2's
 `mosaic_launches`, `stream_world_launches` and
 `multiscale_world_launches`, K1's `multiscale_world_launches`) and on
-phase 25's unequal blocks (`uneven_launches`) and on phase 26's packed
-paths (`packed_launches`), K2 also
+phase 25's unequal blocks (`uneven_launches`), on phase 26's packed
+paths (`packed_launches`) and on phase 27's packed compositions
+(`packed_int8_launches`, `packed_artifact_launches`,
+`packed_mesh_launches`), K2 also
 its times and bounds at phase 26 (b)'s packed C3a conv (`packed_c3a`),
 phase 22's
 haloed tiles, phase 23's global shapes, phase 24 (c)'s tiles
 (`multiscale_world_tiles`) and phase 25 (b)'s (`uneven_tiles`); Q1 and Q2
 their launches on phase 20's main path and in the artifacts, with their
-times, bounds and yardsticks summed over the 24 shapes at B=32); the last
+times, bounds and yardsticks summed over the 24 shapes at B=32, and on
+phase 27's packed paths; Q2 its times at phase 27 (a)'s packed 2x2
+shapes (`packed_2x2`) and K2 at phase 27 (d)'s packed haloed tiles
+(`packed_spatial_tiles`)); the last
 line is `{"ok": true, "device": {...}}`.
 """
 
@@ -374,6 +400,7 @@ from yolo_from_scratch_tpu_torch.data.letterbox import (
     letterbox_device_bucketed,
     letterbox_image,
     letterbox_params,
+    pack_s2d_host,
 )
 from yolo_from_scratch_tpu_torch.device import cuda_device, tf32_disabled
 from yolo_from_scratch_tpu_torch.infer.detections import detections_per_image
@@ -387,7 +414,7 @@ from yolo_from_scratch_tpu_torch.infer.predict import (
 from yolo_from_scratch_tpu_torch.kernels.build import build, load_library
 from yolo_from_scratch_tpu_torch.models import anchor_free
 from yolo_from_scratch_tpu_torch.models.blocks import ConvBNSiLU
-from yolo_from_scratch_tpu_torch.models.packed import pack_s2d, pack_s2d_host
+from yolo_from_scratch_tpu_torch.models.packed import pack_s2d
 from yolo_from_scratch_tpu_torch.models.yolo import YOLO, cast_convs_
 from yolo_from_scratch_tpu_torch.ops import conv_bwd
 from yolo_from_scratch_tpu_torch.ops import nms as nms_plain
@@ -426,6 +453,7 @@ from yolo_from_scratch_tpu_torch.utils.synth import make_dataset
 from yolo_from_scratch_tpu_torch.utils.timing import (
     device_ms,
     kernel_ms,
+    kernel_trace,
     median_ms,
 )
 
@@ -665,6 +693,21 @@ PK_K2 = {"anchor": (16, 20), "anchor_free": (20, 24)}
 PK_K2_CASE = (8, 80, 80, torch.bfloat16)  # (b) the packed C3a conv at 640
 PK_TIMED = 10         # (d) host-clock steps and graphed replays, each turn
 PK_CALLS = 5          # (d) timed B=32 BatchPredictor calls
+# phase 27: the packed layouts' compositions
+# (a) the packed 2x2 (1, 0) int8 convs at 640: stem1 under stem (64 -> 32
+# @160), bb_p3_down under interior (128 -> 128 @80), bb_p4_down and
+# downsample_p3_to_p4 under p3 (512 -> 256 and 512 -> 128 @40)
+PC_Q2_SHAPES = 4
+PC_REQUESTS = 10      # (b) timed requests a path
+# (d) --spatial: (ranks, image size), P5 rows 10 / 10 and 7 / 7 / 6
+PC_SPACE = ((2, 640), (3, 640))
+# (d) K2 at the packed C3a conv's haloed tiles (64 channels @80 wide), B=4
+# a rank: blocks of 40 rows (640 / 2), of 28 and 24 (640 / 3), one halo
+# row on each side
+PC_K2_CASES = tuple((4, h, 80, torch.bfloat16) for h in (42, 30, 26))
+# (f) the CLI's mesh compositions, two processes each
+PC_CLI_MESH = {"model": ("--packed-interior", "--model-parallel", "2"),
+               "space": ("--packed", "stem", "--spatial", "2")}
 
 
 def log(msg):
@@ -844,8 +887,10 @@ def phase_slice(dev):
 
     mask_ms, scan_ms = nms_split_ms(kernel)
     ev_ms = median_ms(kernel)
+    # the plain walk syncs each step (~1.5 s a call): three calls, as
+    # phases 13 and 16 time it
     p_ms = median_ms(lambda: nms_plain.nms_keep_mask(
-        off, scores[None], IOU, presorted=True))
+        off, scores[None], IOU, presorted=True), runs=3, warmup=1)
     valid = scores > nms_plain.NEG_INF / 2
     n_valid = int(valid.sum())
     keep = nms_cuda.nms_keep_mask_batched(off, scores[None], IOU,
@@ -860,7 +905,8 @@ def phase_slice(dev):
         f"{int(keep.sum())} kept): kernel {k_ms:.4f} ms device (mask pass "
         f"{mask_ms:.4f} + scan {scan_ms:.4f}; profiler, {TIMING_RUNS} "
         f"calls), {ev_ms:.4f} ms a call with its launches (CUDA events), "
-        f"plain {p_ms:.4f} ms; H100 bound {bound[0]:.6f} ms ({bound[1]}, "
+        f"plain {p_ms:.4f} ms (median of 3); H100 bound {bound[0]:.6f} ms "
+        f"({bound[1]}, "
         f"the walk's {n_iou} IoU tests); the mask pass takes "
         f"{roofline.nms_mask_pass_tests(valid)} tests over the whole card, "
         f"the scan one chunk of 64 ranks after another on one SM")
@@ -3427,7 +3473,7 @@ def _q2_geometry(lib, b, k, s, cin, cout, h, w, sms):
     tiles that cover the output and a grid no larger than the work."""
     geom = quant.conv_geometry(lib, b, h, w, quant.padded_channels(cin),
                                cout, k, s, sms)
-    ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
     want_n = max(16, 1 << (min(cout, 256) - 1).bit_length())
     ok = (geom.nt == want_n and geom.n_tiles == -(-cout // geom.nt)
           and geom.smem <= 232448
@@ -3746,32 +3792,35 @@ def _served_checkpoint(ckpt, head, out):
     return out
 
 
-def phase_export(dev, ckpts, yaml_path, workdir):
+def start_export(ckpts, yaml_path, workdir, layout=None,
+                 heads=("anchor", "anchor_free")):
     """20 (c): `--export` through the CLI at the default batch of 8, float
-    and --int8, for each head, of phase 17's checkpoints with their gate
-    biases raised (`_served_checkpoint`); each artifact loaded and served
-    in a fresh interpreter (no model module imported there), K1's and Q2's
-    launches in it counted by the profiler, its detections against the
-    live BatchPredictor's on the same staged batch. Returns {artifact: its
-    kernel counts}."""
-    from yolo_from_scratch_tpu_torch.infer.artifact import stage_images
+    and --int8, for each of `heads`, of phase 17's checkpoints with their
+    gate biases raised (`_served_checkpoint`), one export after another
+    (each timed with the card and host to itself), then each artifact
+    started in a fresh interpreter (`ARTIFACT_SCRIPT`, which times
+    nothing), all at once. `layout` (a key of PK_LAYOUTS; 27 (c)): the
+    packed model's artifacts, which take the 4x-packed batch their loader
+    packs on the host. Returns what `check_export` takes."""
     from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
 
-    ckpts = {head: _served_checkpoint(path, head,
+    ckpts = {head: _served_checkpoint(ckpts[head], head,
                                       workdir / f"served_{head}.ckpt")
-             for head, path in ckpts.items()}
+             for head in heads}
+    flags = ["--packed", layout] if layout else []
+    tag = f"{layout}_" if layout else ""
     config = load_dataset_yaml(str(yaml_path))
     images = [str(p) for p in sorted(Path(config["val"]).glob("*.jpg"))]
     images = images[:EXPORT_BATCH]
     jobs = {}
-    for head in ("anchor", "anchor_free"):
+    for head in heads:
         for int8 in (False, True):
-            name = f"{head}{'_int8' if int8 else ''}"
+            name = f"{tag}{head}{'_int8' if int8 else ''}"
             path = workdir / f"{name}.yexp"
             t0 = time.perf_counter()
             rc, out = _cli(([str(yaml_path)] if int8 else [])
                            + [str(ckpts[head]), "--export", str(path),
-                              "--dtype", "bfloat16"]
+                              "--dtype", "bfloat16", *flags]
                            + (["--int8"] if int8 else []))
             lines = out.strip().splitlines()
             want = (f"  batch {EXPORT_BATCH}, img {IMG_SIZE}, classes "
@@ -3783,12 +3832,26 @@ def phase_export(dev, ckpts, yaml_path, workdir):
             log(f"--export {name}: {time.perf_counter() - t0:.1f} s, "
                 f"{lines[-2].split('(')[-1].rstrip(')')}; {lines[-1].strip()}")
             jobs[name] = (path, workdir / f"{name}.json")
-    t0 = time.perf_counter()
     procs = {name: subprocess.Popen(
         [sys.executable, "-c", ARTIFACT_SCRIPT, str(path), str(out),
          *images], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, cwd=Path(__file__).resolve().parent)
         for name, (path, out) in jobs.items()}
+    _STARTED.extend(procs.values())
+    return dict(ckpts=ckpts, config=config, images=images, jobs=jobs,
+                procs=procs, layout=layout, t0=time.perf_counter())
+
+
+def check_export(dev, started):
+    """20 (c), 27 (c): join `start_export`'s artifacts, each served in its
+    fresh interpreter (no model module imported there): K1's and Q2's
+    launches in it counted by the profiler, its detections against the
+    live BatchPredictor's on the same staged batch. Returns {artifact: its
+    kernel counts}."""
+    from yolo_from_scratch_tpu_torch.infer.artifact import stage_images
+
+    ckpts, config, images, jobs, procs, layout = (started[k] for k in (
+        "ckpts", "config", "images", "jobs", "procs", "layout"))
     for name, proc in procs.items():
         try:
             _, err = proc.communicate(timeout=600)
@@ -3798,14 +3861,18 @@ def phase_export(dev, ckpts, yaml_path, workdir):
             raise AssertionError(f"artifact {name} in a fresh interpreter: "
                                  f"rc {proc.returncode}\n{err[-3000:]}")
     log(f"the {len(jobs)} artifacts served in fresh interpreters, in "
-        f"parallel: {time.perf_counter() - t0:.1f} s")
+        f"parallel: {time.perf_counter() - started['t0']:.1f} s")
     counts = {}
     for name, (path, out) in jobs.items():
         res = json.loads(Path(out).read_text())
-        head = "anchor_free" if name.startswith("anchor_free") else "anchor"
+        head = "anchor_free" if "anchor_free" in name else "anchor"
         int8 = name.endswith("int8")
         state, cfg, _ = load_checkpoint(ckpts[head])
-        cfg = cfg.with_(compute_dtype="bfloat16")
+        cfg = cfg.with_(compute_dtype="bfloat16",
+                        **PK_LAYOUTS.get(layout, {}))
+        if res["meta"]["packed_stem"] is not bool(layout):
+            raise AssertionError(f"artifact {name}: header packed_stem "
+                                 f"{res['meta']['packed_stem']}")
         n_quant = _int8_shapes(cfg)[1] if int8 else 0
         c = res["counts"]
         if res["bad_modules"] or c != {"mask": 1, "scan": 1, "q1": n_quant,
@@ -3817,7 +3884,8 @@ def phase_export(dev, ckpts, yaml_path, workdir):
             state, cfg, device=dev,
             quantize_calib=(cli._train_calibration_images(config, cfg)
                             if int8 else None))
-        staged = stage_images(images, IMG_SIZE, EXPORT_BATCH, dev)
+        staged = stage_images(images, IMG_SIZE, EXPORT_BATCH, dev,
+                              packed=bool(layout))
         want = detections_per_image(
             *(t.cpu() for t in live.postprocess(*staged)), len(images))
         got = res["dets"]
@@ -4611,31 +4679,20 @@ sys.exit(rc)
 """
 
 
-def phase_mesh_cli(dev, workdir, yaml_path, card, axis, what):
-    """`--data-parallel --distributed` with the mesh flag of `axis`
-    ("space": `--spatial 2`, "model": `--model-parallel 2`) through the
-    CLI, one bf16 epoch of the 16 train images with --val-det, K2 on:
-    each head in two processes on the card (1 x 2, 2 steps), and the
-    anchor head in four (2 x 2; one step under --spatial, 2 under
-    --model-parallel), the three runs at once. Every rank prints the 2-D
-    banner (and, on a model mesh, JAX's sharded-fraction line) and the
-    same epoch line, K1's launches rise on every rank and K2's equal the
-    gated convs; rank 0's checkpoint, at full size, serves one request
-    through K1 in a one-process `Predictor`. Returns (K1, K2) launches
-    summed over every rank and the requests."""
-    from yolo_from_scratch_tpu_torch.parallel.mesh import Mesh
-    from yolo_from_scratch_tpu_torch.parallel.tensor import (
-        shard_model_,
-        sharded_fraction,
-    )
+def _mesh_flag(axis):
+    """(the CLI flag, N) of a mesh axis: "space" `--spatial 2`, "model"
+    `--model-parallel 2`."""
+    return {"space": ("--spatial", SP_SPACE),
+            "model": ("--model-parallel", TP_MODEL)}[axis]
 
-    flag, n = {"space": ("--spatial", SP_SPACE),
-               "model": ("--model-parallel", TP_MODEL)}[axis]
+
+def start_mesh_cli(workdir, yaml_path, axis):
+    """Start `check_mesh_cli`'s three CLI runs at once (their ranks share
+    the card and its host): (the started runs, their start time)."""
+    flag, n = _mesh_flag(axis)
     repo = str(Path(__file__).resolve().parent)
     env = dict(os.environ, YOLO_FUSED_CONV_BWD="1", PYTHONPATH=os.pathsep.join(
         p for p in (repo, os.environ.get("PYTHONPATH")) if p))
-    k1_total = k2_total = 0
-    # the three runs at once: their ranks share the card and its host
     t0 = time.perf_counter()
     started = []
     for head, n_data, steps in (
@@ -4650,6 +4707,31 @@ def phase_mesh_cli(dev, workdir, yaml_path, card, axis, what):
         started.append((head, n_data, steps, run_dir, _start_ranks(
             MESH_CLI_SCRIPT, lambda r, args=args: args, n_data * n,
             run_dir, env)))
+    return started, t0
+
+
+def check_mesh_cli(dev, card, started, axis, what):
+    """`--data-parallel --distributed` with the mesh flag of `axis`
+    ("space": `--spatial 2`, "model": `--model-parallel 2`) through the
+    CLI, one bf16 epoch of the 16 train images with --val-det, K2 on:
+    each head in two processes on the card (1 x 2, 2 steps), and the
+    anchor head in four (2 x 2; one step under --spatial, 2 under
+    --model-parallel), the three runs at once (`start_mesh_cli`, which
+    starts them beside the phase's rank steps). Every rank prints the 2-D
+    banner (and, on a model mesh, JAX's sharded-fraction line) and the
+    same epoch line, K1's launches rise on every rank and K2's equal the
+    gated convs; rank 0's checkpoint, at full size, serves one request
+    through K1 in a one-process `Predictor`. Returns (K1, K2) launches
+    summed over every rank and the requests."""
+    from yolo_from_scratch_tpu_torch.parallel.mesh import Mesh
+    from yolo_from_scratch_tpu_torch.parallel.tensor import (
+        shard_model_,
+        sharded_fraction,
+    )
+
+    flag, n = _mesh_flag(axis)
+    started, t0 = started
+    k1_total = k2_total = 0
     for head, n_data, steps, run_dir, procs in started:
         world = n_data * n
         outs = _join_ranks(procs, f"{what} {head} {n_data}x{n}")
@@ -5682,8 +5764,9 @@ def phase_packed_parity(dev, stream_yaml, cache, card):
 def phase_packed_cli(dev, workdir, yaml_path, af_yaml, stream_yaml, card):
     """(c) the CLI under packing: --packed p3 training with --val-det, both
     heads, and a request from each checkpoint; --packed p3 --stream from
-    a packed cache; --packed stem --data-parallel at a world of one;
-    --packed p3 --int8 exits 2. Returns (K1 launches, K2 launches)."""
+    a packed cache; --packed stem --data-parallel at a world of one (the
+    compositions with --int8, --export and the meshes run in phase 27
+    (f)). Returns (K1 launches, K2 launches)."""
     t0 = time.perf_counter()
     os.environ["YOLO_FUSED_CONV_BWD"] = "1"
     size = ["--size", "s", "--img-size", str(IMG_SIZE), "--batch-size", "8"]
@@ -5751,13 +5834,6 @@ def phase_packed_cli(dev, workdir, yaml_path, af_yaml, stream_yaml, card):
         k2 += conv_bwd.launches
         log(f"phase 26 (c) --packed-stem --data-parallel (a world of one): "
             f"exit 0, K2 {conv_bwd.launches}")
-
-        rc, out = _cli([str(image), str(ckpts["anchor_free"]), "--packed",
-                        "p3", "--int8"])
-        if rc != 2 or "--int8" not in out:
-            raise AssertionError(f"--packed p3 --int8: rc {rc}, output:\n"
-                                 f"{out}")
-        log(f"phase 26 (c) --packed p3 --int8: exit 2, {out.strip()}")
     finally:
         os.chdir(cwd)
     log(f"phase 26 (c) took {time.perf_counter() - t0:.1f} s ({card})")
@@ -5853,6 +5929,469 @@ def phase_packed_times(dev, cache, card):
             f"device (profiler, eval){more}; {card}")
     log(f"phase 26 (d) took {time.perf_counter() - t0:.1f} s ({card})")
     return rows
+
+# ------------------------------------------------------------- phase 27
+
+
+def _packed_q2_shapes():
+    """{(k, s, pad, cin, cout, h, w): [layouts]} of the packed 2x2 convs
+    padded (1, 0) that Q2 runs at 's' @IMG_SIZE nc=80 under each layout
+    (stem0, float, left out), packed channels, from a forward on the meta
+    device."""
+    shapes = collections.defaultdict(list)
+    for layout in PK_LAYOUTS:
+        model = YOLO(_pk_cfg("anchor", layout, "bfloat16"), device="meta")
+
+        def pre_hook(mod, args, layout=layout):
+            cout, cin, kp, _ = mod._index.shape
+            if kp == 2:
+                key = (kp, mod.s_packed, mod.pad[0], cin, cout,
+                       *args[0].shape[2:])
+                shapes[key].append(layout)
+
+        for name, module in model.named_modules():
+            if hasattr(module, "repack") and name != "stem0":
+                module.register_forward_pre_hook(pre_hook)
+        with torch.no_grad():
+            model(torch.empty((1, IMG_SIZE, IMG_SIZE, 3), device="meta"))
+    return shapes
+
+
+def phase_packed_q2(dev, card):
+    """27 (a): Q2 at the packed 2x2 (1, 0) convs of each layout, B=1 and
+    B=32: Q1 and Q2 bit-equal to their plain versions (int8, the int32
+    accumulator, bf16 and float32), two runs of Q2 bit-equal, its
+    geometry; device ms of Q1 and Q2 beside the bound, and at B=32 the
+    bf16 F.conv2d of the layer and torch._int_mm on its im2col. Returns
+    ({shape: timings}, the largest bf16 error, Q2's launches here)."""
+    shapes = _packed_q2_shapes()
+    if len(shapes) != PC_Q2_SHAPES or any(k != 2 or s != 1 or pad != 1 for
+                                          k, s, pad, *_ in shapes):
+        raise AssertionError(f"packed 2x2 int8 shapes {dict(shapes)}")
+    lib = load_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    quant.conv_launches = 0
+    out, max_err = {}, 0.0
+    for i, ((k, s, pad, cin, cout, h, w), layouts) in enumerate(
+            sorted(shapes.items())):
+        for b in (1, INT8_BATCH):
+            geom = _q2_geometry(lib, b, k, s, cin, cout, h, w, sms)
+            x, q = _q_case(b, k, s, cin, cout, h, w, dev, SEED + 270 + i)
+            xq, wp, sc, bi, err, _, _ = _q_check(x, q, k, s, dev)
+            max_err = max(max_err, err)
+            runs = [torch.ops.yolo_torch.int8_conv(xq, wp, sc, bi, k, s,
+                                                   True)
+                    for _ in range(2)]
+            if not torch.equal(*runs):
+                raise AssertionError(f"Q2 at {(k, s, cin, cout, h, w)}: two "
+                                     f"runs differ")
+            inv = quant.input_inverse(q["a_scale"], torch.bfloat16)
+
+            def kernels():
+                torch.ops.yolo_torch.int8_conv(
+                    torch.ops.yolo_torch.quant_input(x, inv), wp, sc, bi, k,
+                    s, True)
+
+            per = kernel_ms(kernels, TIMING_RUNS)
+            q1 = sum(v for n, v in per.items() if "quant_input" in n) / \
+                TIMING_RUNS
+            q2 = sum(v for n, v in per.items() if "int8_conv" in n) / \
+                TIMING_RUNS
+            bound = roofline.bound_ms(*roofline.int8_conv_work(
+                b, h, w, cin, cout, k, s, 2), "int8")
+            row = dict(q1=q1, q2=q2, bound=bound[0], bound_by=bound[1])
+            line = (f"phase 27 (a) packed 2x2 (1, 0) int8 conv {cin}->{cout} "
+                    f"@{h}x{w} ({', '.join(layouts)}) B={b}: Q1 {q1:.4f} ms, "
+                    f"Q2 {q2:.4f} ms (bound {bound[0]:.4f}, {bound[1]}, "
+                    f"{bound[0] / q2:.0%}); N {geom.nt}"
+                    f"{' split' if geom.split else ''}, tile {geom.tile_h}x"
+                    f"{geom.tile_w}, chunk {geom.chunk}, {geom.stages} "
+                    f"stages, grid {geom.grid}; bit-equal to the plain "
+                    f"version, two runs bit-equal")
+            if b == INT8_BATCH:
+                xp = torch.nn.functional.pad(xq.permute(0, 3, 1, 2).float(),
+                                             (pad, k - 1 - pad) * 2)
+                cols = torch.nn.functional.unfold(xp, k)
+                a_mat = cols.permute(0, 2, 1).reshape(
+                    -1, cols.shape[1]).to(torch.int8).contiguous()
+                del cols, xp
+                b_mat = torch.zeros((cout, a_mat.shape[1]), dtype=torch.int8,
+                                    device=dev)
+                row["int_mm"] = sum(kernel_ms(
+                    lambda: torch._int_mm(a_mat, b_mat.t()),
+                    TIMING_RUNS).values()) / TIMING_RUNS
+                del a_mat
+                wf = torch.from_numpy(q["w_int8"]).permute(3, 2, 0, 1).to(
+                    dev, torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+                # the layer's input padded once, outside the timed call
+                xpad = torch.nn.functional.pad(x, (pad, k - 1 - pad) * 2)
+                row["conv_bf16"] = sum(kernel_ms(
+                    lambda: torch.nn.functional.conv2d(xpad, wf),
+                    TIMING_RUNS).values()) / TIMING_RUNS
+                del xpad
+                row["q2_plain"] = median_ms(lambda: quant.int8_conv_plain(
+                    xq, wp, sc, bi, k, s, True), runs=3, warmup=1)
+                line += (f"; yardsticks: bf16 F.conv2d {row['conv_bf16']:.4f}"
+                         f" ms, torch._int_mm on the im2col "
+                         f"{row['int_mm']:.4f} ms (profiler); plain Q2 "
+                         f"{row['q2_plain']:.3f} ms (CUDA events)")
+            out[(b, cin, cout, h, w)] = row
+            log(line + f"; {card}")
+            del x, xq
+        torch.cuda.empty_cache()
+    return out, max_err, quant.conv_launches
+
+
+def _kernel_counts(fn):
+    """(Q1, Q2, K1 mask passes) launched in one call of fn, from a trace
+    that `utils/timing.py::kernel_trace` holds whole."""
+    trace = kernel_trace(fn, 1)
+
+    def n(name):
+        return sum(c for k, (c, _) in trace.items() if name in k)
+
+    return (n("quant_input_kernel"), n("int8_conv_tma_kernel"),
+            n("nms_mask_pass"))
+
+
+def phase_packed_int8(dev, ckpts, yaml_path, card):
+    """27 (b): `--packed p3 --int8` serving of both heads on phase 17's
+    checkpoints ('s' @640 nc=80 bf16): the CLI's request and one B=32
+    int8 `BatchPredictor` call with the counts at 0 before them, the
+    kernels of one call from the profiler; the raw outputs of the B=32
+    batch bit-equal to the same model's with plain Q1 and Q2 on the card
+    (each of them is bit-equal to its plain version, so a wrong repack,
+    tiling or padding of a packed conv shows here even where the
+    probabilities sit at a prior); the probabilities against the unpacked
+    int8 path and the packed float path; request p50 and the B=32 call's
+    card time beside the unpacked int8 path's. Returns {head: (Q1, Q2, K1)
+    launches}."""
+    from torch.utils._pytree import tree_leaves
+
+    from yolo_from_scratch_tpu_torch.infer.quantize import set_plain
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    config = load_dataset_yaml(str(yaml_path))
+    val_img = str(sorted(Path(config["val"]).glob("*.jpg"))[0])
+    rng = np.random.default_rng(SEED + 27)
+    images = [rng.integers(0, 256, (IMG_SIZE, IMG_SIZE, 3), dtype=np.uint8)
+              for _ in range(INT8_BATCH)]
+    counts = {}
+    for head in ("anchor", "anchor_free"):
+        state, cfg, _ = load_checkpoint(ckpts[head])
+        cfg = cfg.with_(compute_dtype="bfloat16")
+        pcfg = cfg.with_(**PK_LAYOUTS["p3"])
+        calib = cli._train_calibration_images(config, cfg)
+        n_quant = _int8_shapes(cfg)[1]
+        conf = CONF if head == "anchor" else AF_CKPT_CONF
+        kw = dict(conf_threshold=conf, iou_threshold=IOU,
+                  max_outputs=MAX_OUTPUTS, device=dev)
+        quant.quant_launches = quant.conv_launches = nms_cuda.launches = 0
+        rc, out = _cli([val_img, str(ckpts[head]), "--packed", "p3", "--int8",
+                        "--dtype", "bfloat16"])
+        if rc != 0 or "Running inference on" not in out:
+            raise AssertionError(f"--packed p3 --int8 ({head}): rc {rc}:\n"
+                                 f"{out}")
+        qp = BatchPredictor(state, pcfg, quantize_calib=calib, **kw)
+        results = qp(images)
+        torch.cuda.synchronize()
+        counts[head] = (quant.quant_launches, quant.conv_launches,
+                        nms_cuda.launches)
+        if counts[head] != (2 * n_quant, 2 * n_quant, 2):
+            raise AssertionError(f"{head} packed int8 main path: (Q1, Q2, K1)"
+                                 f" launches {counts[head]}, want "
+                                 f"({2 * n_quant}, {2 * n_quant}, 2)")
+        _finite_nonempty(results, f"{head} packed int8 batch image")
+        prof = _kernel_counts(lambda: qp(images))
+        if prof != (n_quant, n_quant, 1):
+            raise AssertionError(f"{head} packed int8 B={INT8_BATCH} call: "
+                                 f"profiler (Q1, Q2, K1) {prof}")
+        args_p = qp.stage(images)
+        with torch.no_grad():
+            raw_k = tree_leaves(qp.model(args_p[0]))
+            set_plain(qp.model, True)
+            raw_p = tree_leaves(qp.model(args_p[0]))
+            set_plain(qp.model, False)
+        if len(raw_k) != len(raw_p) or not all(
+                torch.equal(a, b) for a, b in zip(raw_k, raw_p)):
+            raise AssertionError(f"{head} packed int8: the raw outputs differ "
+                                 f"from plain Q1 / Q2's on the card")
+        spread = [(t.float().max() - t.float().min()).item() for t in raw_k]
+        qu = BatchPredictor(state, cfg, quantize_calib=calib, **kw)
+        fp = BatchPredictor(state, pcfg, **kw)
+        args_u = qu.stage(images)
+        _, obj_q, cls_q, _ = qp.postprocess.decode(*args_p)
+        _, obj_u, cls_u, _ = qu.postprocess.decode(*args_u)
+        _, obj_f, cls_f, _ = fp.postprocess.decode(*args_p)
+        err_u = max((obj_q - obj_u).abs().max().item(),
+                    (cls_q - cls_u).abs().max().item())
+        err_f = max((obj_q - obj_f).abs().max().item(),
+                    (cls_q - cls_f).abs().max().item())
+        if max(err_u, err_f) > INT8_PROB_TOL:
+            raise AssertionError(f"{head} packed int8: probabilities differ "
+                                 f"from unpacked int8 by {err_u}, from "
+                                 f"packed float by {err_f}")
+        times = {}
+        for name, c, bp in (("packed p3 int8", pcfg, qp),
+                            ("unpacked int8", cfg, qu)):
+            single = Predictor(state, c, quantize_calib=[val_img], **kw)
+            single(val_img)
+            lat = []
+            for _ in range(PC_REQUESTS):
+                t0 = time.perf_counter()
+                single(val_img)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            times[name] = (statistics.median(lat),
+                           _busy_ms(lambda: single(val_img)),
+                           _busy_ms(lambda: bp(images)))
+            del single
+        log(f"phase 27 (b) {head} --packed p3 --int8: the CLI's request "
+            f"({out.strip().splitlines()[-1].strip()}) and one B="
+            f"{INT8_BATCH} call launched (Q1, Q2, K1) {counts[head]} times "
+            f"({n_quant} quantized convs a forward); one B={INT8_BATCH} call "
+            f"in the profiler (Q1, Q2, K1 mask pass) {prof}; the raw "
+            f"outputs ({len(raw_k)} tensors, {sum(t.numel() for t in raw_k)} "
+            f"values spanning {min(spread):.3g}-{max(spread):.3g} a tensor) "
+            f"bit-equal to plain Q1 / Q2's on the card; probabilities "
+            f"vs unpacked int8 {err_u:.3e}, vs packed float {err_f:.3e} over "
+            f"{obj_q.numel()} predictions (tol {INT8_PROB_TOL}); "
+            + "; ".join(f"{n}: request p50 {t[0]:.3f} ms (host clock, "
+                        f"{PC_REQUESTS} requests), card {t[1]:.3f} ms; B="
+                        f"{INT8_BATCH} call card {t[2]:.3f} ms (profiler)"
+                        for n, t in times.items()) + f"; {card}")
+        del qp, qu, fp
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _pc_runs(yaml_path):
+    """27 (d), (e): the dense anchor head's step on phase 22's first batch
+    of SP_BATCH images, host-packed, under packing p3: float32, and bf16
+    with K2 on; the seeded weights."""
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    cfg = _pk_cfg("anchor", "p3")
+    ds = YoloDataset(load_dataset_yaml(yaml_path)["train"], AF_NC,
+                     cfg.anchors_array, IMG_SIZE, backend="pil")
+    images, targets = ds.load_batch(range(SP_BATCH))
+    state = YOLO(cfg).reset_parameters(
+        torch.Generator().manual_seed(SEED)).state_dict()
+    runs = [dict(name=("anchor", dtype, 0), cfg=dict(
+        num_classes=AF_NC, img_size=IMG_SIZE, width_mult=cfg.width_mult,
+        depth_mult=cfg.depth_mult, head_type="anchor", compute_dtype=dtype,
+        **PK_LAYOUTS["p3"]), images=pack_s2d_host(images), targets=targets,
+        kw={}, fused=dtype == "bfloat16") for dtype in ("float32",
+                                                         "bfloat16")]
+    return runs, {"anchor": state}
+
+
+def start_packed_mesh(workdir, yaml_path):
+    """27 (d), (e), (f): start the packed p3 steps' ranks on the card
+    (`--spatial` at 640 / 2 and 640 / 3, `--model-parallel 2`) and the
+    CLI's two mesh compositions in two processes each, all at once."""
+    runs, states = _pc_runs(yaml_path)
+    started = {"runs": (runs, states), "t0": time.perf_counter()}
+    for n, _ in PC_SPACE:
+        started[("space", n)] = _start_mesh_ranks(
+            "space", n, runs, states, workdir, f"_pc{n}", UN_ENV)
+    tp_runs = [dict(r, fused=True) for r in runs]
+    started["tp_runs"] = tp_runs
+    started[("model", TP_MODEL)] = _start_mesh_ranks(
+        "model", TP_MODEL, tp_runs, states, workdir, "_pc", UN_ENV)
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(UN_ENV, YOLO_FUSED_CONV_BWD="1", PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    for name, flags in PC_CLI_MESH.items():
+        run_dir = workdir / f"pc_cli_{name}"
+        run_dir.mkdir()
+        args = [str(yaml_path), "--size", "s", "--epochs", "1",
+                "--batch-size", "8", "--data-parallel", *flags]
+        started[name] = (run_dir, _start_ranks(
+            MESH_CLI_SCRIPT, lambda r, args=args: args, 2, run_dir, env))
+    return started
+
+
+def check_packed_spatial(dev, workdir, card, started):
+    """27 (d): join the `--spatial` ranks: float32 against one process at
+    phase 22's tolerances at 640 / 2 and phase 25's at 640 / 3 (unequal
+    blocks), the ranks' weights bit for bit; bf16 with K2 on: K2's
+    launches a rank held to the gated convs (the packed C3a convs on their
+    haloed tiles). Returns K2's launches summed over the ranks."""
+    runs, states = started["runs"]
+    run32, run16 = runs
+    conv_bwd.launches = 0
+    loss, grads, state, _ = _single_step(dev, run32, states["anchor"])
+    cfg16 = YoloConfig(**run16["cfg"])
+    gated = sum(_gated_convs(cfg16).values())
+    want = gated * conv_bwd.LAUNCHES_PER_CALL
+    k2 = 0
+    for n, img in PC_SPACE:
+        what = f"phase 27 (d) packed p3 --spatial {n}"
+        ranks, rank_s = _join_mesh_ranks("space", n, started[("space", n)],
+                                         workdir, what, f"_pc{n}")
+        got = [r[run32["name"]] for r in ranks]
+        total = sum(r["metrics"]["loss"] for r in got)
+        rel = abs(total - loss) / abs(loss)
+        tol = SP_LOSS_RTOL["anchor"] if IMG_SIZE // 32 % n == 0 else \
+            UN_LOSS_RTOL
+        worst = _worst(got[0]["grads"], grads)
+        bn = _bn_worst(got[0]["state"], state)
+        across = [k for r in got[1:] for k in _ranks_differ(got[0]["state"],
+                                                             r["state"])]
+        bf16 = [r[run16["name"]] for r in ranks]
+        log(f"{what} @{img} (P5 rows {_rows_of(img, n)}), {n} gloo ranks on "
+            f"one card ({rank_s:.1f} s with start-up), float32 TF32 off, a "
+            f"global batch of {SP_BATCH} vs one process: loss {total:.7f} vs "
+            f"{loss:.7f} ({rel:.2e} relative, tol {tol}); worst gradient "
+            f"{worst[0]:.2e} of its max ({worst[1]}; tol {PARITY_GRAD_TOL}); "
+            f"BatchNorm statistics {bn[0]:.2e} ({bn[1]}; tol {SP_BN_TOL}); "
+            f"state tensors differing between the ranks: {len(across)}; bf16 "
+            f"K2 on: K2 launches a rank {[r['k2'] for r in bf16]} (want "
+            f"{gated} gated convs x {conv_bwd.LAUNCHES_PER_CALL}), losses "
+            f"{[round(r['metrics']['loss'], 6) for r in bf16]}; {card}")
+        if (rel > tol or worst[0] > PARITY_GRAD_TOL or bn[0] > SP_BN_TOL
+                or across or any(r["k2"] != want for r in bf16)):
+            raise AssertionError(f"{what}: the packed spatial step differs "
+                                 f"from one process's, or K2's launches")
+        k2 += sum(r["k2"] for r in bf16)
+    return k2
+
+
+def _rows_of(img, n):
+    """The P5 rows of each rank of `--spatial n` at image size img."""
+    g = img // 32
+    return "/".join(str(g // n + (s < g % n)) for s in range(n))
+
+
+def check_packed_tp(dev, workdir, card, started):
+    """27 (e): join the `--model-parallel 2` ranks: float32 (K2 on)
+    against one process at phase 23's tolerances, the gathered and the
+    replicated leaves equal on both ranks, K2's launches (the packed C3a
+    convs, replicated, at their global shapes) a rank as one process's;
+    the parameters and Adam moments a rank holds. Returns K2's launches
+    summed over the ranks."""
+    runs, states = started["tp_runs"], started["runs"][1]
+    run32 = runs[0]
+    conv_bwd.launches = 0
+    loss, grads, state, _ = _single_step(dev, run32, states["anchor"])
+    single_k2 = conv_bwd.launches
+    what = "phase 27 (e) packed p3 --model-parallel 2"
+    ranks, rank_s = _join_mesh_ranks("model", TP_MODEL,
+                                     started[("model", TP_MODEL)], workdir,
+                                     what, "_pc")
+    got = [r[run32["name"]] for r in ranks]
+    rel = abs(got[0]["metrics"]["loss"] - loss) / abs(loss)
+    worst = _worst(got[0]["grads"], grads)
+    bn = _bn_worst(got[0]["state"], state)
+    across = _ranks_differ(got[0]["state"], got[1]["state"])
+    replicated = [k for k in _ranks_differ(got[0]["local"], got[1]["local"])
+                  if k not in got[0]["keys"]]
+    full_bytes = 3 * 4 * sum(p.numel() for p in YOLO(
+        YoloConfig(**run32["cfg"]), device="meta").parameters())
+    shares = [r["held_bytes"] / full_bytes for r in got]
+    shapes = {s for r in got for s in r["k2_shapes"]}
+    bf16 = [r[runs[1]["name"]] for r in ranks]
+    # bf16: the gated convs (the packed C3a convs, replicated, among them);
+    # float32 takes the 40x40 ones only (the gate's float32 bound)
+    want16 = (sum(_gated_convs(YoloConfig(**runs[1]["cfg"])).values())
+              * conv_bwd.LAUNCHES_PER_CALL)
+    log(f"{what}, 1 x {TP_MODEL} on one card ({rank_s:.1f} s with start-up),"
+        f" float32 TF32 off K2 on vs one process: loss "
+        f"{got[0]['metrics']['loss']:.7f} vs {loss:.7f} ({rel:.2e} relative, "
+        f"tol {PARITY_LOSS_TOL}); worst gathered gradient {worst[0]:.2e} "
+        f"({worst[1]}; tol {PARITY_GRAD_TOL}); BatchNorm statistics "
+        f"{bn[0]:.2e} ({bn[1]}; tol {SP_BN_TOL}); gathered state tensors "
+        f"differing between the ranks {len(across)}, replicated ones "
+        f"{len(replicated)}; K2 launches a rank {[r['k2'] for r in got]} "
+        f"(one process {single_k2}) at (x, dy, w) {sorted(shapes)}; bf16 "
+        f"K2 {[r['k2'] for r in bf16]} (want {want16}), losses "
+        f"{[round(r['metrics']['loss'], 6) for r in bf16]}; parameters + "
+        f"Adam moments a rank holds {', '.join(f'{x:.4f}x' for x in shares)}"
+        f" of one process's (at most {TP_MEMORY_SHARE}x); {card}")
+    if (rel > PARITY_LOSS_TOL or worst[0] > PARITY_GRAD_TOL
+            or bn[0] > SP_BN_TOL or across or replicated
+            or any(r["k2"] != single_k2 for r in got)
+            or any(r["k2"] != want16 for r in bf16)
+            or max(shares) > TP_MEMORY_SHARE
+            or any(w != (64, 64, 3, 3) for _, _, w in shapes)):
+        raise AssertionError(f"{what}: the packed model-parallel step "
+                             f"differs from one process's")
+    return sum(r["k2"] for r in got + bf16)
+
+
+def phase_packed_comp_cli(dev, workdir, yaml_path, ckpts, card, started):
+    """27 (f): the four compositions through the CLI, each exit 0: the
+    `--packed p3 --int8` request ran in (b); `--packed-stem --export` of a
+    served checkpoint, the artifact serving one image through the CLI;
+    `--packed-interior --data-parallel --model-parallel 2` and `--packed
+    stem --data-parallel --spatial 2`, two processes on the card each:
+    their banners and one epoch line, the same on both ranks. Returns
+    (K1, K2) launches."""
+    ckpt = _served_checkpoint(ckpts["anchor"], "anchor",
+                              workdir / "pc_served.ckpt")
+    art = workdir / "pc_stem.yexp"
+    rc, out = _cli([str(ckpt), "--packed-stem", "--export", str(art),
+                    "--dtype", "bfloat16"])
+    if rc != 0 or not out.strip().splitlines()[-2].startswith("Exported"):
+        raise AssertionError(f"--packed-stem --export: rc {rc}:\n{out}")
+    from yolo_from_scratch_tpu_torch.utils.yaml_cfg import load_dataset_yaml
+
+    image = str(sorted(Path(load_dataset_yaml(str(yaml_path))["val"]).glob(
+        "*.jpg"))[0])
+    nms_cuda.launches = 0
+    rc, served = _cli([image, str(art)])
+    k1 = nms_cuda.launches
+    if rc != 0 or "Serving artifact" not in served or k1 != 1:
+        raise AssertionError(f"the --packed-stem artifact: rc {rc}, K1 {k1}"
+                             f":\n{served}")
+    log(f"phase 27 (f) --packed-stem --export: exit 0, "
+        f"{out.strip().splitlines()[-1].strip()}; served one image through "
+        f"the CLI (K1 {k1}): {served.strip().splitlines()[-1]}")
+    k2 = 0
+    for name, flags in PC_CLI_MESH.items():
+        run_dir, procs = started[name]
+        outs = _join_ranks(procs, f"phase 27 (f) {name}")
+        banner = ("model=2" if "--model-parallel" in flags else "space=2")
+        epochs = [EPOCH_LINE.search(o) for o in outs]
+        if not all(epochs) or any(banner not in o for o in outs) or len(
+                {e.group(0).rsplit("|", 1)[0] for e in epochs}) != 1:
+            raise AssertionError(f"phase 27 (f) {' '.join(flags)}: outputs:"
+                                 f"\n{outs[0][-2000:]}\n{outs[1][-2000:]}")
+        for o in outs:
+            m = re.search(r"LAUNCHES K1 (\d+) K2 (\d+)", o)
+            k1, k2 = k1 + int(m.group(1)), k2 + int(m.group(2))
+        log(f"phase 27 (f) {' '.join(flags)} --data-parallel in two "
+            f"processes: exit 0 on both, the 2-D mesh banner, the same "
+            f"epoch line ({epochs[0].group(0)[:60]}...); {card}")
+    return k1, k2
+
+
+def phase_packed_compositions(dev, workdir, yaml_path, ckpts, card):
+    """27: (a), (b), K2 at (d)'s packed haloed tiles and (c)'s exports,
+    timed with the card to itself; then the rest of (c)-(f), which time
+    nothing: (c)'s artifacts served beside the mesh ranks and CLI runs of
+    (d)-(f). Returns what the kernels' record takes."""
+    t0 = time.perf_counter()
+    q2_rows, q2_err, q2_cmp = phase_packed_q2(dev, card)
+    int8_counts = phase_packed_int8(dev, ckpts, yaml_path, card)
+    k2_err, k2_times = phase_mesh_k2(dev, card, PC_K2_CASES, SEED + 90,
+                                     "phase 27 (d) K2 at the packed C3a "
+                                     "conv's haloed tile")
+    (workdir / "exp").mkdir()
+    exports = start_export(ckpts, yaml_path, workdir / "exp", layout="p3",
+                           heads=("anchor",))
+    started = start_packed_mesh(workdir, yaml_path)
+    art_counts = check_export(dev, exports)
+    sp_k2 = check_packed_spatial(dev, workdir, card, started)
+    tp_k2 = check_packed_tp(dev, workdir, card, started)
+    cli_k1, cli_k2 = phase_packed_comp_cli(dev, workdir, yaml_path, ckpts,
+                                           card, started)
+    log(f"phase 27 took {time.perf_counter() - t0:.1f} s ({card})")
+    return dict(q2_rows=q2_rows, q2_err=q2_err, q2_cmp=q2_cmp,
+                int8=int8_counts, artifacts=art_counts, sp_k2=sp_k2,
+                tp_k2=tp_k2, cli_k1=cli_k1, cli_k2=cli_k2, k2_err=k2_err,
+                k2_times=k2_times)
 
 
 def main():
@@ -6020,7 +6559,8 @@ def main():
         # int8 served from fresh interpreters
         q_err, q_sums, _ = phase_int8_kernels(dev)
         int8_counts = phase_int8_serving(dev, compact_ckpts, af_yaml)
-        artifact_counts = phase_export(dev, compact_ckpts, af_yaml, Path(tmp))
+        artifact_counts = check_export(dev, start_export(
+            compact_ckpts, af_yaml, Path(tmp)))
         log(f"int8 and artifact paths' kernel launches: (Q1, Q2, K1) "
             f"{int8_counts} (--int8 request + B={INT8_BATCH} call); in one "
             f"call of each artifact (profiler) {artifact_counts}")
@@ -6040,12 +6580,15 @@ def main():
         # --spatial 2 in two and four processes
         card = _smi("name,power.limit")
         t22 = time.perf_counter()
+        # (c)'s CLI runs beside (a)'s ranks; (b) times K2 once both are
+        # joined
+        cli22 = start_mesh_cli(Path(tmp), af_yaml, "space")
         sp_k2_step = phase_spatial_step(dev, Path(tmp), af_yaml, card)
+        sp_k1, sp_k2_cli = check_mesh_cli(dev, card, cli22, "space",
+                                          "phase 22 (c)")
         sp_err, sp_times = phase_mesh_k2(
             dev, card, SP_K2_CASES, SEED + 40,
             "phase 22 (b) K2 at the haloed tile")
-        sp_k1, sp_k2_cli = phase_mesh_cli(dev, Path(tmp), af_yaml, card,
-                                          "space", "phase 22 (c)")
         log(f"spatial paths' kernel launches: NMS {sp_k1} (--val-det, every "
             f"rank of the three CLI runs, and their checkpoints' requests); "
             f"conv backward {sp_k2_step} (one "
@@ -6057,12 +6600,13 @@ def main():
         # against one process, K2 at the global shapes, the memory a rank
         # holds, the CLI's --model-parallel 2 in two and four processes
         t23 = time.perf_counter()
+        cli23 = start_mesh_cli(Path(tmp), af_yaml, "model")
         tp_k2_step = phase_tp_step(dev, Path(tmp), af_yaml, card)
+        tp_k1, tp_k2_cli = check_mesh_cli(dev, card, cli23, "model",
+                                          "phase 23 (c)")
         tp_err, tp_times = phase_mesh_k2(
             dev, card, TP_K2_CASES, SEED + 50,
             "phase 23 (a) K2 at the global shape")
-        tp_k1, tp_k2_cli = phase_mesh_cli(dev, Path(tmp), af_yaml, card,
-                                          "model", "phase 23 (c)")
         log(f"model-parallel paths' kernel launches: NMS {tp_k1} (--val-det, "
             f"every rank of the three CLI runs, and their checkpoints' "
             f"requests); conv backward {tp_k2_step} (one bf16 step a rank, "
@@ -6138,6 +6682,27 @@ def main():
             f"took {time.perf_counter() - t26:.1f} s ({card})")
         done(26)
 
+        # 27. the packed layouts' compositions: Q2 at the packed 2x2 (1, 0)
+        # convs, --packed p3 --int8 serving, packed artifacts, the packed
+        # step on row blocks and on a model mesh, the CLI's four
+        # compositions
+        (Path(tmp) / "p27").mkdir()
+        pc = phase_packed_compositions(dev, Path(tmp) / "p27", af_yaml,
+                                       compact_ckpts, card)
+        pc_q1 = sum(c[0] for c in pc["int8"].values())
+        pc_q2 = sum(c[1] for c in pc["int8"].values())
+        pc_k1 = sum(c[2] for c in pc["int8"].values())
+        log(f"packed compositions' kernel launches: (Q1, Q2, K1) "
+            f"{pc['int8']} (--packed p3 --int8 request + B={INT8_BATCH} "
+            f"call); in one call of each packed artifact (profiler) "
+            f"{pc['artifacts']}; conv backward {pc['sp_k2']} (--spatial "
+            f"bf16 steps) + {pc['tp_k2']} (--model-parallel steps) + "
+            f"{pc['cli_k2']} (the CLI's mesh runs); NMS {pc['cli_k1']} (the "
+            f"--packed-stem artifact's request and the CLI's mesh runs); Q2 "
+            f"launches made to compare it with its plain version in (a): "
+            f"{pc['q2_cmp']}")
+        done(27)
+
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
         "route": "cuda",
@@ -6174,6 +6739,10 @@ def main():
         "multiscale_world_launches": wc_ms_k1,
         "uneven_launches": un_k1,
         "packed_launches": pk_k1,
+        "packed_int8_launches": pc_k1,
+        "packed_artifact_launches": sum(c["mask"] for c in
+                                        pc["artifacts"].values()),
+        "packed_mesh_launches": pc["cli_k1"],
     }, {
         "name": "conv_bwd_3x3",
         "route": "cuda",
@@ -6181,7 +6750,7 @@ def main():
         "replaces": "yolo_from_scratch_tpu/ops/conv_bwd.py:89",
         "launches": k2_launches,
         "max_abs_err": max(k2_err, ms_err, sp_err, tp_err, wc_err, un_err,
-                           pk_err),
+                           pk_err, pc["k2_err"]),
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound[0],
@@ -6229,6 +6798,13 @@ def main():
                         "plain_ms": t[1], "library_ms": t[2],
                         "bound_ms": t[3]}
                        for (b, h, w), t in pk_times.items()],
+        "packed_mesh_launches": pc["sp_k2"] + pc["tp_k2"] + pc["cli_k2"],
+        # K2 at the packed C3a conv's haloed tiles of --spatial 2 and 3
+        # (phase 27 (d))
+        "packed_spatial_tiles": [{"shape": [b, h, w, 64], "ms": t[0],
+                                  "plain_ms": t[1], "library_ms": t[2],
+                                  "bound_ms": t[3]}
+                                 for (b, h, w), t in pc["k2_times"].items()],
     }, *({
         "name": name,
         "route": "cuda",
@@ -6265,6 +6841,9 @@ def main():
         "bound_by": "bytes",
         "library_ms": None,
         "artifact_launches": sum(c["q1"] for c in artifact_counts.values()),
+        "packed_int8_launches": pc_q1,
+        "packed_artifact_launches": sum(c["q1"] for c in
+                                        pc["artifacts"].values()),
     }, {
         "name": "int8_conv",
         "route": "cuda",
@@ -6286,6 +6865,18 @@ def main():
         "b1_ms_1x1": q_sums["b1_q2_1x1"],
         "b1_int_mm_1x1_ms": q_sums["b1_int_mm_1x1"],
         "artifact_launches": sum(c["q2"] for c in artifact_counts.values()),
+        "packed_int8_launches": pc_q2,
+        "packed_artifact_launches": sum(c["q2"] for c in
+                                        pc["artifacts"].values()),
+        "packed_max_abs_err": pc["q2_err"],
+        # Q2 at the packed 2x2 (1, 0) convs (phase 27 (a)): device ms
+        # beside the bound and the yardsticks, by (B, cin, cout, h, w)
+        "packed_2x2": [{"shape": list(key), "ms": r["q2"], "q1_ms": r["q1"],
+                        "bound_ms": r["bound"], "bound_by": r["bound_by"],
+                        "plain_ms": r.get("q2_plain"),
+                        "library_ms": r.get("int_mm"),
+                        "conv_bf16_ms": r.get("conv_bf16")}
+                       for key, r in pc["q2_rows"].items()],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -393,10 +393,10 @@ class _Q2Lib:
         return best[2], best[3]
 
     def int8_conv_geometry(self, b, h, w, cp, n, k, s, sms, out):
-        if min(b, h, w, n, s, sms, cp) <= 0 or k not in (1, 3) or cp % 16:
+        if min(b, h, w, n, s, sms, cp) <= 0 or k not in (1, 2, 3) or cp % 16:
             return 1001
         taps = k * k
-        ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
+        ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
         nt = 16
         while nt < n and nt < 256:
             nt *= 2
@@ -553,3 +553,45 @@ def test_q2_geometry_matches_the_library(shape, want):
     g = quant.conv_geometry(_Q2Lib(), 32, h, w, cin, cout, k, s, H100_SMS)
     assert (g.nt, g.split, (g.tile_h, g.tile_w), g.chunk, g.stages, g.smem,
             g.grid) == want
+
+
+@pytest.mark.parametrize("b,shape,want", [
+    # the packed 2x2 convs padded (1, 0) at 's' @640 (k 2, s 1; cin, cout
+    # packed, h, w) -> (N, split, tile, chunk, stages, grid) as the library
+    # gave them on the card (NVIDIA H100 80GB HBM3, `chip_smoke.py` phase
+    # 27 (a))
+    (32, (64, 32, 160, 160), (32, 0, (8, 8), 64, 7, 264)),
+    (32, (128, 64, 80, 80), (64, 0, (8, 8), 64, 5, 264)),
+    (32, (256, 64, 40, 40), (64, 0, (8, 8), 32, 4, 264)),
+    (32, (256, 128, 40, 40), (128, 0, (8, 8), 32, 5, 132)),
+    (1, (64, 32, 160, 160), (32, 0, (8, 8), 64, 7, 200)),
+    (1, (128, 64, 80, 80), (64, 1, (8, 8), 128, 5, 100)),
+    (1, (256, 64, 40, 40), (64, 1, (8, 8), 64, 4, 25)),
+    (1, (256, 128, 40, 40), (128, 1, (8, 8), 32, 4, 25)),
+])
+def test_q2_geometry_at_the_packed_2x2_shapes(b, shape, want):
+    """Q2 reads a packed 2x2 conv as its 4 taps: the halo is (tile - 1) +
+    2 pixels a side, the output as large as the input (the low pad 1, no
+    high pad), and the rule picks what the library picked on the card."""
+    cin, cout, h, w = shape
+    g = quant.conv_geometry(_Q2Lib(), b, h, w, cin, cout, 2, 1, H100_SMS)
+    assert (g.nt, g.split, (g.tile_h, g.tile_w), g.chunk, g.stages,
+            g.grid) == want
+    assert (g.halo_h, g.halo_w) == (g.tile_h + 1, g.tile_w + 1)
+    assert g.tiles_y * g.tile_h >= h and g.tiles_x * g.tile_w >= w
+    assert g.chunk_wbytes == -(-4 * g.nt * g.chunk // 1024) * 1024
+
+
+def test_chip_smoke_finds_the_packed_2x2_shapes():
+    """`chip_smoke.py` phase 27 (a)'s shapes, from a forward of each
+    packed layout on the meta device: stem1 under stem, bb_p3_down under
+    interior, bb_p4_down and downsample_p3_to_p4 under p3, all 2x2 at
+    stride 1 padded (1, 0)."""
+    import chip_smoke
+
+    shapes = chip_smoke._packed_q2_shapes()
+    assert len(shapes) == chip_smoke.PC_Q2_SHAPES
+    assert {key[3:]: tuple(v) for key, v in shapes.items()} == {
+        (64, 32, 160, 160): ("stem",), (128, 64, 80, 80): ("interior",),
+        (256, 128, 40, 40): ("p3",), (256, 64, 40, 40): ("p3",)}
+    assert {key[:3] for key in shapes} == {(2, 1, 1)}

@@ -24,6 +24,7 @@ import torch
 from yolo_from_scratch_tpu.models import packed as jpk
 from yolo_from_scratch_tpu.models.yolo import YOLO as JaxYOLO
 from yolo_from_scratch_tpu_torch.config import YoloConfig
+from yolo_from_scratch_tpu_torch.data.letterbox import pack_s2d_host
 from yolo_from_scratch_tpu_torch.models import packed as tpk
 from yolo_from_scratch_tpu_torch.models.yolo import YOLO
 from yolo_from_scratch_tpu_torch.utils.convert import (
@@ -81,7 +82,7 @@ def image():
 def test_layout_routines_bit_equal(f):
     x = np.random.default_rng(f).random((2, 3, 16, 24, 5)).astype(
         np.float32)
-    packed = tpk.pack_s2d_host(x, f)
+    packed = pack_s2d_host(x, f)
     np.testing.assert_array_equal(packed, jpk.pack_s2d_host(x, f))
     np.testing.assert_array_equal(
         tpk.pack_s2d(torch.from_numpy(x), f).numpy(), packed)
@@ -200,7 +201,7 @@ def test_packed_matches_port_unpacked(image, head, layout):
     base = _cfg(head)
     variables = random_variables(YOLO(base, device="meta"), seed=5)
     x = torch.from_numpy(image)
-    xp = torch.from_numpy(tpk.pack_s2d_host(image))
+    xp = torch.from_numpy(pack_s2d_host(image))
     unpacked, packed = _port(base, variables), _port(_cfg(head, layout),
                                                      variables)
     with torch.no_grad():

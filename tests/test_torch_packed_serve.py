@@ -7,7 +7,8 @@ NMS keep masks bit for bit, the kept boxes within 1e-3 px and scores within
 1e-5. Behind the device letterbox the port serves the unpacked model on the
 same weights, as the JAX package does. `approx_topk=True` selects the exact
 top-k, which is what the JAX package computes off the TPU
-(`lax.approx_max_k` equals `lax.top_k` on the CPU).
+(`lax.approx_max_k` equals `lax.top_k` on the CPU). The packed int8
+predictor and the packed export run on the packed model.
 """
 
 import jax
@@ -147,13 +148,30 @@ def test_approx_max_k_is_top_k_off_the_tpu():
 
 
 def test_packed_int8_serving_and_export_raise(cfg, served, images):
-    """Not ported yet (ROADMAP A10b): neither serves the unpacked model
-    in place of the packed one."""
+    """Both compositions now run on the packed model (neither raises nor
+    serves the unpacked model in its place): the int8 `Predictor` quantizes
+    the packed convs and serves the host-packed image; the export takes
+    the 4x-packed batch and says so in its header
+    (`tests/test_torch_packed_int8.py` and `tests/test_torch_packed_export.py`
+    hold both to the JAX package). The test keeps the name it had while
+    both raised, so that it stays the same test ID."""
     from yolo_from_scratch_tpu_torch.infer.export import export_serving
+    from yolo_from_scratch_tpu_torch.infer.quantize import QuantConvBNSiLU
+    from yolo_from_scratch_tpu_torch.models.packed import PackedConvBNSiLU
 
     pcfg = cfg.with_(packed_stem=True)
-    with pytest.raises(ValueError, match="packed"):
-        Predictor(_state(pcfg, served), pcfg, device=CPU,
-                  quantize_calib=images[:1])
-    with pytest.raises(ValueError, match="packed"):
-        export_serving(_state(pcfg, served), pcfg, 2, platforms=["cpu"])
+    port = Predictor(_state(pcfg, served), pcfg, device=CPU,
+                     quantize_calib=images[:1])
+    assert isinstance(port.model.stem0, PackedConvBNSiLU)
+    assert isinstance(port.model.stem1, QuantConvBNSiLU)
+    assert port.model.stem1.k == 2 and port.model.stem1.stride == 1
+    assert tuple(port.stage(images[0])[0].shape) == (
+        1, cfg.img_size // 4, cfg.img_size // 4, 48)
+    assert all(len(d) == 6 for d in port(images[0]))
+    exported, header = export_serving(_state(pcfg, served), pcfg, 2,
+                                      platforms=["cpu"])
+    assert header["packed_stem"] is True
+    img_spec = exported.graph_signature.user_inputs[0]
+    shape = [n for n in exported.graph.nodes if n.name == img_spec][0].meta[
+        "val"].shape
+    assert tuple(shape) == (2, cfg.img_size // 4, cfg.img_size // 4, 48)

@@ -181,12 +181,13 @@ def test_world_of_one_without_a_group(monkeypatch):
     (["--distributed", "--num-processes", "2"], 1, "together"),
     (["--distributed"], 1, "torchrun"),
     # --packed-stem --data-parallel trains (a world of one); --packed with
-    # --spatial is not ported yet (ROADMAP A10b)
+    # --spatial meets the mesh's own rule, as the unpacked model does: one
+    # process does not divide into space=2 (the JAX CLI's line)
     (["--packed-stem", "--data-parallel", "--device", "cpu", "--size", "n",
       "--img-size", "64", "--batch-size", "2", "--epochs", "1"], 0,
      "Data-parallel mesh over 1 process(es)"),
-    (["--packed", "p3", "--spatial", "2", "--data-parallel"], 2,
-     "--packed p3 with --spatial is not ported"),
+    (["--packed", "p3", "--spatial", "2", "--data-parallel", "--device",
+      "cpu"], 1, "1 devices do not divide into space=2"),
     (["--model-parallel", "2"], 1, "--spatial/--model-parallel require "
                                    "--data-parallel"),
 ])

@@ -156,13 +156,17 @@ def test_quantized_forward_matches_jax(setup):
 
 CONV_CASES = [(k, s, cin) for k in (1, 3) for s in (1, 2)
               for cin in (8, 16, 32, 64)]
+# the space-to-depth packed 2x2 convs: stride 1, padded (1, 0)
+CONV_CASES += [(2, 1, cin) for cin in (16, 32, 64)]
 
 
 @pytest.mark.parametrize("k,s,cin", CONV_CASES)
 def test_int8_conv_acc_bit_equal_jax(k, s, cin):
     """The plain Q2 accumulator against `_int8_conv` bit for bit, on int8
     values up to +-127 (|sums| to 127^2 * k^2 * cin), on an odd grid (the
-    stride-2 edge); cin = 8 takes Q1's zero channels up to 16."""
+    stride-2 edge); cin = 8 takes Q1's zero channels up to 16. The low pad
+    is k // 2 and the high one k - 1 - k // 2: SAME for k 1 and 3, and
+    the packed 2x2 convs' (1, 0) for k 2 (`models/packed.py`)."""
     rng = np.random.default_rng(k * 100 + s * 10 + cin)
     xq = rng.integers(-127, 128, (2, 9, 11, cin), dtype=np.int8)
     wq = rng.integers(-127, 128, (k, k, cin, 24), dtype=np.int8)
@@ -170,7 +174,7 @@ def test_int8_conv_acc_bit_equal_jax(k, s, cin):
     wq[..., 0] = 127
     p = k // 2
     want = np.asarray(JQ._int8_conv(jnp.asarray(xq), jnp.asarray(wq), (s, s),
-                                    ((p, p), (p, p))))
+                                    ((p, k - 1 - p),) * 2))
     xp = torch.from_numpy(xq)
     xp = torch.nn.functional.pad(xp, (0, quant.padded_channels(cin) - cin))
     got = quant.int8_conv_acc(xp.contiguous(), quant.pack_weights(wq), k, s)
@@ -265,9 +269,9 @@ def test_kernel_wrappers_refuse_bad_tensors(how):
     elif how == "epilogue":
         with pytest.raises(ValueError, match="float32 scale"):
             quant._launch_int8_conv(xq, w, vec.double(), vec, 1, 1, 1)
-    elif how == "kernel":  # Q2's tap table and stage sizes cover k 1 and 3
+    elif how == "kernel":  # Q2's tap table and stage sizes cover k 1-3
         w5 = torch.zeros((8, 416), dtype=torch.int8)
-        with pytest.raises(ValueError, match="k 1 or 3"):
+        with pytest.raises(ValueError, match="k 1, 2 or 3"):
             quant._launch_int8_conv(xq, w5, vec, vec, 5, 1, 1)
         with pytest.raises(ValueError, match="stride"):
             quant._launch_int8_conv(xq, w, vec, vec, 1, 0, 1)

@@ -7,6 +7,7 @@ The real profiler needs the card; here `torch.profiler.profile`,
 the retry logic runs.
 """
 
+import collections
 import types
 
 import pytest
@@ -101,11 +102,28 @@ def test_kernel_ms_retakes_a_trace_cut_short(monkeypatch, short_traces,
 
 
 def test_a_timing_whose_traces_are_all_cut_short_raises(monkeypatch):
+    """Six traces without a sentinel, the last of 64 x 2^5 of them."""
     calls = _fake_profiler(monkeypatch, [[_event("conv", 6.5, count=20)]]
                            * timing.TRACE_ATTEMPTS)
-    with pytest.raises(RuntimeError, match=r"cut short \(0 of 64 sentinels"):
+    last = timing.TRACE_SENTINELS << (timing.TRACE_ATTEMPTS - 1)
+    assert last == 2048
+    with pytest.raises(RuntimeError,
+                       match=rf"cut short \(0 of {last} sentinels"):
         timing.kernel_ms(lambda: None, 20)
     assert len(calls) == timing.TRACE_ATTEMPTS
+
+
+def test_each_trace_taken_again_has_twice_the_sentinels(monkeypatch):
+    """A profiler that drops the first events of every trace drops the
+    sentinels first: each trace taken again opens with twice as many."""
+    good = [_spin(), _event("k", 100.0, count=2)]
+    calls = _fake_profiler(monkeypatch, [[_event("k", 100.0, count=2)]] * 3
+                           + [good])
+    spins = collections.Counter()  # sentinels launched, by trace
+    monkeypatch.setattr(torch.cuda, "_sleep",
+                        lambda cycles: spins.update([len(calls)]))
+    assert timing.kernel_ms(lambda: None, 2) == {"k": 0.1}
+    assert [spins[t] for t in range(1, 5)] == [64, 128, 256, 512]
 
 
 def test_a_trace_opens_with_its_sentinels(monkeypatch):
@@ -134,3 +152,15 @@ def test_a_trace_opens_with_its_sentinels(monkeypatch):
     assert timing.kernel_ms(lambda: seen.append("call"), 2) == {"k": 0.1}
     assert seen == (["sync", "open"] + [0] * timing.TRACE_SENTINELS
                     + ["call", "call", "sync", "close"])
+
+
+def test_kernel_trace_gives_launches_and_times(monkeypatch):
+    """A whole trace's launch counts and times, without its sentinels (what
+    the smoke script's launch counters read); a trace that lost its
+    sentinels is taken again."""
+    calls = _fake_profiler(monkeypatch, [
+        [_event("q1", 400.0, count=8)],
+        [_spin(), _event("q1", 400.0, count=8), _event("q2", 600.0)]])
+    assert timing.kernel_trace(lambda: None, 4) == {"q1": (8, 0.4),
+                                                    "q2": (4, 0.6)}
+    assert len(calls) == 2

@@ -80,10 +80,13 @@ runtime knob: checkpoints hold no layout, and either layout loads the
 other's. `auto` is `none` here, on the card and on the CPU: the JAX CLI's
 `auto` is `p3` on any accelerator, where packing fills the MXU's lanes;
 which layout pays on the H100 is for the benchmark to decide. A conflicting
-`--packed` and alias exit 1 with the JAX CLI's message. Packing with
-`--int8`, `--export`, `--spatial` or `--model-parallel` is not ported yet
-(ROADMAP A10b): it exits 2 and names both flags, as does any mode the port
-does not have.
+`--packed` and alias exit 1 with the JAX CLI's message. Packing composes
+with `--int8` (inference and `--map`: the packed convs' int8 bodies, Q2
+at the packed 2x2 shapes too), `--export` (a packed artifact takes the
+4x-packed batch and its loader packs on the host; with `--int8` too),
+`--spatial N` (each packed conv takes its halo rows) and
+`--model-parallel N` (the packed convs cut on their canonical output
+channels), as the JAX CLI's does.
 """
 
 from __future__ import annotations
@@ -327,8 +330,8 @@ def _resolve_packing(args):
     """Resolve --packed and its aliases into `args.packed` (the level) and
     `args.layout` (the packed_* config fields to set), as the JAX CLI
     resolves them, but with 'auto' = 'none' (`config.py::
-    auto_fast_layout`). Returns an exit status on a conflict or an
-    unported composition, else None."""
+    auto_fast_layout`). Returns an exit status on a conflict, else
+    None."""
     level = args.packed
     alias = ("p3" if args.packed_p3 else
              "interior" if args.packed_interior else
@@ -344,16 +347,8 @@ def _resolve_packing(args):
         auto = auto_fast_layout(args.device)
         level = next(lvl for lvl in ("p3", "interior", "stem", "none")
                      if all(auto[k] for k in PACKED_LEVELS[lvl]))
-    flag = f"--packed-{alias}" if alias else f"--packed {level}"
     args.packed = level
     args.layout = {k: k in PACKED_LEVELS[level] for k in PACKED_LEVELS["p3"]}
-    for other, on in (("--int8", args.int8), ("--export", args.export),
-                      ("--spatial", args.spatial > 1),
-                      ("--model-parallel", args.model_parallel > 1)):
-        if on and level != "none":
-            print(f"ERROR: {flag} with {other} is not ported yet (ROADMAP "
-                  f"A10b); use `python train.py` for it")
-            return 2
     return None
 
 
@@ -475,6 +470,7 @@ def _export(args, config, ckpt_file):
         print(f"ERROR: --export-platforms: {e}")
         return 1
     state_dict, cfg, _ = load_checkpoint(ckpt_file)
+    cfg = cfg.with_(**args.layout)  # a runtime knob; weights interchangeable
     if args.dtype != "auto":
         cfg = cfg.with_(compute_dtype=args.dtype)
     calib = None

@@ -115,7 +115,7 @@ def build_cache(dataset, cache_dir: str, capacity: int = 64,
         raise ValueError("cannot cache an empty dataset")
     s = dataset.img_size
     if packed:
-        from yolo_from_scratch_tpu_torch.models.packed import pack_s2d_host
+        from yolo_from_scratch_tpu_torch.data.letterbox import pack_s2d_host
 
         shape = (s // PACK_FACTOR, s // PACK_FACTOR, 3 * PACK_FACTOR ** 2)
     else:

@@ -8,7 +8,8 @@ batch AHEAD of the consumer, so the copy of batch N+1 overlaps step N.
 On the CPU the numpy arrays are wrapped without a copy. On a 2-D mesh
 (`--spatial`) only this rank's block of rows of the images and dense
 targets is sent (`parallel/mesh.py::shard_batch` of its data shard's
-batch, the block plan of the images' P5 grid); compact labels go whole. A train step that cuts the rows itself
+batch, the block plan of the images' P5 grid, whose rows a 4x-packed
+batch holds 8 each); compact labels go whole. A train step that cuts the rows itself
 (the device mosaic, which composes whole images) is given a queue
 without the mesh (`train/loop.py::train_epoch`).
 """
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from yolo_from_scratch_tpu_torch.config import STRIDES
+from yolo_from_scratch_tpu_torch.data.letterbox import PACK_FACTOR
 from yolo_from_scratch_tpu_torch.device import upload
 from yolo_from_scratch_tpu_torch.parallel.mesh import shard_batch
 
@@ -42,8 +44,12 @@ class DeviceQueue:
     def _place(self, images, targets):
         valid = images.shape[0]
         if self.rows is not None:
+            # the P5 grid of the images' size (a packed batch's rows are
+            # PACK_FACTOR pixel rows each)
+            size = images.shape[1] * (1 if images.shape[-1] == 3
+                                      else PACK_FACTOR)
             images, targets = shard_batch(self.rows, images, targets,
-                                          images.shape[1] // STRIDES[-1])
+                                          size // STRIDES[-1])
             # a row block is a strided view of the batch; made contiguous,
             # only its rows travel
             images = np.ascontiguousarray(images)

@@ -9,6 +9,9 @@ reference (train.py:15-58). The on-device path (`letterbox_device`,
 `jax.image.scale_and_translate(method="linear", antialias=True)` and
 applies them as float32 contractions on the buffers' device, with TF32
 off; it matches PIL within ~1.5 uint8 LSB, not bit for bit.
+`pack_s2d_host` puts letterboxed images in the packed layouts' input
+layout (`models/packed.py`), for the loaders, the predictors and a packed
+serving artifact's loader alike.
 """
 
 from __future__ import annotations
@@ -19,6 +22,16 @@ import torch
 from yolo_from_scratch_tpu_torch.device import tf32_disabled
 
 PAD_COLOR = (114, 114, 114)
+PACK_FACTOR = 4  # the packed model input's space-to-depth factor
+
+
+def pack_s2d_host(x: np.ndarray, f: int = PACK_FACTOR) -> np.ndarray:
+    """Space-to-depth on the host: (..., H, W, C) -> (..., H/f, W/f,
+    f*f*C), channel (a*f + b)*C + c for pixel phase (a, b)."""
+    *lead, h, w, c = x.shape
+    x = x.reshape(*lead, h // f, f, w // f, f, c)
+    x = np.moveaxis(x, -4, -3)  # (..., h/f, w/f, f, f, c)
+    return np.ascontiguousarray(x.reshape(*lead, h // f, w // f, f * f * c))
 
 
 def letterbox_params(orig_w: int, orig_h: int, target_size: int):

@@ -106,7 +106,7 @@ class DataLoader:
     def _make_batch(self, indices):
         images, targets = self._load(indices)
         if self.pack_images:
-            from yolo_from_scratch_tpu_torch.models.packed import (
+            from yolo_from_scratch_tpu_torch.data.letterbox import (
                 pack_s2d_host,
             )
 

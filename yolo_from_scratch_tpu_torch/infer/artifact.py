@@ -24,7 +24,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from yolo_from_scratch_tpu_torch.data.letterbox import letterbox_image
+from yolo_from_scratch_tpu_torch.data.letterbox import (
+    letterbox_image,
+    pack_s2d_host,
+)
 from yolo_from_scratch_tpu_torch.device import cuda_device
 from yolo_from_scratch_tpu_torch.infer.detections import detections_per_image
 from yolo_from_scratch_tpu_torch.ops import (  # noqa: F401 (the program's ops)
@@ -63,11 +66,13 @@ def read_artifact(path):
     return json.loads(raw[off:off + hlen].decode()), raw[off + hlen:]
 
 
-def stage_images(images, img_size, batch_size, device):
+def stage_images(images, img_size, batch_size, device, packed=False):
     """Host letterbox of up to `batch_size` paths, PIL images or HWC uint8
     arrays, divided by 255.0 as the JAX package's loader does, padded to
-    `batch_size` with zero images and uploaded to `device`. Returns a
-    frozen program's arguments (imgs, scales, pad_tops, pad_lefts)."""
+    `batch_size` with zero images, packed 4x on the host for a packed
+    program (`packed`: `pack_s2d_host`, as the JAX package's loader packs)
+    and uploaded to `device`. Returns a frozen program's arguments (imgs,
+    scales, pad_tops, pad_lefts)."""
     from PIL import Image
 
     pils = [Image.fromarray(np.asarray(im, np.uint8))
@@ -87,7 +92,9 @@ def stage_images(images, img_size, batch_size, device):
     pad_n = batch_size - len(pils)
     imgs.extend([np.zeros_like(imgs[0])] * pad_n)
     params.extend([(1.0, 0.0, 0.0)] * pad_n)
-    batch = torch.from_numpy(np.stack(imgs)).to(device)
+    batch = np.stack(imgs)
+    batch = torch.from_numpy(pack_s2d_host(batch) if packed else batch).to(
+        device)
     return (batch, *torch.tensor(params, dtype=torch.float32).to(
         device).unbind(1))
 
@@ -108,9 +115,11 @@ class ServingArtifact:
         self._program = torch.export.load(io.BytesIO(payload)).module()
 
     def stage(self, images):
-        """`stage_images` at the artifact's size, batch and device."""
+        """`stage_images` at the artifact's size, batch, layout and
+        device."""
         return stage_images(images, self.meta["img_size"],
-                            self.meta["batch_size"], self.device)
+                            self.meta["batch_size"], self.device,
+                            self.meta["packed_stem"])
 
     def run(self, imgs, scales, pad_tops, pad_lefts):
         """The frozen program on staged arguments: (boxes (B, K, 4),

@@ -15,6 +15,13 @@ calls K1, Q1 and Q2 through the registered ops, which launch the kernels;
 a "cpu" program calls the same ops, which run the plain versions. The JAX
 package's multi-platform and "tpu" lowerings have no counterpart: a list
 naming more than one platform, or "tpu", is refused with the reason.
+
+A packed config (`cfg.packed_stem`, `models/packed.py`) freezes the packed
+program: it takes the 4x-packed batch (B, S/4, S/4, 48), and its header
+says `"packed_stem": true`, so that the artifact's loader packs on the
+host (`data/letterbox.py::pack_s2d_host`). The JAX package declares
+(B, S/2, S/2, 12) there, which its packed model cannot take (its export
+of a packed config fails); the port does not copy that.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 from torch import nn
 
 from yolo_from_scratch_tpu_torch.config import YoloConfig
+from yolo_from_scratch_tpu_torch.data.letterbox import PACK_FACTOR
 from yolo_from_scratch_tpu_torch.device import cuda_device
 from yolo_from_scratch_tpu_torch.infer.artifact import (  # noqa: F401
     MAGIC,
@@ -56,7 +64,8 @@ def check_platforms(platforms) -> str:
 
 
 class _Frozen(nn.Module):
-    """(imgs (B, S, S, 3) float32 in [0, 1], scales, pad_tops, pad_lefts)
+    """(imgs (B, S, S, 3) float32 in [0, 1], or a packed model's (B, S/4,
+    S/4, 48), scales, pad_tops, pad_lefts)
     -> (boxes (B, K, 4), scores (B, K), classes (B, K), valid (B, K)): a
     BatchPredictor's program, its model a submodule so that the export
     holds the weights."""
@@ -76,15 +85,12 @@ def export_serving(state_dict, cfg: YoloConfig, batch_size: int,
     """Build and export the frozen batched serving program. Returns
     (torch.export.ExportedProgram, header dict).
 
-    The program takes (imgs (B, S, S, 3) float32, scales (B,), pad_tops
-    (B,), pad_lefts (B,)) on its platform's device and returns (boxes
-    (B, K, 4), scores (B, K), classes (B, K), valid (B, K)), K =
-    `max_outputs`. `quantize_calib`: a list of images; the int8 program,
-    calibrated on them, is frozen instead. A packed config is not
-    exported yet (ROADMAP A10b): it raises."""
-    if cfg.packed_stem:
-        raise ValueError("exporting a packed model is not ported: export "
-                         "the unpacked config (the weights are the same)")
+    The program takes (imgs (B, S, S, 3) float32, or (B, S/4, S/4, 48)
+    packed for a packed config, scales (B,), pad_tops (B,), pad_lefts
+    (B,)) on its platform's device and returns (boxes (B, K, 4), scores
+    (B, K), classes (B, K), valid (B, K)), K = `max_outputs`.
+    `quantize_calib`: a list of images; the int8 program, calibrated on
+    them, is frozen instead."""
     from yolo_from_scratch_tpu_torch.infer.predict import (
         BatchPredictor,
         default_topk,
@@ -101,9 +107,16 @@ def export_serving(state_dict, cfg: YoloConfig, batch_size: int,
     # slice of its storage and warns that this may break off the CPU
     for t in [*frozen.parameters(), *frozen.buffers()]:
         t.data = t.data.contiguous()
+    for module in frozen.modules():
+        if hasattr(module, "packed_weight"):
+            # a packed conv's gather map on the device before the trace,
+            # which then holds it as a constant
+            module.packed_weight()
     s = cfg.img_size
-    args = (torch.zeros((batch_size, s, s, 3), dtype=torch.float32,
-                        device=device),
+    img_shape = ((batch_size, s // PACK_FACTOR, s // PACK_FACTOR,
+                  3 * PACK_FACTOR * PACK_FACTOR) if cfg.packed_stem
+                 else (batch_size, s, s, 3))
+    args = (torch.zeros(img_shape, dtype=torch.float32, device=device),
             torch.ones(batch_size, dtype=torch.float32, device=device),
             torch.zeros(batch_size, dtype=torch.float32, device=device),
             torch.zeros(batch_size, dtype=torch.float32, device=device))
@@ -113,7 +126,7 @@ def export_serving(state_dict, cfg: YoloConfig, batch_size: int,
         "batch_size": batch_size,
         "img_size": s,
         "num_classes": cfg.num_classes,
-        "packed_stem": False,
+        "packed_stem": bool(cfg.packed_stem),
         "head_type": cfg.head_type,
         "conf_threshold": conf_threshold,
         "iou_threshold": iou_threshold,

@@ -27,8 +27,9 @@ tensors.
 
 `quantize_calib` (a list of images) serves the int8 model instead
 (`infer/quantize.py`), calibrated on those images: every ConvBNSiLU but
-`stem0` runs Q1 and Q2 (`ops/quant.py`), kernels on the card. A packed
-model is not served in int8 (it raises).
+`stem0` runs Q1 and Q2 (`ops/quant.py`), kernels on the card; a packed
+model's convs run them at their packed shapes (the 2x2 convs padded (1, 0)
+included).
 
 A config with the packed layouts (`cfg.packed_stem`, `models/packed.py`)
 is served packed: the host letterboxes and packs each image 4x
@@ -54,6 +55,7 @@ from yolo_from_scratch_tpu_torch.data.letterbox import (
     letterbox_device_bucketed,
     letterbox_geometry,
     letterbox_image,
+    pack_s2d_host,
     stage_to_bucket,
 )
 from yolo_from_scratch_tpu_torch.infer.detections import (
@@ -61,7 +63,6 @@ from yolo_from_scratch_tpu_torch.infer.detections import (
     detections_per_image,
 )
 from yolo_from_scratch_tpu_torch.models.anchor_free import decode_anchor_free
-from yolo_from_scratch_tpu_torch.models.packed import pack_s2d_host
 from yolo_from_scratch_tpu_torch.models.yolo import (
     YOLO,
     cast_convs_,
@@ -317,16 +318,15 @@ def _load_model(state_dict, cfg, device):
 def _quantize(model, state_dict, cfg, calib_images):
     """The predictors' PTQ: calibrate `model` on the letterboxed images and
     return its int8 copy, quantized from the float32 `state_dict` (the
-    model's own conv weights are already cast to the compute dtype)."""
-    if cfg.packed_stem:
-        raise ValueError("int8 serving of a packed model is not ported: the "
-                         "int8 convs do not take the packed 2x2 shapes")
+    model's own conv weights are already cast to the compute dtype); a
+    packed model calibrates on host-packed batches and serves packed."""
     from yolo_from_scratch_tpu_torch.infer.quantize import (
         calib_batches_from_images,
         quantize_model,
     )
 
-    batches = calib_batches_from_images(calib_images, cfg.img_size)
+    batches = calib_batches_from_images(calib_images, cfg.img_size,
+                                        packed_stem=cfg.packed_stem)
     return quantize_model(model, batches, state_dict=state_dict)
 
 

@@ -1,8 +1,6 @@
 """Post-training int8 quantization of the serving model (counterpart of
-`yolo_from_scratch_tpu/infer/quantize.py`, its canonical layout). int8
-under the packed layouts is not ported yet (ROADMAP A10b: Q2 does not take
-the packed 2x2 convs' (1, 0) padding): the predictors raise on it and the
-CLI's `--packed ... --int8` exits 2.
+`yolo_from_scratch_tpu/infer/quantize.py`), in the canonical layout and
+under the packed layouts alike.
 
 - **BN folding**: each ConvBNSiLU collapses to conv(W', b') with
   W' = W * gamma / sqrt(var + eps) per out-channel and
@@ -17,7 +15,17 @@ CLI's `--packed ... --int8` exits 2.
   int8), Q2 (the int8 conv with an int32 accumulator, then the
   per-channel dequant, the folded bias and SiLU), both in `ops/quant.py`,
   kernels on the card. The first conv (`stem0`) stays float by default,
-  and the heads' 1x1 `pred` convs are plain convs, never quantized.
+  packed or not, and the heads' 1x1 `pred` convs are plain convs, never
+  quantized.
+- **Packed layouts** (`models/packed.py`): a packed conv's canonical int8
+  kernel is repacked by the conv's own rewrite (`repack`: a rearrangement
+  with zero taps, exact on int8) into the packed kernel Q2 runs, at the
+  packed kernel's size and stride (the 2x2 convs' (1, 0) padding is
+  Q2's for k = 2), and the dequant vectors are tiled over its output phases,
+  as the JAX package's `_quant_gpacked_conv_silu` and
+  `_quant_packed_stem_conv_silu` do. The quantized tree is the canonical
+  one either way, so a packed and an unpacked model quantize to the same
+  int8 weights.
 
 Calibration keys and the quantized tree's keys are the JAX module paths
 (`a/b`; the port's module `a.b`, `utils/convert.py`), so a tree from
@@ -36,6 +44,8 @@ from torch import nn
 
 from yolo_from_scratch_tpu_torch.models.blocks import ConvBNSiLU
 from yolo_from_scratch_tpu_torch.models.fused_bn import BN_EPS
+from yolo_from_scratch_tpu_torch.data.letterbox import pack_s2d_host
+from yolo_from_scratch_tpu_torch.models.packed import _PackedConv
 from yolo_from_scratch_tpu_torch.ops.quant import (
     dequant_vectors,
     input_inverse,
@@ -173,10 +183,12 @@ def quantize_params(state_dict, a_scales, skip=(), select=None):
 
 class QuantConvBNSiLU(nn.Module):
     """The int8 body of one ConvBNSiLU (inference only): Q1 then Q2
-    (`ops/quant.py`), in the compute dtype `dtype`. Holds the packed int8
-    weights and the dequant vectors as buffers and `inv` as a Python
-    float, so `torch.export` bakes them all in. `plain=True` runs the
-    plain versions on any device (what the kernels are held against)."""
+    (`ops/quant.py`), in the compute dtype `dtype`, a k x k conv at
+    `stride` (Q2's padding: k // 2 above and left, k - 1 - k // 2 below
+    and right). Holds the packed int8 weights and the dequant vectors as buffers and
+    `inv` as a Python float, so `torch.export` bakes them all in.
+    `plain=True` runs the plain versions on any device (what the kernels
+    are held against)."""
 
     def __init__(self, q, kernel, stride, dtype, device=None):
         super().__init__()
@@ -196,17 +208,34 @@ class QuantConvBNSiLU(nn.Module):
                                self.k, self.stride, plain=self.plain)
 
 
+def _packed_body(q, conv: _PackedConv):
+    """(q, kernel, stride) of a packed conv's int8 body: the canonical int8
+    kernel repacked by the conv's rewrite, the per-channel vectors tiled
+    over its output phases (phase-major, as `jnp.tile`). Every packed conv
+    is padded as Q2 pads its kernel size (the 2x2 convs' (1, 0))."""
+    kp = conv.kp
+    assert conv.pad == (kp // 2, kp - 1 - kp // 2), (kp, conv.pad)
+    ph = conv.phases_out
+    q = dict(q, w_int8=conv.repack(q["w_int8"]),
+             w_scale=np.tile(q["w_scale"], ph), bias=np.tile(q["bias"], ph))
+    return q, kp, conv.s_packed
+
+
 def quantized_copy(model: nn.Module, qtree) -> nn.Module:
-    """A copy of `model` with every ConvBNSiLU in `qtree` swapped for its
-    `QuantConvBNSiLU`; the model itself is left as it is."""
+    """A copy of `model` with every ConvBNSiLU in `qtree` (packed convs
+    too) swapped for its `QuantConvBNSiLU`; the model itself is left as
+    it is."""
     qmodel = copy.deepcopy(model)
     for key, q in qtree.items():
         parent, _, child = key.replace("/", ".").rpartition(".")
         owner = qmodel.get_submodule(parent)
         old = getattr(owner, child)
+        if isinstance(old, _PackedConv):
+            q, k, stride = _packed_body(q, old)
+        else:
+            k, stride = old.conv.kernel_size[0], old.conv.stride[0]
         setattr(owner, child, QuantConvBNSiLU(
-            q, old.conv.kernel_size[0], old.conv.stride[0], old.dtype,
-            device=old.bn.scale.device))
+            q, k, stride, old.dtype, device=old.bn.scale.device))
     return qmodel.eval()
 
 
@@ -235,11 +264,13 @@ def quantize_model(model: nn.Module, calib_batches, skip=("stem0",),
     return quantized_copy(model, qtree)
 
 
-def calib_batches_from_images(images, img_size, batch_size=8):
+def calib_batches_from_images(images, img_size, batch_size=8,
+                              packed_stem=False):
     """Letterbox image files, PIL images or HWC uint8 arrays into
-    calibration batches of the serving input layout. Divides by 255.0, as
-    the JAX package's does (the serving path multiplies by INV255; the two
-    differ by at most an ulp)."""
+    calibration batches of the serving input layout, packed 4x on the host
+    for a packed model (`pack_s2d_host`). Divides by 255.0, as the JAX
+    package's does (the serving path multiplies by INV255; the two differ
+    by at most an ulp)."""
     from PIL import Image
 
     from yolo_from_scratch_tpu_torch.data.letterbox import letterbox_image
@@ -254,5 +285,6 @@ def calib_batches_from_images(images, img_size, batch_size=8):
             pil = Image.open(im).convert("RGB")
         arr, _, _, _ = letterbox_image(pil, img_size)
         arrs.append(arr.astype(np.float32) / 255.0)
-    return [np.stack(arrs[i:i + batch_size])
-            for i in range(0, len(arrs), batch_size)]
+    batches = [np.stack(arrs[i:i + batch_size])
+               for i in range(0, len(arrs), batch_size)]
+    return [pack_s2d_host(b) for b in batches] if packed_stem else batches

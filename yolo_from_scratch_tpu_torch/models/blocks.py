@@ -89,6 +89,10 @@ class ConvBNSiLU(nn.Module):
     process; a selected conv runs `conv3x3_same_tp`, whose backward runs
     the fused backward at the global shapes on the gathered dy and weight
     and returns the whole dx (its input takes no `model_input`).
+
+    A packed conv (`models/packed.py`) runs these forwards through the
+    two hooks it overrides: `conv_args` (its packed kernel, stride and
+    asymmetric padding) and `gathered` (its phase-major channel order).
     """
 
     def __init__(self, cin, features, kernel=1, stride=1, use_bias=False,
@@ -111,54 +115,81 @@ class ConvBNSiLU(nn.Module):
 
     def gate_shape(self, x):
         """The arguments of K2's gate (`ops/conv_bwd.py::use_fused_bwd`)
-        for input x: kernel, stride, cin, cout, the global height, width
-        and the compute dtype; None for a conv with a bias, which the
-        gate never takes."""
+        for input x: kernel, stride, cin, the global cout (a model mesh's
+        slice times its ranks), the global height, width and the compute
+        dtype; None for a conv with a bias, which the gate never takes."""
         conv = self.conv
         if conv.bias is not None:
             return None
+        n_model = self.tp.n_model if self.tp is not None else 1
         return (conv.kernel_size[0], conv.stride[0], x.shape[1],
-                conv.out_channels, global_rows(x.shape[2], x.shape[3]),
-                x.shape[3], self.dtype)
+                conv.weight.shape[0] * n_model,
+                global_rows(x.shape[2], x.shape[3]), x.shape[3], self.dtype)
+
+    def conv_args(self):
+        """(weight, bias, k, stride, (low, high) padding) of the conv that
+        runs, weight and bias in the compute dtype; a packed conv
+        (`models/packed.py`) answers with its packed kernel."""
+        conv = self.conv
+        k, pad = conv.kernel_size[0], conv.padding[0]
+        return (cast(conv.weight, self.dtype), cast(conv.bias, self.dtype),
+                k, conv.stride[0], (pad, k - 1 - pad))
+
+    def gathered(self, y):
+        """The output gathered over the model group, in the layer's channel
+        order: as gathered here; a packed conv permutes it."""
+        return y
 
     def forward(self, x, train: bool = False):
         if self.tp is not None:
             return self._forward_tp(x, train)
-        conv = self.conv
-        w = cast(conv.weight, self.dtype)
-        k, stride, pad = conv.kernel_size[0], conv.stride[0], conv.padding[0]
+        w, bias, k, stride, pad = self.conv_args()
         mesh = spatial_mesh()
-        bias = cast(conv.bias, self.dtype)
         gate = self.gate_shape(x)
         gated = gate is not None and use_fused_bwd(*gate)
-        if gated and mesh is None:
-            y = conv3x3_same(x, w)
-        elif gated and x.shape[2]:  # a rank without rows: the conv below
-            y = conv3x3_same(halo_rows(x, 1, 1, 0.0, mesh), w)[:, :, 1:-1]
+        if gated and (mesh is None or x.shape[2]):
+            # a rank without rows takes the row-block conv below
+            if mesh is None:
+                y = conv3x3_same(x, w)
+            else:
+                y = conv3x3_same(halo_rows(x, 1, 1, 0.0, mesh), w)[:, :, 1:-1]
+            if bias is not None:  # a packed conv's; the gate takes it
+                y = y + bias.view(1, -1, 1, 1)
         elif mesh is None:
-            y = F.conv2d(x, w, bias, conv.stride, conv.padding)
+            y = _conv(x, w, bias, stride, pad)
         else:
-            # output row o reads input rows o*stride - pad .. + k - 1: the
-            # block's outputs read `pad` rows above it and k - stride - pad
-            # below (a rank without rows: its halo, and no output row)
+            # output row o reads input rows o*stride - pad[0] .. + k - 1:
+            # the block's outputs read pad[0] rows above it and
+            # k - stride - pad[0] below (a rank without rows: its halo,
+            # and no output row)
             if k > 1:
-                x = halo_rows(x, pad, k - stride - pad, 0.0, mesh)
-            y = fit_rows(lambda t: F.conv2d(t, w, bias, conv.stride,
-                                            (0, conv.padding[1])), x, k)
+                x = halo_rows(x, pad[0], k - stride - pad[0], 0.0, mesh)
+            y = fit_rows(lambda t: _conv(t, w, bias, stride, pad, rows=False),
+                         x, k)
         return self.bn(y, train)
 
     def _forward_tp(self, x, train):
-        mesh, conv = self.tp, self.conv
-        w = cast(conv.weight, self.dtype)
-        if conv.bias is None and use_fused_bwd(
-                conv.kernel_size[0], conv.stride[0], x.shape[1],
-                w.shape[0] * mesh.n_model, x.shape[2], x.shape[3],
-                self.dtype):
+        mesh = self.tp
+        w, bias, _, stride, pad = self.conv_args()
+        gate = self.gate_shape(x)
+        if gate is not None and use_fused_bwd(*gate):
             y = conv3x3_same_tp(x, w, mesh)
+            if bias is not None:
+                y = y + bias.view(1, -1, 1, 1)
         else:
-            y = F.conv2d(model_input(x, mesh), w, cast(conv.bias, self.dtype),
-                         conv.stride, conv.padding)
-        return gather_channels(self.bn(y, train), mesh)
+            y = _conv(model_input(x, mesh), w, bias, stride, pad)
+        return self.gathered(gather_channels(self.bn(y, train), mesh))
+
+
+def _conv(x, w, bias, stride, pad, rows=True):
+    """F.conv2d at `stride`, padded pad = (low, high) on both axes, or on
+    the columns alone (`rows=False`: a row block, whose halo rows are its
+    row padding)."""
+    lo, hi = pad
+    if lo == hi:
+        return F.conv2d(x, w, bias, stride, (lo if rows else 0, lo))
+    return F.conv2d(F.pad(x, (lo, hi, lo, hi) if rows else (lo, hi)), w,
+                    bias, stride)
 
 
 def pred_conv(conv, x, dtype):

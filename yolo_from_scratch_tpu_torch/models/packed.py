@@ -24,32 +24,24 @@ canonical channel (`models/fused_bn.py`, `phases`).
 
 Inside the port tensors are NCHW: the NHWC host layout permutes to NCHW
 with the packed channel order unchanged.
+
+The packed convs compose with the rest of the port as the JAX package's
+do: int8 serving repacks a conv's canonical int8 kernel by the same
+rewrite (`repack`, `infer/quantize.py`), a row block (`--spatial`) gives
+each packed conv its halo rows, and a model mesh (`--model-parallel`)
+cuts it on its canonical output channels (`_PackedConv`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from yolo_from_scratch_tpu_torch.data.letterbox import PACK_FACTOR
 from yolo_from_scratch_tpu_torch.models.blocks import ConvBNSiLU, cast
 from yolo_from_scratch_tpu_torch.models.fused_bn import BNSiLU
-from yolo_from_scratch_tpu_torch.ops.conv_bwd import (
-    conv3x3_same,
-    use_fused_bwd,
-)
-
-PACK_FACTOR = 4  # the model input's space-to-depth factor when packed
-
-
-def pack_s2d_host(x: np.ndarray, f: int = PACK_FACTOR) -> np.ndarray:
-    """Space-to-depth on the host: (..., H, W, C) -> (..., H/f, W/f,
-    f*f*C), channel (a*f + b)*C + c for pixel phase (a, b)."""
-    *lead, h, w, c = x.shape
-    x = x.reshape(*lead, h // f, f, w // f, f, c)
-    x = np.moveaxis(x, -4, -3)  # (..., h/f, w/f, f, f, c)
-    return np.ascontiguousarray(x.reshape(*lead, h // f, w // f, f * f * c))
+from yolo_from_scratch_tpu_torch.parallel.mesh import global_rows
 
 
 def pack_s2d(x: torch.Tensor, f: int = PACK_FACTOR) -> torch.Tensor:
@@ -190,18 +182,46 @@ class _PackedConv(ConvBNSiLU):
     """A ConvBNSiLU whose conv runs in a packed domain: `self.conv` holds
     the canonical parameters (and `reset_parameters` draws them as
     `ConvBNSiLU` does), the forward gathers the packed kernel through
-    `self._index` (`kernel_index`) and convolves the packed map with stride `s_packed` and
-    padding `pad`. Subclasses set those three and `phases_out`."""
+    `self._index` (`kernel_index` of `repack`) and convolves the packed
+    map with stride `s_packed` and padding `pad` (low, high). Subclasses
+    define `repack` and call `_setup`.
 
-    def _setup(self, index, s_packed, pad, phases_out, device):
-        self._index = index  # numpy; one device copy each, made at first use
-        self._index_on = {}
-        self._zero_taps = int((index >= self.conv.weight.numel()).sum())
+    `ConvBNSiLU.forward` runs it through `conv_args` and `gathered`, so a
+    row block (`--spatial`) gives it pad[0] halo rows above and kp -
+    s_packed - pad[0] below and K2's gate its haloed tile, as any conv.
+    Cut for a model mesh (`tp`) the canonical weight, bias and BatchNorm
+    hold this rank's rows of the canonical output channels and the gather
+    map is rebuilt over them (`index_canonical_`), so the rank computes
+    (phases_out, c / N) phase-major; the output gathered over the model
+    group is [rank][phase][o], which `gathered` permutes to the packed
+    layout's [phase][rank][o] (backward: the inverse permutation)."""
+
+    def _setup(self, s_packed, pad, phases_out, device):
         self.s_packed = s_packed
         self.pad = pad
         self.phases_out = phases_out
         self.bn = BNSiLU(self.conv.out_channels, phases=phases_out,
                          device=device)
+        self.index_canonical_()
+
+    def repack(self, w: np.ndarray) -> np.ndarray:
+        """The packed HWIO kernel of a canonical HWIO one (any dtype: the
+        int8 kernel of `infer/quantize.py` repacks exactly)."""
+        raise NotImplementedError
+
+    def index_canonical_(self):
+        """(Re)build the gather map over the canonical weight's current
+        shape: at construction, and over a model mesh's slice of the
+        output channels (`parallel/tensor.py::shard_model_`)."""
+        index = kernel_index(tuple(self.conv.weight.shape), self.repack)
+        self._index = index  # numpy; one device copy each, made at first use
+        self._index_on = {}
+        self._zero_taps = int((index >= self.conv.weight.numel()).sum())
+
+    @property
+    def kp(self) -> int:
+        """The packed kernel's size."""
+        return self._index.shape[2]
 
     def packed_weight(self, dtype=None):
         """The packed OIHW kernel, gathered from the canonical weight, in
@@ -216,33 +236,30 @@ class _PackedConv(ConvBNSiLU):
 
     def gate_shape(self, x):
         """K2's gate arguments for packed input x, as the JAX package's
-        `GPackedConvBNSiLU` reads them: the packed kernel, and only a 3x3
-        stride-1 conv padded (1, 1) qualifies."""
+        `GPackedConvBNSiLU` reads them: the packed kernel at the global
+        cout and height, and only a 3x3 stride-1 conv padded (1, 1)
+        qualifies (the packed C3a bottleneck 3x3s, 64 channels @80x80 at
+        640; dW goes back through the gather to the canonical kernel)."""
         cout, cin, kh, _ = self._index.shape
         if kh != 3 or self.s_packed != 1 or self.pad != (1, 1):
             return None
-        return (3, 1, cin, cout, x.shape[2], x.shape[3], self.dtype)
+        n_model = self.tp.n_model if self.tp is not None else 1
+        return (3, 1, cin, cout * n_model,
+                global_rows(x.shape[2], x.shape[3]), x.shape[3], self.dtype)
 
-    def forward(self, x, train: bool = False):
-        w = self.packed_weight()
+    def conv_args(self):
         bias = self.conv.bias
         if bias is not None:
             bias = cast(bias.repeat(self.phases_out), self.dtype)
-        gate = self.gate_shape(x)
-        if gate is not None and use_fused_bwd(*gate):
-            # the packed C3a bottleneck 3x3s (64 channels @80x80 at 640):
-            # the same forward, K2's backward; dW goes back through the
-            # gather to the canonical kernel
-            y = conv3x3_same(x, w)
-            if bias is not None:
-                y = y + bias.view(1, -1, 1, 1)
-        else:
-            lo, hi = self.pad
-            if lo != hi:
-                x = F.pad(x, (lo, hi, lo, hi))
-                lo = 0
-            y = F.conv2d(x, w, bias, self.s_packed, lo)
-        return self.bn(y, train)
+        return (self.packed_weight(), bias, self.kp, self.s_packed,
+                tuple(self.pad))
+
+    def gathered(self, y):
+        if self.phases_out == 1:
+            return y
+        # [rank][phase][o] -> [phase][rank][o]
+        return y.unflatten(1, (self.tp.n_model, self.phases_out,
+                               -1)).transpose(1, 2).flatten(1, 3)
 
 
 class GPackedConvBNSiLU(_PackedConv):
@@ -256,13 +273,14 @@ class GPackedConvBNSiLU(_PackedConv):
         super().__init__(cin, features, kernel, stride, use_bias, dtype,
                          device)
         segs = list(in_segments) if in_segments is not None else None
-        index = kernel_index(
-            tuple(self.conv.weight.shape),
-            lambda w: repack_conv_kernel(w, stride, packed_in, packed_out,
-                                         in_segments=segs)[0])
+        self._packing = (stride, packed_in, packed_out, segs)
         *_, s_packed, pad = packed_taps(kernel, stride, packed_in,
                                         packed_out)
-        self._setup(index, s_packed, pad, packed_out * packed_out, device)
+        self._setup(s_packed, pad, packed_out * packed_out, device)
+
+    def repack(self, w):
+        stride, fi, fo, segs = self._packing
+        return repack_conv_kernel(w, stride, fi, fo, in_segments=segs)[0]
 
 
 class PackedConvBNSiLU(_PackedConv):
@@ -273,10 +291,12 @@ class PackedConvBNSiLU(_PackedConv):
     def __init__(self, cin, features, packed_in, use_bias=True, dtype=None,
                  device=None):
         super().__init__(cin, features, 3, 2, use_bias, dtype, device)
+        self._packed_in = packed_in
         fo = packed_in // 2
-        index = kernel_index(tuple(self.conv.weight.shape),
-                             lambda w: pack_conv_kernel(w, packed_in))
-        self._setup(index, 1, (1, 0), fo * fo, device)
+        self._setup(1, (1, 0), fo * fo, device)
+
+    def repack(self, w):
+        return pack_conv_kernel(w, self._packed_in)
 
 
 class PackedBottleneck(nn.Module):

@@ -19,8 +19,12 @@ same parameters: the stem on the 4x-packed image, (B, S/4, S/4, 48) NHWC
 from the host (a (B, S, S, 3) image is packed on the device), then with
 `packed_interior` the 160x160 stage 2x2-packed, and with `packed_p3` the
 80x80 stage too, whose FPN upsample is a channel tile and whose head input
-is unpacked once. Under a row-block mesh (`--spatial`) or a model mesh the
-packed layouts are not ported; the CLI refuses them.
+is unpacked once. On a row block (`--spatial N`) the packed input is cut
+by the P5 plan like any level (one P5 row is 8 rows of the 4x-packed
+image), every packed conv takes its halo rows, and packing, unpacking and
+the channel tile stay row-local; on a model mesh (`--model-parallel N`)
+the packed convs are cut on their canonical output channels
+(`models/packed.py`).
 """
 
 from __future__ import annotations
@@ -224,9 +228,6 @@ class YOLO(nn.Module):
         equal)."""
         cfg = self.cfg
         mesh = spatial_mesh()
-        if mesh is not None and cfg.packed_stem:
-            raise ValueError("the packed layouts on a row block (--spatial) "
-                             "are not ported")
         n_space = mesh.n_space if mesh is not None else 1
         x = x.to(compute_dtype(cfg))
         if cfg.packed_stem and x.shape[-1] == 3:

@@ -18,7 +18,10 @@ to 16 and the extra channels zero; the packed weights are (N, Kp), row n
 cout n's taps in (ky, kx, c < Cp) order, zero-padded to Kp, a multiple of
 32 (`pack_weights`); Q2 writes (B, Ho, Wo, N), whose NCHW view is
 channels-last. The kernels (`csrc/int8_conv.cu`) read and write exactly
-these.
+these. Q2 takes k = 1, 2 or 3, padded k // 2 above and left and
+k - 1 - k // 2 below and right: a SAME conv for k = 1 and 3, and for k = 2
+the (1, 0) of the space-to-depth packed 2x2 convs (`models/packed.py`,
+4 taps), so that Ho = (H - 1) // stride + 1 in every case.
 
 The plain versions compute the accumulator in float64 on the integers
 (an im2col product, exact: |acc| <= 127^2 * 9 * 512 < 2^53, where float32
@@ -88,8 +91,8 @@ def dequant_vectors(a_scale, w_scale, bias, dtype):
     return (a * w).to(dtype).float(), b.to(dtype).float()
 
 
-def _out_size(size, k, stride):
-    return (size + 2 * (k // 2) - k) // stride + 1
+def _out_size(size, stride):
+    return (size - 1) // stride + 1
 
 
 # ----------------------------------------------------------------- plain
@@ -111,11 +114,12 @@ def int8_conv_acc_plain(xq, w, k, stride):
     """Q2's accumulator, plain: (B, H, W, Cp) int8 and (N, Kp) packed
     weights -> (B, Ho, Wo, N) int32, through an exact float64 product."""
     b, h, wd, cp = xq.shape
-    cols = F.unfold(xq.permute(0, 3, 1, 2).double(), k, padding=k // 2,
-                    stride=stride)  # (B, Cp*k*k, L), channel-major
+    lo, hi = k // 2, k - 1 - k // 2
+    xd = F.pad(xq.permute(0, 3, 1, 2).double(), (lo, hi, lo, hi))
+    cols = F.unfold(xd, k, stride=stride)  # (B, Cp*k*k, L), channel-major
     wm = _unpack_weights(w, k, cp).reshape(w.shape[0], -1).double()
     acc = torch.matmul(wm, cols)  # (B, N, L)
-    ho, wo = _out_size(h, k, stride), _out_size(wd, k, stride)
+    ho, wo = _out_size(h, stride), _out_size(wd, stride)
     return acc.reshape(b, -1, ho, wo).permute(0, 2, 3, 1).to(
         torch.int32).contiguous()
 
@@ -178,9 +182,9 @@ def _launch_int8_conv(xq, w, scale, bias, k, stride, mode):
         raise ValueError("Q2 reads contiguous xq (B, H, W, Cp) and w (N, Kp)")
     b, h, wd, cp = xq.shape
     n = w.shape[0]
-    if k not in (1, 3) or stride < 1:
-        raise ValueError(f"Q2 takes k 1 or 3 and a stride of at least 1, got "
-                         f"k {k}, stride {stride}")
+    if k not in (1, 2, 3) or stride < 1:
+        raise ValueError(f"Q2 takes k 1, 2 or 3 and a stride of at least 1, "
+                         f"got k {k}, stride {stride}")
     if cp % 16 or w.dim() != 2 or w.shape[1] != -(-k * k * cp // 32) * 32:
         raise ValueError(f"Q2 reads xq with Cp a multiple of 16 and w (N, Kp) "
                          f"with Kp = k*k*Cp rounded up to 32, got Cp {cp}, w "
@@ -196,7 +200,7 @@ def _launch_int8_conv(xq, w, scale, bias, k, stride, mode):
         raise ValueError("Q2's epilogue reads float32 scale and bias of "
                          f"shape ({n},)")
     lib = _lib()
-    ho, wo = _out_size(h, k, stride), _out_size(wd, k, stride)
+    ho, wo = _out_size(h, stride), _out_size(wd, stride)
     dtype = {_OUT_INT32: torch.int32, _OUT_FLOAT: torch.float32,
              _OUT_BF16: torch.bfloat16}[mode]
     out = torch.empty((b, ho, wo, n), dtype=dtype, device=xq.device)
@@ -296,7 +300,7 @@ def int8_conv(xq: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 def _(xq, w, scale, bias, k, stride, bf16):
     b, h, wd, _ = xq.shape
     return xq.new_empty(
-        (b, _out_size(h, k, stride), _out_size(wd, k, stride), w.shape[0]),
+        (b, _out_size(h, stride), _out_size(wd, stride), w.shape[0]),
         dtype=torch.bfloat16 if bf16 else torch.float32)
 
 

@@ -229,13 +229,13 @@ def shard_model_(model, mesh: Mesh | None, min_size: int = MIN_SHARD_SIZE):
     slices: every parameter and BatchNorm statistic of `sharded_keys`
     becomes its rows, and each conv that holds them gathers its output
     over `mesh`'s model group (`ConvBNSiLU.tp`, a prediction conv's `tp`).
-    `model.tp_mesh` and `model.tp_keys` record the cut. Nothing changes
-    without a model axis. Returns `model`. A packed model (`cfg.
-    packed_stem`) is not cut yet (ROADMAP A10b): it raises."""
+    `model.tp_mesh` and `model.tp_keys` record the cut. A packed conv
+    (`models/packed.py`) is cut on its canonical leaves like any other and
+    rebuilds its packed kernel's gather map over its slice
+    (`index_canonical_`). Nothing changes without a model axis. Returns
+    `model`."""
     if mesh is None or mesh.n_model == 1:
         return model
-    if getattr(getattr(model, "cfg", None), "packed_stem", False):
-        raise ValueError("--model-parallel of a packed model is not ported")
     state = model.state_dict()
     keys = sharded_keys(state, mesh.n_model, min_size)
     for name, module, weight in _sharded_convs(model):
@@ -257,6 +257,10 @@ def shard_model_(model, mesh: Mesh | None, min_size: int = MIN_SHARD_SIZE):
             for leaf, b in list(module.named_buffers(recurse=False)):
                 if prefix + leaf in keys:
                     setattr(module, leaf, _rows(b, mesh).clone())
+    for module in model.modules():
+        if getattr(module, "tp", None) is not None and hasattr(
+                module, "index_canonical_"):
+            module.index_canonical_()
     model.tp_mesh, model.tp_keys = mesh, keys
     return model
 

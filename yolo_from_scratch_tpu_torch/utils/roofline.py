@@ -122,9 +122,10 @@ def int8_conv_work(b, h, w, cin, cout, k, stride, out_itemsize):
     integer operations, M = B Ho Wo, K = k^2 Cin (the real channels, not
     Q1's zero padding); xq read once (B H W Cin int8), the (Cout, K) int8
     weights and the two float32 vectors read, the output written in its
-    type (4 bytes for the raw int32)."""
-    ho = (h + 2 * (k // 2) - k) // stride + 1
-    wo = (w + 2 * (k // 2) - k) // stride + 1
+    type (4 bytes for the raw int32). Ho = (H - 1) // stride + 1 for
+    every conv Q2 takes: a SAME k x k, or a packed 2x2 padded (1, 0)."""
+    ho = (h - 1) // stride + 1
+    wo = (w - 1) // stride + 1
     m, kk = b * ho * wo, k * k * cin
     return (2 * m * cout * kk,
             b * h * w * cin + cout * kk + 2 * cout * 4

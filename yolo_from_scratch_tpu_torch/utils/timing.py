@@ -61,9 +61,10 @@ def time_per_iter(fn, n1, n2, reps=3):
 # spin kernels (`torch.cuda._sleep(0)`) each trace launches before its
 # calls: in a process that has taken many traces the profiler can drop
 # the first device events of every trace (on an H100, one call of 20 in
-# each of six traces in a row, and in another process most of 20), so a
-# trace is read only when one of these is in it, and their time is left
-# out
+# each of six traces in a row, and in another process most of 20; in a
+# third all 64 sentinels of six traces in a row), so a trace is read only
+# when one of these is in it, and their time is left out. Each trace
+# taken again launches twice as many as the one before
 TRACE_SENTINELS = 64
 SENTINEL_KERNEL = "spin_kernel"
 # traces taken of one timing before it raises: now and then the profiler
@@ -74,24 +75,26 @@ TRACE_ATTEMPTS = 6
 RETRY_PAUSE_S = 0.5
 
 
-def kernel_ms(fn, runs):
-    """{CUDA kernel name: device ms} over `runs` calls of fn, from the
-    profiler's self times. Host launch overhead is not in it, unlike
-    `median_ms`. A trace was cut short when none of the TRACE_SENTINELS
+def kernel_trace(fn, runs):
+    """{CUDA kernel name: (launches, device ms)} over `runs` calls of fn,
+    from the profiler's counts and self times, the sentinels left out.
+    Host launch overhead is not in it, unlike `median_ms`. A trace was cut
+    short when none of the TRACE_SENTINELS
     spin kernels launched before the calls is in it, or when a kernel's
     count is not a multiple of `runs` (every call of fn launches the same
     kernels); such a trace, or one with no device time, is taken again
-    after a pause, up to TRACE_ATTEMPTS traces; then it raises
-    RuntimeError."""
+    after a pause, with twice the sentinels, up to TRACE_ATTEMPTS traces;
+    then it raises RuntimeError."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(TRACE_ATTEMPTS):
         if attempt:
-            log(f"kernel_ms: trace {attempt} {fault}; taking another")
+            log(f"kernel_trace: trace {attempt} {fault}; taking another")
             time.sleep(RETRY_PAUSE_S)
+        launched = TRACE_SENTINELS << attempt
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(TRACE_SENTINELS):
+            for _ in range(launched):
                 torch.cuda._sleep(0)
             for _ in range(runs):
                 fn()
@@ -100,20 +103,26 @@ def kernel_ms(fn, runs):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         sentinels = sum(e.count for e in events if SENTINEL_KERNEL in e.key)
         events = [e for e in events if SENTINEL_KERNEL not in e.key]
-        times = {e.key: getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-                 for e in events}
+        trace = {e.key: (e.count, getattr(
+            e, "self_device_time_total",
+            getattr(e, "self_cuda_time_total", 0.0)) / 1e3) for e in events}
         short = [f"{e.key} x{e.count}" for e in events if e.count % runs]
-        if sum(times.values()) <= 0:
+        if sum(ms for _, ms in trace.values()) <= 0:
             fault = "held no device time"
         elif not sentinels or short:
-            fault = (f"was cut short ({sentinels} of {TRACE_SENTINELS} "
+            fault = (f"was cut short ({sentinels} of {launched} "
                      f"sentinels; {runs} calls: {', '.join(short)})")
         else:
-            return times
+            return trace
     raise RuntimeError(f"the profiler saw no device time or a trace cut "
                        f"short in {TRACE_ATTEMPTS} traces of {runs} calls "
                        f"({fault})")
+
+
+def kernel_ms(fn, runs):
+    """{CUDA kernel name: device ms} over `runs` calls of fn
+    (`kernel_trace`)."""
+    return {k: ms for k, (_, ms) in kernel_trace(fn, runs).items()}
 
 
 def device_ms(fn, runs=20, warmup=2):
