@@ -39,6 +39,8 @@ import time
 import numpy as np
 import torch
 
+from yolo_from_scratch_tpu_torch.utils.metrics_log import span
+
 
 def _epoch_chunks(n, chunk_images, shuffle, rng):
     """Epoch permutation split into equal chunks of `chunk_images`,
@@ -56,7 +58,10 @@ def _epoch_chunks(n, chunk_images, shuffle, rng):
 class _Stager:
     """Rows of host arrays onto `device`: on a card, gathered straight into
     pinned memory and uploaded on a stream of this stager's own, with an
-    event recorded after the uploads; on the CPU, gathered host tensors."""
+    event recorded after the uploads; on the CPU, gathered host tensors.
+    Spans (`utils/metrics_log.py`), on the staging thread: `stream.gather`
+    (the host tensors' bytes) and `stream.upload` (enqueueing the copies
+    and the event)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -66,17 +71,20 @@ class _Stager:
     def put(self, arrays, rows, lead=None):
         """(tensors, event or None): `rows` of each array (a memmap or an
         ndarray), reshaped to `lead` + the row shape when given."""
-        host = []
-        for a in arrays:
-            dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
-            t = torch.empty((len(rows), *a.shape[1:]), dtype=dtype,
-                            pin_memory=self.stream is not None)
-            # mode "clip" writes into `out` unbuffered; rows are in range
-            np.take(a, rows, axis=0, out=t.numpy(), mode="clip")
-            host.append(t if lead is None else t.reshape(*lead, *a.shape[1:]))
+        with span("stream.gather") as sp:
+            host = []
+            for a in arrays:
+                dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+                t = torch.empty((len(rows), *a.shape[1:]), dtype=dtype,
+                                pin_memory=self.stream is not None)
+                # mode "clip" writes into `out` unbuffered; rows are in range
+                np.take(a, rows, axis=0, out=t.numpy(), mode="clip")
+                host.append(t if lead is None
+                            else t.reshape(*lead, *a.shape[1:]))
+            sp.nbytes = sum(t.nbytes for t in host)
         if self.stream is None:
             return host, None
-        with torch.cuda.stream(self.stream):
+        with span("stream.upload"), torch.cuda.stream(self.stream):
             staged = [t.to(self.device, non_blocking=True) for t in host]
             event = torch.cuda.Event()
             event.record()
@@ -153,14 +161,14 @@ class ChunkStream:
 
     def __iter__(self):
         """One epoch of staged chunks (gather and upload run one chunk
-        ahead on a background thread)."""
+        ahead on a background thread). The span `stream.take` times the
+        consumer's wait for each staged chunk."""
         chunks = _epoch_chunks(
             len(self.cache), self.global_batch * self.steps_per_chunk,
             self.shuffle, self._rng)
         stager = _Stager(self.device)
         q: queue.Queue = queue.Queue(maxsize=2)
         stop = threading.Event()
-        sentinel = object()
 
         def producer():
             try:
@@ -176,19 +184,17 @@ class ChunkStream:
                         return
             except BaseException as e:  # surface IO errors to the consumer
                 q.put(e)
-            else:
-                q.put(sentinel)
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
-                if item is sentinel:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                yield tuple(_Stager.take(*item))
+            for _ in chunks:
+                with span("stream.take"):
+                    item = q.get()
+                    if isinstance(item, BaseException):
+                        raise item
+                    staged = tuple(_Stager.take(*item))
+                yield staged
         finally:
             stop.set()
             try:

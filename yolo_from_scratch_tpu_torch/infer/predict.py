@@ -78,6 +78,7 @@ from yolo_from_scratch_tpu_torch.ops.nms_cuda import (
     batched_nms_fixed_cuda,
     batched_nms_fixed_cuda_images,
 )
+from yolo_from_scratch_tpu_torch.utils.metrics_log import span
 
 
 def default_topk(img_size: int, preds_per_cell: int = 3) -> int:
@@ -325,9 +326,10 @@ def _quantize(model, state_dict, cfg, calib_images):
         quantize_model,
     )
 
-    batches = calib_batches_from_images(calib_images, cfg.img_size,
-                                        packed_stem=cfg.packed_stem)
-    return quantize_model(model, batches, state_dict=state_dict)
+    with span("serve.calibrate"):
+        batches = calib_batches_from_images(calib_images, cfg.img_size,
+                                            packed_stem=cfg.packed_stem)
+        return quantize_model(model, batches, state_dict=state_dict)
 
 
 def _pixel_model(model, state_dict, cfg, device):
@@ -569,24 +571,40 @@ class BatchPredictor:
     def stage(self, images):
         """Host letterbox of every image (packed, for a packed model),
         uploaded as one uint8 batch. Returns the postprocess args."""
-        staged = [letterbox_input(image, self.cfg.img_size)
-                  for image in images]
-        batch = torch.from_numpy(_host_pack(np.stack([s[0] for s in staged]),
-                                            self.cfg))
-        params = torch.tensor([s[1:] for s in staged], dtype=torch.float32)
-        return (batch.to(self.device),
-                *params.to(self.device).unbind(1))
+        with span("serve.letterbox"):
+            staged = [letterbox_input(image, self.cfg.img_size)
+                      for image in images]
+            batch = torch.from_numpy(_host_pack(
+                np.stack([s[0] for s in staged]), self.cfg))
+            params = torch.tensor([s[1:] for s in staged],
+                                  dtype=torch.float32)
+        with span("serve.upload", nbytes=batch.nbytes + params.nbytes):
+            return (batch.to(self.device),
+                    *params.to(self.device).unbind(1))
 
     @torch.inference_mode()
     def __call__(self, images):
         """images: list of paths, PIL images or HWC uint8 arrays. Returns a
         list (per image) of [(x1, y1, x2, y2, conf, cls), ...] in original
-        coordinates."""
-        if self.device_letterbox:
-            staged = _stage_batch([_image_array(i) for i in images],
-                                  self.cfg.img_size)
-            out = self._post_lb(*(torch.from_numpy(a).to(self.device)
-                                  for a in staged))
-        else:
-            out = self.postprocess(*self.stage(images))
-        return detections_per_image(*(t.cpu() for t in out), len(images))
+        coordinates. Spans (`utils/metrics_log.py`): `serve.call` around
+        the call; inside it `serve.letterbox`, `serve.upload`,
+        `serve.forward` (the host's dispatch), `serve.download` (which
+        waits for the card) and `serve.lists`."""
+        with span("serve.call"):
+            if self.device_letterbox:
+                with span("serve.letterbox"):
+                    staged = _stage_batch([_image_array(i) for i in images],
+                                          self.cfg.img_size)
+                with span("serve.upload",
+                          nbytes=sum(a.nbytes for a in staged)):
+                    args = [torch.from_numpy(a).to(self.device)
+                            for a in staged]
+                post = self._post_lb
+            else:
+                args, post = self.stage(images), self.postprocess
+            with span("serve.forward"):
+                out = post(*args)
+            with span("serve.download"):
+                host = [t.cpu() for t in out]
+            with span("serve.lists"):
+                return detections_per_image(*host, len(images))

@@ -23,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from yolo_from_scratch_tpu_torch.utils.metrics_log import span
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
@@ -85,7 +87,9 @@ def _run_all(cmds):
 
 def build() -> tuple[Path, float]:
     """Compile the sources if the hashed library is absent. Returns (path,
-    seconds spent compiling, 0.0 when the library was already built)."""
+    seconds spent compiling, 0.0 when the library was already built). The
+    span `kernels.build` times a compile (none when the library is
+    there)."""
     target = library_path()
     if target.exists():
         return target, 0.0
@@ -100,9 +104,11 @@ def build() -> tuple[Path, float]:
         tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
         t0 = time.perf_counter()
         try:
-            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-                            for s, o in zip(_sources(), objs)])
-            _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+            with span("kernels.build"):
+                log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                 str(s)] for s, o in zip(_sources(), objs)])
+                _run_all([[nvcc, "-shared", "-o", str(tmp),
+                           *map(str, objs)]])
         finally:
             for o in objs:
                 o.unlink(missing_ok=True)

@@ -35,6 +35,8 @@ from pathlib import Path
 
 import torch
 
+from yolo_from_scratch_tpu_torch.utils.metrics_log import span
+
 
 def _state_tensors(model, optimizer, *others):
     """The training state's tensors apart from the optimizer's per-parameter
@@ -108,29 +110,31 @@ def capture(run, warmup, model, optimizer, *others) -> torch.cuda.CUDAGraph:
     """Capture `run()` as a CUDA graph after `warmup()` on a side stream;
     the training state (and `others`, an EMA model) is as it was before
     the warm-up when this returns. Raises RuntimeError if the optimizer is
-    not capturable or the capture fails."""
+    not capturable or the capture fails. The span `graph.capture` times
+    the warm-up and the capture."""
     if not all(g.get("capturable") for g in optimizer.param_groups):
         raise RuntimeError("a CUDA graph of training steps needs a "
                            "capturable optimizer (make_optimizer(..., "
                            "capturable=True))")
-    snapshot = Snapshot(model, optimizer, *others)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        warmup()
-    torch.cuda.current_stream().wait_stream(side)
-    snapshot.restore()
-    optimizer.zero_grad(set_to_none=True)
+    with span("graph.capture"):
+        snapshot = Snapshot(model, optimizer, *others)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            warmup()
+        torch.cuda.current_stream().wait_stream(side)
+        snapshot.restore()
+        optimizer.zero_grad(set_to_none=True)
 
-    graph = torch.cuda.CUDAGraph()
-    benchmark = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = False
-    try:
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            run()
-    except RuntimeError as e:
-        raise RuntimeError(f"CUDA graph capture failed at {_failed_at(e)}: "
-                           f"{e}") from e
-    finally:
-        torch.backends.cudnn.benchmark = benchmark
-    return graph
+        graph = torch.cuda.CUDAGraph()
+        benchmark = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                run()
+        except RuntimeError as e:
+            raise RuntimeError(f"CUDA graph capture failed at "
+                               f"{_failed_at(e)}: {e}") from e
+        finally:
+            torch.backends.cudnn.benchmark = benchmark
+        return graph

@@ -154,6 +154,7 @@ from yolo_from_scratch_tpu_torch.utils.convert import (
     from_flax_variables,
     to_flax_variables,
 )
+from yolo_from_scratch_tpu_torch.utils.metrics_log import span
 
 GRAD_CLIP_NORM = 10.0
 METRIC_KEYS = ("loss", "bbox", "obj", "cls")
@@ -773,7 +774,12 @@ class _ChunkTrainer:
     ones it captured (their addresses are compared at every call): a
     state whose tensors were replaced since (an optimizer's
     `load_state_dict`) is captured anew, never read through freed
-    memory."""
+    memory.
+
+    Spans (`utils/metrics_log.py`): `train.chunk` around a call; inside a
+    replay `train.copy_inputs` and `train.replay` (and `graph.capture` at
+    a capture). None is inside the captured steps, which run on the host
+    only at capture."""
 
     def __init__(self, spec, body, select, n_resident=0, ema=False,
                  mesh=None):
@@ -790,20 +796,21 @@ class _ChunkTrainer:
                                                draws.step(i), ema))
 
     def __call__(self, carry, *args):
-        state, ema = carry if self.ema else (carry, None)
-        resident, chunk = args[:self.n_resident], args[self.n_resident:]
-        n, b = chunk[0].shape[:2]
-        device = chunk[0].device
-        if chunk_path(device, self.mesh).startswith("eager"):
-            draws = ChunkDraws(self.spec, n, b, device, self.mesh)
-            draws.load(state.step)
-            metrics = torch.empty((n, len(METRIC_KEYS)), device=device)
-            self._steps(state, ema, resident, chunk, draws, metrics, n)
-        else:
-            metrics = self._replay(state, ema, resident, chunk, n, b)
-        state.step += n
-        metrics = dict(zip(METRIC_KEYS, metrics.mean(0).unbind()))
-        return ((state, ema) if self.ema else state), metrics
+        with span("train.chunk"):
+            state, ema = carry if self.ema else (carry, None)
+            resident, chunk = args[:self.n_resident], args[self.n_resident:]
+            n, b = chunk[0].shape[:2]
+            device = chunk[0].device
+            if chunk_path(device, self.mesh).startswith("eager"):
+                draws = ChunkDraws(self.spec, n, b, device, self.mesh)
+                draws.load(state.step)
+                metrics = torch.empty((n, len(METRIC_KEYS)), device=device)
+                self._steps(state, ema, resident, chunk, draws, metrics, n)
+            else:
+                metrics = self._replay(state, ema, resident, chunk, n, b)
+            state.step += n
+            metrics = dict(zip(METRIC_KEYS, metrics.mean(0).unbind()))
+            return ((state, ema) if self.ema else state), metrics
 
     def _replay(self, state, ema, resident, chunk, n, b):
         from yolo_from_scratch_tpu_torch.train import graphs
@@ -823,10 +830,12 @@ class _ChunkTrainer:
                                                  state.optimizer, *others),
                            state.model, state.optimizer, ema, *captured)
         graph, inputs, draws, metrics = self._graph[5:]
-        for dst, src in zip(inputs, chunk):
-            dst.copy_(src, non_blocking=True)
+        with span("train.copy_inputs"):
+            for dst, src in zip(inputs, chunk):
+                dst.copy_(src, non_blocking=True)
         draws.load(state.step)
-        graph.replay()
+        with span("train.replay"):
+            graph.replay()
         return metrics
 
     def _capture(self, state, ema, resident, chunk, n, b):
