@@ -336,6 +336,14 @@ and prints no result):
    --export` (its artifact serving a request) and `--packed-interior
    --model-parallel 2` and `--packed stem --spatial 2` in two processes
    each, exit 0 (`--packed p3 --int8` ran in (b)).
+28. L1, the letterbox on the card (`csrc/letterbox.cu`): bit for bit
+   against PIL's `letterbox_image` and its plain version on the card at
+   ten frame sizes in one batch (scale 1, shrink, enlarge, odd, the 1-px
+   clamp), pixel and packed layouts, one launch a batch with its
+   resampled images counted; at B=32 on the serving cells' 640x480 /
+   480x640 frames and on 1920x1080 frames, its device ms beside its bound
+   (bytes), the plain version's, the host's staging and upload and the
+   host PIL path it replaced.
 
 The line before the last is the kernels' JSON record (per kernel: launches
 on the main path, largest error against the plain version, device ms of
@@ -352,7 +360,8 @@ model-parallel paths, on phase 24's world compositions (K2's
 phase 25's unequal blocks (`uneven_launches`), on phase 26's packed
 paths (`packed_launches`) and on phase 27's packed compositions
 (`packed_int8_launches`, `packed_artifact_launches`,
-`packed_mesh_launches`), K2 also
+`packed_mesh_launches`), L1 its times at phase 28's two batches
+(`timed`), K2 also
 its times and bounds at phase 26 (b)'s packed C3a conv (`packed_c3a`),
 phase 22's
 haloed tiles, phase 23's global shapes, phase 24 (c)'s tiles
@@ -410,13 +419,14 @@ from yolo_from_scratch_tpu_torch.infer.predict import (
     Predictor,
     _stage_batch,
     default_topk,
+    letterbox_input,
 )
 from yolo_from_scratch_tpu_torch.kernels.build import build, load_library
 from yolo_from_scratch_tpu_torch.models import anchor_free
 from yolo_from_scratch_tpu_torch.models.blocks import ConvBNSiLU
 from yolo_from_scratch_tpu_torch.models.packed import pack_s2d
 from yolo_from_scratch_tpu_torch.models.yolo import YOLO, cast_convs_
-from yolo_from_scratch_tpu_torch.ops import conv_bwd
+from yolo_from_scratch_tpu_torch.ops import conv_bwd, letterbox_cuda
 from yolo_from_scratch_tpu_torch.ops import nms as nms_plain
 from yolo_from_scratch_tpu_torch.ops import nms_cuda
 from yolo_from_scratch_tpu_torch.ops import quant
@@ -440,7 +450,7 @@ from yolo_from_scratch_tpu_torch.train.steps import (
     make_loss_fn,
     make_train_step,
 )
-from yolo_from_scratch_tpu_torch.utils import roofline
+from yolo_from_scratch_tpu_torch.utils import metrics_log, roofline
 from yolo_from_scratch_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     read_payload,
@@ -518,6 +528,16 @@ CONV_BWD_ENTRIES = ("conv3x3_bwd", "patch_bwd", "tap_bwd", "chain_bwd")
 NMS_ENTRIES = ("nms_mask_pass", "nms_scan")
 # the kernels of csrc/int8_conv.cu: Q2 (the int8 conv) and Q1 (quantize)
 INT8_ENTRIES = ("int8_conv_tma_kernel", "quant_input_kernel")
+# L1, the letterbox of csrc/letterbox.cu
+LETTERBOX_ENTRIES = ("letterbox_u8_kernel",)
+# phase 28: L1 against PIL at these (w, h): scale 1, square, shrink,
+# enlarge, odd, the 1-px clamp; timed at B=32 on the serving cells' frames
+# (half 640x480, half 480x640) and on 1920x1080 camera frames
+L1_GRID = ((640, 480), (480, 640), (640, 640), (1920, 1080), (1280, 720),
+           (320, 240), (100, 37), (333, 517), (641, 479), (1, 4000))
+L1_TIMED = (("640x480", ((640, 480), (480, 640))),
+            ("1920x1080", ((1920, 1080),)))
+L1_BATCH = 32
 # phase 3: (B, N) at which every NMS case runs, and the max_keep values
 # below N (65 and 100 fall inside a scan chunk of 64 ranks)
 NMS_SHAPES = ((1, 300), (1, 4096), (8, 300), (8, 4096), (1, 4097),
@@ -1465,20 +1485,21 @@ def phase_batch(state, cfg, dev):
               for _ in range(BATCH)]
     predictor(images)  # warm-up: cuDNN handles and algorithm choice
     torch.cuda.synchronize()
-    nms_cuda.launches = 0
+    nms_cuda.launches = letterbox_cuda.launches = 0
     latencies = []
     for _ in range(N_BATCHES):
         t0 = time.perf_counter()
         results = predictor(images)  # ends in a device -> host copy
         latencies.append((time.perf_counter() - t0) * 1e3)
-    launches = nms_cuda.launches
-    if launches != N_BATCHES:
-        raise AssertionError(f"NMS kernel launched {launches} times for "
-                             f"{N_BATCHES} batches")
+    launches, l1_launches = nms_cuda.launches, letterbox_cuda.launches
+    if launches != N_BATCHES or l1_launches != N_BATCHES:
+        raise AssertionError(f"NMS kernel launched {launches} times, L1 "
+                             f"{l1_launches}, for {N_BATCHES} batches")
     _finite_nonempty(results, "batch image")
     p50 = statistics.median(latencies)
     log(f"batched serving B={BATCH}: {N_BATCHES} calls, NMS kernel launches "
-        f"{launches}, detections per image {[len(d) for d in results]}")
+        f"{launches}, L1 launches {l1_launches}, detections per image "
+        f"{[len(d) for d in results]}")
     log(f"batch latency p50 {p50:.3f} ms (min {min(latencies):.3f}, max "
         f"{max(latencies):.3f}; host clock, {BATCH} letterbox-free 640x640 "
         f"uint8 arrays in, detection lists out): {BATCH * 1e3 / p50:.1f} "
@@ -1594,7 +1615,7 @@ def phase_batch(state, cfg, dev):
     log(f"PipelinedPredictor depth {PIPELINE_DEPTH}: {len(requests)} requests "
         f"equal to Predictor's, {len(requests) / pipe_s:.1f} img/s (host "
         f"clock, one pass)")
-    return launches, (k_ms, bound)
+    return launches, l1_launches, (k_ms, bound)
 
 
 def _host_letterbox(arrays):
@@ -6394,6 +6415,115 @@ def phase_packed_compositions(dev, workdir, yaml_path, ckpts, card):
                 k2_times=k2_times)
 
 
+def _span_ms(fn, names, runs=5):
+    """Mean host-clock ms a call inside each span of `names` over `runs`
+    calls of fn, after one (the spans' counters)."""
+    fn()
+    torch.cuda.synchronize()
+    before = metrics_log.counters()
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize()
+    after = metrics_log.counters()
+    return [(after[n]["ns"] - before[n]["ns"]) / 1e6
+            / (after[n]["calls"] - before[n]["calls"]) for n in names]
+
+
+def _host_ms(fn, runs=5):
+    """Median host-clock ms of `runs` calls of fn, after one."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_letterbox_kernel(dev):
+    """28: L1 (`csrc/letterbox.cu`) against PIL (`letterbox_image`) and its
+    plain version on the card, bit for bit, at L1_GRID in one batch, in
+    the pixel and the packed layout, with its launch and resample counts;
+    then at B=32 on each of L1_TIMED: L1's device ms (profiler) beside its
+    bound (the frames' bytes read once and the output written once at
+    3.35 TB/s), the plain version's ms on the card (CUDA events), the
+    host's staging and upload ms (host clock, the spans' means) and the
+    host PIL path it replaced (`letterbox_input` and `np.stack`). Returns
+    {name: timings}."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for w, h in L1_GRID]
+    staging = letterbox_cuda.Staging(dev)
+    resized = sum(max(w, h) != IMG_SIZE for w, h in L1_GRID)
+    for packed in (False, True):
+        launches, resampled = (letterbox_cuda.launches,
+                               letterbox_cuda.resampled)
+        imgs, *params = staging.letterbox(frames, IMG_SIZE, packed)
+        torch.cuda.synchronize()
+        if (letterbox_cuda.launches != launches + 1
+                or letterbox_cuda.resampled != resampled + resized):
+            raise AssertionError("L1: a launch of the batch, its resized "
+                                 "images counted")
+        plain = letterbox_cuda.letterbox_plain(staging.buffer, len(frames),
+                                               IMG_SIZE, packed)
+        if not torch.equal(imgs, plain[0]) or not all(
+                torch.equal(a, b) for a, b in zip(params, plain[1:])):
+            raise AssertionError(f"L1 differs from its plain version on the "
+                                 f"card (packed={packed})")
+        for i, f in enumerate(frames):
+            want = letterbox_image(Image.fromarray(f), IMG_SIZE)[0]
+            want = pack_s2d_host(want) if packed else want
+            got = imgs[i].cpu().numpy()
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"L1 differs from PIL at {L1_GRID[i]} (packed={packed}):"
+                    f" {int((got != want).sum())} bytes")
+    log(f"L1 == PIL == plain bit for bit at {len(L1_GRID)} sizes "
+        f"{L1_GRID} in one batch, pixel and packed layouts; {resized} "
+        f"resampled a launch")
+    out = {}
+    for name, shapes in L1_TIMED:
+        batch = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                 for w, h in (shapes[i % len(shapes)]
+                              for i in range(L1_BATCH))]
+        pack_ms, upload_ms = _span_ms(
+            lambda: staging.letterbox(batch, IMG_SIZE),
+            ("serve.letterbox", "serve.upload"))
+        used = metrics_log.counters()["serve.upload"]
+        used = used["bytes"] // used["calls"]
+        frame_bytes = sum(f.nbytes for f in batch)
+        row = {"frame_bytes": frame_bytes, "staged_bytes": used,
+               "pack_ms": pack_ms, "upload_ms": upload_ms,
+               "upload_gb_s": used / upload_ms / 1e6,
+               "pil_ms": _host_ms(lambda: np.stack(
+                   [letterbox_input(f, IMG_SIZE)[0] for f in batch]),
+                   runs=3)}
+        for packed in (False, True):
+            tag = "packed_" if packed else ""
+            imgs = staging.letterbox(batch, IMG_SIZE, packed)[0]
+            per = kernel_ms(lambda: staging.letterbox(batch, IMG_SIZE,
+                                                      packed), TIMING_RUNS)
+            ms = sum(v for k, v in per.items()
+                     if any(e in k for e in LETTERBOX_ENTRIES)) / TIMING_RUNS
+            bound = (frame_bytes + imgs.numel()) / 3.35e12 * 1e3
+            row.update({f"{tag}ms": ms, f"{tag}bound_ms": bound,
+                        f"{tag}share": bound / ms})
+        row["plain_ms"] = median_ms(lambda: letterbox_cuda.letterbox_plain(
+            staging.buffer, L1_BATCH, IMG_SIZE), runs=3, warmup=1)
+        out[name] = row
+        log(f"L1 B={L1_BATCH} {name}: {row['ms']:.4f} ms (bound "
+            f"{row['bound_ms']:.4f}, bytes, {row['share']:.0%}), packed "
+            f"{row['packed_ms']:.4f} ms ({row['packed_share']:.0%}); plain "
+            f"{row['plain_ms']:.3f} ms (CUDA events); host staging "
+            f"{pack_ms:.2f} ms for {frame_bytes / 1e6:.1f} MB of frames, "
+            f"upload {upload_ms:.2f} ms ({row['upload_gb_s']:.1f} GB/s, "
+            f"{used / 1e6:.1f} MB), the host PIL path it replaced "
+            f"{row['pil_ms']:.1f} ms; {_smi('name,power.limit')}")
+    return out
+
+
 def main():
     t_main = time.perf_counter()
 
@@ -6426,13 +6556,15 @@ def main():
         if n:
             spills[entry] = n
     checked = [e for e in spills if any(
-        k in e for k in CONV_BWD_ENTRIES + NMS_ENTRIES + INT8_ENTRIES)]
+        k in e for k in CONV_BWD_ENTRIES + NMS_ENTRIES + INT8_ENTRIES
+        + LETTERBOX_ENTRIES)]
     log(f"ptxas: spill bytes (stores + loads) {spills or 'none'}")
     if checked:
-        raise AssertionError(f"ptxas spilled in conv backward, NMS or int8 "
-                             f"kernels {checked} (log above)")
+        raise AssertionError(f"ptxas spilled in conv backward, NMS, int8 or "
+                             f"letterbox kernels {checked} (log above)")
     log("ptxas: no spills in the conv backward kernels (K2-K5), the NMS "
-        "kernel's two passes (K1) or the int8 kernels (Q1, Q2)")
+        "kernel's two passes (K1), the int8 kernels (Q1, Q2) or the "
+        "letterbox (L1)")
     lib = load_library()
     for b, n in NMS_WORKSPACES:
         geom = nms_cuda.geometry(lib, b, n)
@@ -6488,7 +6620,8 @@ def main():
 
         # 13. batched serving, 14. the device letterbox, 15. the CLI's
         # --map and --compute-anchors
-        batch_launches, (batch_ms, batch_bound) = phase_batch(state, cfg, dev)
+        batch_launches, batch_l1_launches, (batch_ms, batch_bound) = \
+            phase_batch(state, cfg, dev)
         phase_device_letterbox(state, cfg, dev)
         map_launches = phase_cli(yaml_path, ckpt_path)
         log(f"NMS kernel launches through the entry points: --val-det "
@@ -6703,6 +6836,10 @@ def main():
             f"{pc['q2_cmp']}")
         done(27)
 
+    # 28. L1, the letterbox on the card, against PIL; its time at B=32
+    l1 = phase_letterbox_kernel(dev)
+    done(28)
+
     print(json.dumps({"kernels": [{
         "name": "nms_bitmask",
         "route": "cuda",
@@ -6877,6 +7014,20 @@ def main():
                         "library_ms": r.get("int_mm"),
                         "conv_bf16_ms": r.get("conv_bf16")}
                        for key, r in pc["q2_rows"].items()],
+    }, {
+        "name": "letterbox",
+        "route": "cuda",
+        "source": "yolo_from_scratch_tpu_torch/csrc/letterbox.cu",
+        "replaces": None,
+        # the main path's launches: phase 13's timed BatchPredictor calls
+        "launches": batch_l1_launches,
+        "max_abs_err": 0,
+        "ms": l1["640x480"]["ms"],
+        "plain_ms": l1["640x480"]["plain_ms"],
+        "bound_ms": l1["640x480"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "timed": l1,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

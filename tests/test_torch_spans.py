@@ -18,6 +18,7 @@ from yolo_from_scratch_tpu_torch import YoloConfig
 from yolo_from_scratch_tpu_torch.data.stream import ChunkStream
 from yolo_from_scratch_tpu_torch.infer.predict import BatchPredictor
 from yolo_from_scratch_tpu_torch.models.yolo import YOLO
+from yolo_from_scratch_tpu_torch.ops import letterbox_cuda
 from yolo_from_scratch_tpu_torch.train.steps import (
     TrainState,
     make_optimizer,
@@ -36,8 +37,8 @@ from yolo_from_scratch_tpu_torch.utils.metrics_log import (
 S, B, NC, K = 64, 2, 2, 4
 CFG = YoloConfig(num_classes=NC, img_size=S, width_mult=0.25,
                  depth_mult=0.33)
-SERVE_CHILDREN = {"serve.letterbox", "serve.upload", "serve.forward",
-                  "serve.download", "serve.lists"}
+SERVE_CHILDREN = {"serve.letterbox", "serve.upload", "serve.l1",
+                  "serve.forward", "serve.download", "serve.lists"}
 NAMES = SERVE_CHILDREN | {"serve.call", "serve.calibrate", "stream.gather",
                           "stream.upload", "stream.take", "train.chunk",
                           "train.copy_inputs", "train.replay",
@@ -90,8 +91,13 @@ def test_serve_counters_are_exact(predictor):
     assert c["serve.call"]["calls"] == calls
     for name in SERVE_CHILDREN:
         assert c[name]["calls"] == calls and c[name]["ns"] > 0
-    params = B * 3 * 4  # (scale, pad_top, pad_left) float32 an image
-    assert c["serve.upload"]["bytes"] == calls * (B * S * S * 3 + params)
+    # the raw frames (each a multiple of 16 bytes, so no alignment gap,
+    # and at scale 1, so no coefficients) behind the table, a row an image
+    frames = sum(f.nbytes for f in _frames())
+    assert frames % letterbox_cuda.ALIGN == 0
+    table = B * letterbox_cuda.TABLE_ROW_BYTES
+    assert c["serve.upload"]["bytes"] == calls * (frames + table)
+    assert c["serve.letterbox"]["bytes"] == calls * frames
     assert c["serve.call"]["ns"] >= sum(c[n]["ns"] for n in SERVE_CHILDREN)
 
 

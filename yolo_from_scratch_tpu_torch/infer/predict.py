@@ -7,9 +7,9 @@ then the gate -> un-letterbox -> top-k prefilter -> class-aware greedy
 NMS -> (x1, y1, x2, y2, conf, cls) tuples in original image coordinates.
 The anchor head gates on objectness and scores obj * cls; the anchor-free
 head (objectness folded into its classes) gates on and scores its best
-class probability, one prediction a cell. Everything after the host
-letterbox runs on the predictor's device with fixed shapes; only the
-final (K, ...) block is copied back.
+class probability, one prediction a cell. Everything after the letterbox
+runs on the predictor's device with fixed shapes; only the final (K, ...)
+block is copied back.
 NMS goes through the CUDA kernel's wrapper (`ops/nms_cuda.py`), which
 launches the kernel for CUDA tensors and runs the plain version for CPU
 tensors.
@@ -18,9 +18,12 @@ tensors.
   `device_letterbox=True` the B=1 batch program behind the device
   letterbox.
 - `BatchPredictor`: B images a call, one forward and ONE NMS launch for
-  the whole batch (`make_batch_postprocess`); `device_letterbox=True`
-  moves resize and pad onto the device (`data/letterbox.py::
-  letterbox_device_bucketed`), the host only decodes.
+  the whole batch (`make_batch_postprocess`). The host decodes and stages
+  the raw frames in one buffer, uploaded once; L1
+  (`ops/letterbox_cuda.py`) makes PIL's letterboxed bytes from them on
+  the device. `device_letterbox=True` takes the JAX package's device
+  letterbox instead (`data/letterbox.py::letterbox_device_bucketed`,
+  within ~1.5 LSB of PIL).
 - `PipelinedPredictor`: single-image requests with up to `depth` in
   flight; each result comes back through pinned host memory behind a CUDA
   event.
@@ -33,7 +36,8 @@ included).
 
 A config with the packed layouts (`cfg.packed_stem`, `models/packed.py`)
 is served packed: the host letterboxes and packs each image 4x
-(`pack_s2d_host`) before the upload. Behind `device_letterbox=True` the
+(`pack_s2d_host`) before the upload, or, in `BatchPredictor`, L1 writes
+that layout. Behind `device_letterbox=True` the
 device emits pixel images, and the predictors serve them through the
 unpacked model on the same weights, as the JAX package does.
 
@@ -68,6 +72,7 @@ from yolo_from_scratch_tpu_torch.models.yolo import (
     cast_convs_,
     compute_dtype,
 )
+from yolo_from_scratch_tpu_torch.ops import letterbox_cuda
 from yolo_from_scratch_tpu_torch.ops.decode import decode_predictions
 from yolo_from_scratch_tpu_torch.ops.nms import (
     NEG_INF,
@@ -263,13 +268,18 @@ def make_batch_postprocess(model: YOLO, cfg: YoloConfig, conf_threshold=0.5,
 
 
 def _image_array(image):
-    """A decoded HWC uint8 array of a path, PIL image or array (arrays
-    need no PIL)."""
+    """A decoded HWC uint8 RGB array of a path, PIL image or array (an
+    HWC 3-channel array needs no PIL; other arrays convert as
+    `letterbox_input` converts them)."""
     if isinstance(image, np.ndarray):
-        return np.asarray(image, np.uint8)
+        image = np.asarray(image, np.uint8)
+        if image.ndim == 3 and image.shape[2] == 3:
+            return image
     from PIL import Image
 
-    if not hasattr(image, "size"):
+    if isinstance(image, np.ndarray):
+        image = Image.fromarray(image)
+    elif not hasattr(image, "size"):
         image = Image.open(image)
     return np.asarray(image.convert("RGB"), np.uint8)
 
@@ -514,7 +524,9 @@ def predict(state_dict, cfg, image, conf_threshold=0.5, iou_threshold=0.4,
 
 class BatchPredictor:
     """Batched serving predictor over paths, PIL images or HWC uint8
-    arrays, on an explicit device: one forward and one NMS launch a call.
+    arrays, on an explicit device: one L1 launch, one forward and one NMS
+    launch a call (`stage`; the staging buffers are the predictor's,
+    reused across calls, so it serves one call at a time).
 
     `device_letterbox=True`: the host only decodes; resize, pad and
     normalize, forward and NMS run on the device, the batch staged in one
@@ -533,6 +545,7 @@ class BatchPredictor:
         self.cfg = cfg
         self.device = torch.device(device)
         self.device_letterbox = device_letterbox
+        self._staging = letterbox_cuda.Staging(self.device)
         self.model = _load_model(state_dict, cfg, self.device)
         if quantize_calib is not None:
             self.model = _quantize(self.model, state_dict, cfg,
@@ -569,27 +582,24 @@ class BatchPredictor:
                     t.copy_(state_dict[key])
 
     def stage(self, images):
-        """Host letterbox of every image (packed, for a packed model),
-        uploaded as one uint8 batch. Returns the postprocess args."""
-        with span("serve.letterbox"):
-            staged = [letterbox_input(image, self.cfg.img_size)
-                      for image in images]
-            batch = torch.from_numpy(_host_pack(
-                np.stack([s[0] for s in staged]), self.cfg))
-            params = torch.tensor([s[1:] for s in staged],
-                                  dtype=torch.float32)
-        with span("serve.upload", nbytes=batch.nbytes + params.nbytes):
-            return (batch.to(self.device),
-                    *params.to(self.device).unbind(1))
+        """The decoded frames staged on the host, uploaded in one copy and
+        letterboxed on the device by L1 in the model's input layout
+        (packed, for a packed model), inside `serve.letterbox`,
+        `serve.upload` and `serve.l1` (`Staging.letterbox`). Returns the
+        postprocess args."""
+        return self._staging.letterbox(
+            (_image_array(image) for image in images), self.cfg.img_size,
+            self.cfg.packed_stem)
 
     @torch.inference_mode()
     def __call__(self, images):
         """images: list of paths, PIL images or HWC uint8 arrays. Returns a
         list (per image) of [(x1, y1, x2, y2, conf, cls), ...] in original
         coordinates. Spans (`utils/metrics_log.py`): `serve.call` around
-        the call; inside it `serve.letterbox`, `serve.upload`,
-        `serve.forward` (the host's dispatch), `serve.download` (which
-        waits for the card) and `serve.lists`."""
+        the call; inside it `serve.letterbox` (the host's staging),
+        `serve.upload`, `serve.l1` (L1's launch), `serve.forward` (the
+        host's dispatch), `serve.download` (which waits for the card) and
+        `serve.lists`."""
         with span("serve.call"):
             if self.device_letterbox:
                 with span("serve.letterbox"):

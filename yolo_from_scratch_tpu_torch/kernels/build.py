@@ -157,4 +157,8 @@ def load_library() -> ctypes.CDLL:
     lib.quant_input.restype = i32
     lib.int8_conv_error_string.argtypes = [i32]
     lib.int8_conv_error_string.restype = ctypes.c_char_p
+    lib.letterbox_u8.argtypes = [ptr, i32, i32, i32, ptr, ptr]
+    lib.letterbox_u8.restype = i32
+    lib.letterbox_error_string.argtypes = [i32]
+    lib.letterbox_error_string.restype = ctypes.c_char_p
     return lib
